@@ -1,0 +1,189 @@
+"""Frozen configuration dataclasses, copied from the JAX package.
+
+Copied rather than imported: the reference package's ``__init__`` imports
+jax, which the port's machines do not have.  ``tests/test_torch_slice.py``
+holds every field and default equal to the original
+(`nn_conformer_for_speech_recognition_tpu/config.py`).
+
+Dropped from the copy: ``ModelConfig.resolved_*`` (they key off
+``jax.default_backend()``) and ``FLASH_ATTENTION_MIN_T`` (a TPU crossover).
+The port resolves by tensor device instead (`resolve_compute_dtype`,
+`ModelConfig.use_kernels`): on CUDA the compute dtype is bfloat16 and the
+hand-written kernels run at every sequence length; on the CPU the compute
+dtype is float32 and every kernel wrapper runs its plain PyTorch twin.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+
+def _frozen(cls):
+    return dataclasses.dataclass(frozen=True)(cls)
+
+
+@_frozen
+class FeatureConfig:
+    """Log-mel spectrogram extraction (librosa-style centered STFT,
+    Slaney mel).  ``impl``: 'auto' or 'pallas' route through the
+    hand-written STFT/log-mel kernel for a CUDA tensor; 'xla' forces the
+    plain PyTorch ops on every device."""
+
+    sample_rate: int = 16000
+    n_fft: int = 512
+    hop_length: int = 512
+    win_length: Optional[int] = None  # defaults to n_fft
+    n_mels: int = 40
+    fmin: float = 0.0
+    fmax: Optional[float] = None  # defaults to sample_rate / 2
+    log_floor: float = 1e-10
+    # 'minmax' | 'meanvar' | 'none'
+    normalize: str = "minmax"
+    htk: bool = False
+    impl: str = "auto"
+
+    @property
+    def win_length_(self) -> int:
+        return self.win_length or self.n_fft
+
+    @property
+    def fmax_(self) -> float:
+        return self.fmax if self.fmax is not None else self.sample_rate / 2.0
+
+    def num_frames(self, num_samples: int) -> int:
+        """Number of STFT frames for a centered STFT (librosa semantics)."""
+        return num_samples // self.hop_length + 1
+
+
+@_frozen
+class SubsamplingConfig:
+    """Time-preserving stride-2 conv subsampling (512 → 128 channels)."""
+
+    channels: Tuple[int, ...] = (512, 128)
+    kernel_sizes: Tuple[int, ...] = (7, 3)
+    time_strides: Tuple[int, ...] = (2, 2)
+    freq_strides: Tuple[int, ...] = (2, 2)
+
+    @property
+    def time_reduction(self) -> int:
+        r = 1
+        for s in self.time_strides:
+            r *= s
+        return r
+
+    def subsampled_length(self, t: int) -> int:
+        for s in self.time_strides:
+            t = -(-t // s)  # ceil div: SAME padding conv with stride s
+        return t
+
+
+@_frozen
+class ConformerConfig:
+    """Conformer encoder: ½FFN → MHSA(rel-pos) → Conv → ½FFN → LN."""
+
+    num_blocks: int = 1
+    d_model: int = 512
+    num_heads: int = 8
+    ffn_dim: int = 512
+    ffn_expansion_in_block: bool = True  # if True, ffn_dim is the hidden size
+    conv_kernel_size: int = 33
+    conv_expansion: int = 2  # pointwise conv expands to conv_expansion*d_model
+    dropout: float = 0.5
+    attention_dropout: float = 0.0
+    use_relative_attention: bool = True
+    # 'batchnorm' (masked) | 'groupnorm' | 'layernorm'; the port runs batchnorm
+    conv_norm: str = "batchnorm"
+
+
+@_frozen
+class DecoderConfig:
+    """CTC head: projection + BiLSTM + linear."""
+
+    projection_dim: int = 256
+    lstm_hidden: int = 512
+    lstm_layers: int = 1
+    bidirectional: bool = True
+    dropout: float = 0.5
+
+
+@_frozen
+class ModelConfig:
+    """``use_pallas`` keeps its reference name: True routes attention and
+    the BiLSTM through the hand-written kernels (on a CUDA tensor), False
+    runs the plain PyTorch ops everywhere.  The port's BiLSTM always owns
+    the packed (kernel) parameter layout; `convert.py` packs the flax
+    ``OptimizedLSTMCell`` tree into it."""
+
+    subsampling: SubsamplingConfig = SubsamplingConfig()
+    encoder: ConformerConfig = ConformerConfig()
+    decoder: DecoderConfig = DecoderConfig()
+    n_mels: int = 40
+    # 'auto' | 'bfloat16' | 'float32'; 'auto' = bf16 on CUDA, f32 on the CPU
+    compute_dtype: str = "auto"
+    use_pallas: bool = False
+    # 'auto' | 'flash' | 'xla'
+    attention_impl: str = "auto"
+    # 'auto' | 'pallas' | 'xla'; the depthwise kernel is not ported yet
+    conv_impl: str = "auto"
+    # 'auto' | 'pallas' | 'xla'
+    lstm_impl: str = "auto"
+    remat: bool = False
+
+    def subsampled_length(self, t: int) -> int:
+        return self.subsampling.subsampled_length(t)
+
+
+def resolve_compute_dtype(config: ModelConfig, device: torch.device) -> torch.dtype:
+    """bfloat16 on CUDA and float32 on the CPU for 'auto'; explicit values
+    are honoured on every device."""
+    if config.compute_dtype == "auto":
+        return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
+    if config.compute_dtype not in ("bfloat16", "float32"):
+        raise ValueError(
+            f"compute_dtype must be 'auto', 'bfloat16' or 'float32', "
+            f"got {config.compute_dtype!r}"
+        )
+    return getattr(torch, config.compute_dtype)
+
+
+def uses_attention_kernel(config: ModelConfig) -> bool:
+    """True when attention goes through the rel-pos flash kernel wrapper.
+    No sequence-length threshold: on CUDA the kernel runs at every T."""
+    return config.use_pallas and config.attention_impl in ("auto", "flash")
+
+
+def uses_lstm_kernel(config: ModelConfig) -> bool:
+    return config.use_pallas and config.lstm_impl in ("auto", "pallas")
+
+
+def conformer_s(**overrides) -> ModelConfig:
+    """~10M param Conformer-S."""
+    enc = ConformerConfig(
+        num_blocks=4, d_model=256, num_heads=4, ffn_dim=1024,
+        conv_kernel_size=33, dropout=0.1,
+    )
+    dec = DecoderConfig(projection_dim=256, lstm_hidden=320, dropout=0.1)
+    return ModelConfig(encoder=enc, decoder=dec, **overrides)
+
+
+def conformer_m(**overrides) -> ModelConfig:
+    """Conformer-M, 16 blocks."""
+    enc = ConformerConfig(
+        num_blocks=16, d_model=256, num_heads=4, ffn_dim=1024,
+        conv_kernel_size=33, dropout=0.1,
+    )
+    dec = DecoderConfig(projection_dim=256, lstm_hidden=320, dropout=0.1)
+    return ModelConfig(encoder=enc, decoder=dec, **overrides)
+
+
+def conformer_l(**overrides) -> ModelConfig:
+    """~100M param Conformer-L."""
+    enc = ConformerConfig(
+        num_blocks=17, d_model=512, num_heads=8, ffn_dim=2048,
+        conv_kernel_size=33, dropout=0.1,
+    )
+    dec = DecoderConfig(projection_dim=512, lstm_hidden=640, dropout=0.1)
+    return ModelConfig(encoder=enc, decoder=dec, **overrides)
