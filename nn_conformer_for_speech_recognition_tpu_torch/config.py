@@ -8,9 +8,10 @@ holds every field and default equal to the original
 Dropped from the copy: ``ModelConfig.resolved_*`` (they key off
 ``jax.default_backend()``) and ``FLASH_ATTENTION_MIN_T`` (a TPU crossover).
 The port resolves by tensor device instead (`resolve_compute_dtype`,
-`ModelConfig.use_kernels`): on CUDA the compute dtype is bfloat16 and the
-hand-written kernels run at every sequence length; on the CPU the compute
-dtype is float32 and every kernel wrapper runs its plain PyTorch twin.
+`uses_attention_kernel`, `attention_route`, `uses_lstm_kernel`): on CUDA
+the compute dtype is bfloat16 and the hand-written kernels run at every
+sequence length; on the CPU the compute dtype is float32 and every kernel
+wrapper runs its plain PyTorch twin.
 """
 
 from __future__ import annotations
@@ -56,6 +57,25 @@ class FeatureConfig:
     def num_frames(self, num_samples: int) -> int:
         """Number of STFT frames for a centered STFT (librosa semantics)."""
         return num_samples // self.hop_length + 1
+
+
+@_frozen
+class SpecAugmentConfig:
+    """SpecAugment policy: W=1 time warp, F=5 frequency mask twice, T=5
+    time mask with multiplicity Mt=2, optional adaptive multiplicity
+    (``Mt = min(Mt, floor(pm * tau))``) and size (``T = floor(ps * tau)``)."""
+
+    time_warp_w: int = 1
+    time_warp_n: int = 1
+    freq_mask_f: int = 5
+    freq_mask_n: int = 2
+    time_mask_t: int = 5
+    time_mask_n: int = 2
+    pm: float = 0.05
+    ps: float = 0.05
+    adaptive_multiplicity: bool = False
+    adaptive_size: bool = False
+    mask_value: float = 0.0
 
 
 @_frozen
@@ -130,10 +150,26 @@ class ModelConfig:
     conv_impl: str = "auto"
     # 'auto' | 'pallas' | 'xla'
     lstm_impl: str = "auto"
+    # recompute each Conformer block in the backward pass
+    # (torch.utils.checkpoint) instead of storing its activations
     remat: bool = False
 
     def subsampled_length(self, t: int) -> int:
         return self.subsampling.subsampled_length(t)
+
+
+@_frozen
+class OptimizerConfig:
+    """Adafactor with a fixed learning rate, momentum (beta1) 0.9, no
+    parameter scaling and no relative step, as the reference trains."""
+
+    name: str = "adafactor"
+    learning_rate: float = 2e-5
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    clip_threshold: float = 1.0
+    warmup_steps: int = 0  # 0 = constant lr (reference semantics)
+    schedule: str = "constant"  # or 'transformer' (inverse-sqrt w/ warmup)
 
 
 def resolve_compute_dtype(config: ModelConfig, device: torch.device) -> torch.dtype:
@@ -150,9 +186,30 @@ def resolve_compute_dtype(config: ModelConfig, device: torch.device) -> torch.dt
 
 
 def uses_attention_kernel(config: ModelConfig) -> bool:
-    """True when attention goes through the rel-pos flash kernel wrapper.
-    No sequence-length threshold: on CUDA the kernel runs at every T."""
+    """True when attention in eval mode goes through the rel-pos flash
+    kernel wrapper.  No sequence-length threshold: on CUDA the kernel runs
+    at every T."""
     return config.use_pallas and config.attention_impl in ("auto", "flash")
+
+
+def attention_route(config: ModelConfig, training: bool) -> str:
+    """'kernel' (the rel-pos flash kernel wrapper) or 'einsum' (the plain,
+    differentiable rel-pos attention).
+
+    Eval mode follows `uses_attention_kernel`.  Training always takes the
+    einsum route, as the JAX package does below ``FLASH_ATTENTION_MIN_T``
+    (768 frames, i.e. clips under ~98 s): the attention kernel has no
+    backward yet, and its wrapper refuses inputs that need a gradient.
+    Asking for ``attention_impl='flash'`` in training raises.
+    """
+    if not training:
+        return "kernel" if uses_attention_kernel(config) else "einsum"
+    if config.use_pallas and config.attention_impl == "flash":
+        raise NotImplementedError(
+            "attention_impl='flash' cannot train yet: the attention backward "
+            "kernels come with the long-form slice"
+        )
+    return "einsum"
 
 
 def uses_lstm_kernel(config: ModelConfig) -> bool:

@@ -39,6 +39,8 @@ _MODULE_RENAMES = {
 _LEAF_RENAMES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 _INDEXED = re.compile(r"(Conv|block)_(\d+)")
 _GATES = ("i", "f", "g", "o")
+# parameter rank → permutation from the port's layout back to flax's
+_FLAX_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -75,6 +77,17 @@ def _to_torch_layout(path: Tuple[str, ...], x: np.ndarray) -> np.ndarray:
     if x.ndim == 4:  # NHWC (kh, kw, in, out) → (out, in, kh, kw)
         return x.transpose(3, 2, 0, 1)
     raise ValueError(f"unexpected kernel rank {x.ndim} at {'/'.join(path)}")
+
+
+def flax_axes(name: str, ndim: int) -> Tuple[int, ...]:
+    """Permutation that takes the port's parameter ``name`` back to the JAX
+    package's layout (``param.permute(axes)``), the inverse of
+    `_to_torch_layout`: Linear (out, in) → (in, out), depthwise (C, 1, K) →
+    (K, 1, C), Conv2d (out, in, kh, kw) → (kh, kw, in, out).  The packed
+    LSTM weights, the rel-pos biases and every vector keep their layout."""
+    if name.endswith("weight") and ndim in _FLAX_AXES:
+        return _FLAX_AXES[ndim]
+    return tuple(range(ndim))
 
 
 def _pack_lstm_cells(cells: Dict[int, Dict[str, np.ndarray]], config: ModelConfig) -> Dict[str, np.ndarray]:
@@ -121,4 +134,4 @@ def flax_to_state_dict(variables: Mapping, config: ModelConfig) -> Dict[str, tor
     if cells:
         for name, value in _pack_lstm_cells(cells, config).items():
             put(name, value, ("decoder_lstm", name))
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in arrays.items()}

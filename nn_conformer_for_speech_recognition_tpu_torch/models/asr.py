@@ -1,9 +1,12 @@
 """The ASR model: Conformer encoder + BiLSTM CTC head, port of
 `nn_conformer_for_speech_recognition_tpu/models/asr.py`.
 
-features (B, T, n_mels) + lengths → ConvSubsampling → Conformer blocks →
-Linear → SiLU → masked BatchNorm → BiLSTM → dropout → Linear (float32) →
-log_softmax (float32).
+features (B, T, n_mels) + lengths → ConvSubsampling → dropout → Conformer
+blocks → Linear → SiLU → masked BatchNorm → BiLSTM → dropout → Linear
+(float32) → log_softmax (float32).  ``model.train()`` / ``model.eval()``
+play the JAX package's ``deterministic=False`` / ``True``: dropout and the
+batch-statistics update in training, and the attention route chosen by
+`config.attention_route`.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ import torch.nn.functional as F
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import (
     ModelConfig,
+    attention_route,
     resolve_compute_dtype,
-    uses_attention_kernel,
     uses_lstm_kernel,
 )
 from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import (
@@ -36,6 +39,9 @@ class BiLSTM(nn.Module):
     ``w_hh`` (H, 4H) and one ``bias`` (4H,), gates in i, f, g, o order.
     The input projection runs in the compute dtype and is cast to float32;
     the recurrence is float32; the output is cast back to the compute dtype.
+    With ``use_kernel`` the recurrence is `ops.cuda.lstm.lstm` (the kernels
+    and their autograd Function on CUDA, the same Function over the plain
+    twins on the CPU); otherwise `lstm_plain`, differentiated by autograd.
     """
 
     def __init__(
@@ -76,7 +82,7 @@ class ConformerCTC(nn.Module):
         self.config = config
         enc, dec = config.encoder, config.decoder
         self.subsampling = ConvSubsampling(config.subsampling, enc.d_model, config.n_mels)
-        self.encoder = ConformerEncoder(enc, uses_attention_kernel(config))
+        self.encoder = ConformerEncoder(enc, remat=config.remat)
         self.projection = Linear(enc.d_model, dec.projection_dim)
         self.projection_norm = MaskedBatchNorm(dec.projection_dim)
         self.decoder_lstm = BiLSTM(
@@ -92,7 +98,7 @@ class ConformerCTC(nn.Module):
         dtype = resolve_compute_dtype(self.config, features.device)
         h, lengths = self.subsampling(features, frame_lengths, dtype)
         h = F.dropout(h, self.config.encoder.dropout, self.training)
-        h = self.encoder(h, lengths)
+        h = self.encoder(h, lengths, attention_route(self.config, self.training) == "kernel")
         mask = length_mask(lengths, h.shape[1])
         h = self.projection_norm(F.silu(self.projection(h)), mask)
         return h * mask[..., None].to(h.dtype), lengths

@@ -4,19 +4,23 @@
 Macaron block: ½FFN → MHSA(rel-pos) → ConvModule → ½FFN → LayerNorm, with
 mask-based length handling.  Parameters are float32; each layer computes in
 the dtype of its input (bfloat16 on CUDA, float32 on the CPU, see
-`config.resolve_compute_dtype`).  With ``use_kernel`` the attention goes
-through the rel-pos flash kernel wrapper (`ops/cuda/attention.py`), which
-launches the kernel for CUDA tensors at every sequence length.
+`config.resolve_compute_dtype`).  The caller picks the attention route per
+forward (`config.attention_route`): the rel-pos flash kernel wrapper
+(`ops/cuda/attention.py`, forward only) or the plain einsum attention,
+which also drops attention probabilities in training.  With ``remat`` each
+block is recomputed in the backward pass (`torch.utils.checkpoint`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import ConformerConfig
 from nn_conformer_for_speech_recognition_tpu_torch.models.layers import (
@@ -47,11 +51,15 @@ def sinusoidal_rel_positions(t: int, d_model: int) -> np.ndarray:
 
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over (batch, time) with padded frames excluded from the
-    statistics; eval mode normalises with the running statistics."""
+    statistics (biased variance over valid frames); eval mode normalises
+    with the running statistics.  Training updates them as
+    ``running = momentum * running + (1 - momentum) * batch`` unless
+    ``update_stats`` is off (a rematerialised block's recompute)."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
         self.momentum, self.eps = momentum, eps
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -63,10 +71,10 @@ class MaskedBatchNorm(nn.Module):
             denom = torch.clamp_min(m.sum(), 1.0)
             mean = (x * m).sum(dim=(0, 1)) / denom
             var = (((x - mean) ** 2) * m).sum(dim=(0, 1)) / denom
-            with torch.no_grad():
+            if self.update_stats:
                 mom = self.momentum
-                self.running_mean.mul_(mom).add_((1 - mom) * mean.float())
-                self.running_var.mul_(mom).add_((1 - mom) * var.float())
+                self.running_mean.mul_(mom).add_((1 - mom) * mean.detach().float())
+                self.running_var.mul_(mom).add_((1 - mom) * var.detach().float())
         else:
             mean, var = self.running_mean, self.running_var
         y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + self.eps)
@@ -92,12 +100,11 @@ class RelPositionMHSA(nn.Module):
     """Multi-head self-attention with Transformer-XL relative position bias:
     score(i,j) = (q_i + u)·k_j + (q_i + v)·r_{j-i}, softmax over valid keys."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout: float, use_kernel: bool):
+    def __init__(self, d_model: int, num_heads: int, dropout: float):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must divide into num_heads")
         self.d_model, self.num_heads, self.dropout = d_model, num_heads, dropout
-        self.attention = flash_relpos_attention if use_kernel else flash_relpos_attention_plain
         dh = d_model // num_heads
         self.norm = LayerNorm(d_model)
         self.qkv = Linear(d_model, 3 * d_model, bias=False)
@@ -107,18 +114,21 @@ class RelPositionMHSA(nn.Module):
         self.v_bias = nn.Parameter(torch.zeros(num_heads, dh))
 
     def forward(
-        self, x: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor
+        self, x: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor, use_kernel: bool = False
     ) -> torch.Tensor:
-        """``rel``: (2T-1, d_model) sinusoidal table in x's dtype.  As on the
-        JAX package's flash path, dropout applies to the output only."""
+        """``rel``: (2T-1, d_model) sinusoidal table in x's dtype.
+        ``use_kernel`` sends the attention through the flash kernel wrapper
+        (forward only; dropout on the output only, as the JAX flash path);
+        otherwise the einsum attention also drops probabilities in training."""
         b, t, _ = x.shape
         h, dh = self.num_heads, self.d_model // self.num_heads
         q, k, v = self.qkv(self.norm(x)).reshape(b, t, 3, h, dh).unbind(dim=2)
         p = self.pos_proj(rel).reshape(2 * t - 1, h, dh)
-        out = self.attention(
-            q + self.u_bias.to(x.dtype), q + self.v_bias.to(x.dtype), k, v, p,
-            lengths, 1.0 / float(np.sqrt(dh)),
-        )
+        args = (q + self.u_bias.to(x.dtype), q + self.v_bias.to(x.dtype), k, v, p, lengths, 1.0 / float(np.sqrt(dh)))
+        if use_kernel:
+            out = flash_relpos_attention(*args)
+        else:
+            out = flash_relpos_attention_plain(*args, dropout=self.dropout if self.training else 0.0)
         out = self.out_proj(out.reshape(b, t, self.d_model))
         return F.dropout(out, self.dropout, self.training)
 
@@ -150,16 +160,14 @@ class ConvModule(nn.Module):
 
 
 class ConformerBlock(nn.Module):
-    def __init__(self, config: ConformerConfig, use_kernel: bool):
+    def __init__(self, config: ConformerConfig):
         super().__init__()
         if not config.use_relative_attention:
             raise NotImplementedError("only relative-position attention is ported")
         if config.conv_norm != "batchnorm":
             raise NotImplementedError(f"conv_norm={config.conv_norm!r} is not ported")
         self.ffn1 = FeedForwardModule(config.d_model, config.ffn_dim, config.dropout)
-        self.mhsa = RelPositionMHSA(
-            config.d_model, config.num_heads, config.attention_dropout, use_kernel
-        )
+        self.mhsa = RelPositionMHSA(config.d_model, config.num_heads, config.attention_dropout)
         self.conv = ConvModule(
             config.d_model, config.conv_kernel_size, config.conv_expansion, config.dropout
         )
@@ -167,29 +175,55 @@ class ConformerBlock(nn.Module):
         self.norm = LayerNorm(config.d_model)
 
     def forward(
-        self, x: torch.Tensor, mask: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor
+        self, x: torch.Tensor, mask: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor,
+        attention_kernel: bool = False,
     ) -> torch.Tensor:
         x = x + 0.5 * self.ffn1(x)
-        x = x + self.mhsa(x, lengths, rel)
+        x = x + self.mhsa(x, lengths, rel, attention_kernel)
         x = x + self.conv(x, mask)
         x = x + 0.5 * self.ffn2(x)
         return self.norm(x) * mask[..., None].to(x.dtype)
 
 
+@contextlib.contextmanager
+def _frozen_batch_stats(module: nn.Module):
+    """Running statistics untouched inside: a rematerialised block's
+    recompute must not update them a second time."""
+    norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
+
+
 class ConformerEncoder(nn.Module):
-    """Stack of Conformer blocks; (B, T, d_model) + lengths → (B, T, d_model)."""
+    """Stack of Conformer blocks; (B, T, d_model) + lengths → (B, T, d_model).
 
-    def __init__(self, config: ConformerConfig, use_kernel: bool):
+    With ``remat`` each block runs under non-reentrant
+    ``torch.utils.checkpoint`` whenever autograd records: its activations
+    are recomputed in the backward pass (the JAX package's ``nn.remat``).
+    The checkpoint restores the RNG state for the recompute, so dropout
+    replays the same masks, and the recompute leaves the batch statistics
+    alone."""
+
+    def __init__(self, config: ConformerConfig, remat: bool = False):
         super().__init__()
-        self.d_model = config.d_model
-        self.blocks = nn.ModuleList(
-            ConformerBlock(config, use_kernel) for _ in range(config.num_blocks)
-        )
+        self.d_model, self.remat = config.d_model, remat
+        self.blocks = nn.ModuleList(ConformerBlock(config) for _ in range(config.num_blocks))
 
-    def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, attention_kernel: bool = False) -> torch.Tensor:
         t = x.shape[1]
         mask = length_mask(lengths, t)
         rel = torch.from_numpy(sinusoidal_rel_positions(t, self.d_model)).to(x.device, x.dtype)
         for block in self.blocks:
-            x = block(x, mask, lengths, rel)
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(
+                    block, x, mask, lengths, rel, attention_kernel, use_reentrant=False,
+                    context_fn=lambda block=block: (contextlib.nullcontext(), _frozen_batch_stats(block)),
+                )
+            else:
+                x = block(x, mask, lengths, rel, attention_kernel)
         return x

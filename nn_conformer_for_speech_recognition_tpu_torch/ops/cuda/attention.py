@@ -3,7 +3,10 @@
 Replaces the TPU kernel
 `nn_conformer_for_speech_recognition_tpu/ops/pallas/attention.py:_flash_relpos_kernel`
 (called through ``_flash_relpos_forward``), forward only and without the
-logsumexp output, which only the backward needs.  Score:
+logsumexp output, which only the backward needs.  It has no backward yet,
+so the wrapper refuses inputs that need a gradient rather than return a
+tensor cut off from the graph; training takes the plain (einsum) route
+(`config.attention_route`).  Score:
 
     s[i, j] = ((q_i + u)·k_j + (q_i + v)·p[j - i + T - 1]) · scale
 
@@ -27,6 +30,8 @@ Tensor-core (wgmma) tiles and TMA loads are later work.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from nn_conformer_for_speech_recognition_tpu_torch.ops.relshift import rel_shift
@@ -43,9 +48,14 @@ def flash_relpos_attention_plain(
     p: torch.Tensor,  # (2T-1, H, dh) projected rel-pos table
     lengths: torch.Tensor,  # (B,) valid key counts
     scale: float,
+    dropout: float = 0.0,
+    keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch rel-pos attention (the JAX einsum path): scores in
-    float32, probabilities cast to v's dtype before the value product."""
+    float32, probabilities cast to v's dtype before the value product.
+    With ``dropout`` > 0 the probabilities are dropped after the cast, as
+    the JAX einsum path does in training; ``keep`` (B, H, T, T) bool
+    supplies the mask instead of a draw."""
     t = qu.shape[1]
     ac = torch.einsum("bihd,bjhd->bhij", qu.float(), k.float())
     bd = rel_shift(torch.einsum("bihd,lhd->bhil", qv.float(), p.float()))
@@ -53,6 +63,10 @@ def flash_relpos_attention_plain(
     valid = torch.arange(t, device=qu.device)[None, :] < lengths[:, None]
     scores = scores.masked_fill(~valid[:, None, None, :], MASK_VALUE)
     attn = torch.softmax(scores, dim=-1).to(v.dtype)
+    if dropout > 0.0:
+        if keep is None:
+            keep = torch.rand(attn.shape, device=attn.device) >= dropout
+        attn = torch.where(keep, attn / (1.0 - dropout), 0.0).to(v.dtype)
     return torch.einsum("bhij,bjhd->bihd", attn, v)
 
 
@@ -65,8 +79,14 @@ def flash_relpos_attention(
     lengths: torch.Tensor,
     scale: float,
 ) -> torch.Tensor:
-    """(B, T, H, dh) rel-pos attention.  The kernel for CUDA tensors, the
-    plain twin for CPU ones."""
+    """(B, T, H, dh) rel-pos attention, forward only.  The kernel for CUDA
+    tensors, the plain twin for CPU ones.  Raises when autograd is
+    recording and an input requires a gradient, on either device."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (qu, qv, k, v, p)):
+        raise RuntimeError(
+            "flash_relpos_attention has no backward kernel yet (it comes with the "
+            "long-form slice); train through the einsum route (config.attention_route)"
+        )
     if qu.device.type == "cpu":
         return flash_relpos_attention_plain(qu, qv, k, v, p, lengths, scale)
     if qu.device.type != "cuda":

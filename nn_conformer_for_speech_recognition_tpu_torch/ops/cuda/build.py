@@ -1,9 +1,10 @@
 """Builds the hand-written kernels with ``nvcc`` at first use and loads them.
 
-All ``csrc/*.cu`` sources go into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), named by a hash
-of the sources and flags and written under the package's ``_build/``
-directory, which git ignores.  Each launcher takes raw device pointers and
+Each ``csrc/*.cu`` source is compiled to an object by its own ``nvcc``,
+all started together, and the objects are linked into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+named by a hash of the sources and flags and written under the package's
+``_build/`` directory, which git ignores.  Each launcher takes raw device pointers and
 the CUDA stream as ``void*``, launches on that stream and returns
 ``cudaGetLastError()``; `check` raises when that is not 0.
 
@@ -26,7 +27,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,8 +41,18 @@ SIGNATURES = {
     # qu, qv, k, v, p, lengths, out, batch, t, heads, head_dim, scale,
     # is_bf16, stream
     "attention_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # xw, w_hh, lengths, h_out, batch, t, hidden, reverse, stream
-    "lstm_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xw, w_hh, lengths, h_out, c_out | NULL, gates_out | NULL, batch, t,
+    # hidden, reverse, stream
+    "lstm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # gout, gates, c, w_hh_t, lengths, dxw, batch, t, hidden, reverse, stream
+    "lstm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # h, dxw, dw, batch, t, hidden, reverse, stream
+    "lstm_dwhh": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # emit, can_skip, ext_len, input_len, alpha, batch, t, states, stream
+    "ctc_alpha": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # emit, alpha, can_skip, ext_len, input_len, ll, g, demit, batch, t,
+    # states, stream
+    "ctc_beta": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -75,15 +86,32 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if verbose or proc.returncode != 0:
-        print(" ".join(cmd))
-        print(proc.stdout + proc.stderr, flush=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}")
-    os.replace(tmp, out)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        log = proc.communicate()[0]
+        if verbose or proc.returncode != 0:
+            print(" ".join(cmd) + "\n" + log, flush=True)
+        if proc.returncode != 0:
+            failed.append(Path(cmd[-1]).name)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            print(link.stdout + link.stderr, flush=True)
+            raise RuntimeError(f"nvcc link failed with exit code {link.returncode}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return out
 
 

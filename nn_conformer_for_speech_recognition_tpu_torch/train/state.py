@@ -1,0 +1,43 @@
+"""Train state, port of `nn_conformer_for_speech_recognition_tpu/train/state.py`.
+
+The JAX state is an immutable pytree of params, batch stats, optimizer
+state, step and PRNG key.  Here the module holds its parameters and batch
+statistics, and the optimizer its own state; `TrainState` groups them with
+the step count, the seed that dropout is drawn from, and an explicit
+``torch.Generator`` on the model's device for the SpecAugment draws and
+the waveform noise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+from nn_conformer_for_speech_recognition_tpu_torch.train.optim import Adafactor
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: ConformerCTC
+    optimizer: Adafactor
+    generator: torch.Generator
+    seed: int
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: ConformerCTC, optimizer: Adafactor, seed: int) -> "TrainState":
+        device = next(model.parameters()).device
+        generator = torch.Generator(device=device).manual_seed(seed)
+        return cls(model=model, optimizer=optimizer, generator=generator, seed=seed)
+
+    def dropout_seed(self) -> int:
+        """Seed of the device generator for this step's dropout masks: a
+        step repeated from the same state draws the same masks."""
+        return (self.seed * 1_000_003 + self.step) % (2 ** 63)
+
+    def apply_gradients(self) -> None:
+        """One optimizer update from the parameters' ``.grad``."""
+        self.optimizer.step()
+        self.step += 1

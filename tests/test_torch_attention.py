@@ -77,10 +77,10 @@ def test_mhsa_with_converted_weights(rng, monkeypatch, use_kernel):
     params = jax.tree.map(lambda a: np.asarray(a) + 0.1 * rng.standard_normal(a.shape).astype(np.float32), params)
     ref = np.asarray(jm.apply(params, jnp.asarray(x), mask, True))
 
-    tm = TC.RelPositionMHSA(d, heads, 0.0, use_kernel=use_kernel)
+    tm = TC.RelPositionMHSA(d, heads, 0.0)
     tm.load_state_dict(flax_to_state_dict(params, None), strict=True)
     rel = torch.from_numpy(TC.sinusoidal_rel_positions(t, d))
     with torch.no_grad():
-        got = tm(torch.from_numpy(x), torch.from_numpy(lens), rel).numpy()
+        got = tm(torch.from_numpy(x), torch.from_numpy(lens), rel, use_kernel=use_kernel).numpy()
     np.testing.assert_allclose(got[0], ref[0], atol=ATOL)
     np.testing.assert_allclose(got[1, :7], ref[1, :7], atol=ATOL)

@@ -6,15 +6,23 @@ conftest:  python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.p
 
 Tolerances: float32 log-mel 1e-3 (log of sums of 512-term products taken
 in another order), float32 attention 1e-4 and bfloat16 attention 2e-2 (one
-bf16 rounding of the output and of the probabilities), LSTM 1e-4 (235
-float32 steps).
+bf16 rounding of the output and of the probabilities), LSTM forward, its
+saved c and gates, and the backward's dxw 1e-4 (235 float32 steps), dW_hh
+1e-4 of its largest entry (a sum over B·T rows); CTC: alpha within
+1e-5 of its magnitude plus 1e-3 (log-space sums of up to 235 frames),
+ll within 1e-5 relative, demit 5e-4 (posteriors exp(α + β − ll) formed
+from log-space values of ~1.5e3, where one float32 ulp is 1.2e-4), and
+against torch's own CTC the loss 1e-5 relative and the logit gradient
+1e-3.
 """
 
 import pytest
 import torch
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig
+from nn_conformer_for_speech_recognition_tpu_torch.ops import ctc as TC
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
+from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import stft_logmel as S
 
@@ -80,3 +88,110 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         L.lstm(torch.zeros(1, 3, 8, device="cuda", dtype=torch.float64),
                torch.zeros(2, 8, device="cuda"), torch.ones(1, device="cuda"))
+    with pytest.raises(ValueError, match="states exceed"):  # L = 512 labels: S = 1025 > 1024 threads
+        K.ctc_alpha(torch.zeros(1, 3, 1025, device="cuda"), torch.zeros(1, 1025, dtype=torch.bool, device="cuda"),
+                    torch.tensor([1025], device="cuda"), torch.tensor([3], device="cuda"))
+
+
+def test_attention_wrapper_refuses_inputs_that_need_a_gradient(cuda):
+    x = torch.randn(2, 5, 2, 32, device="cuda", requires_grad=True)
+    p = torch.randn(9, 2, 32, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        A.flash_relpos_attention(x, x, x, x, p, torch.tensor([5, 3], device="cuda"), 0.2)
+
+
+def _lstm_case(gen, hidden, reverse):
+    b, t = 4, 235
+    xw = torch.randn(b, t, 4 * hidden, generator=gen).cuda()
+    w_hh = (torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).cuda()
+    lengths = torch.tensor([t, 100, 1, 234], dtype=torch.int32).cuda()
+    return xw, w_hh, lengths
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden", [320, 100])
+def test_lstm_training_forward_kernel(cuda, reverse, hidden):
+    xw, w_hh, lengths = _lstm_case(cuda, hidden, reverse)
+    got = L.lstm_forward(xw, w_hh, lengths, reverse=reverse, save=True)
+    ref = L.lstm_forward_plain(xw, w_hh, lengths, reverse)
+    for g, r in zip(got, ref):
+        _close(g, r, 1e-4)
+    assert L.lstm_forward(xw, w_hh, lengths, reverse=reverse)[1:] == (None, None)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden", [320, 100, 37])
+def test_lstm_backward_kernels(cuda, reverse, hidden):
+    xw, w_hh, lengths = _lstm_case(cuda, hidden, reverse)
+    h, c, gates = L.lstm_forward_plain(xw, w_hh, lengths, reverse)
+    gout = torch.randn(h.shape, generator=cuda).cuda()
+    dxw = L.lstm_backward(gout, gates, c, w_hh, lengths, reverse=reverse)
+    _close(dxw, L.lstm_backward_plain(gout, gates, c, w_hh, lengths, reverse), 1e-4)
+    ref = L.lstm_weight_grad_plain(h, dxw, reverse)
+    _close(L.lstm_weight_grad(h, dxw, reverse=reverse), ref, 1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_gradients_reach_xw_and_w_hh(cuda, reverse):
+    """The kernel path differentiates: gradients in xw and w_hh equal those
+    of autograd through the plain loop, through one launch of each kernel."""
+    xw, w_hh, lengths = _lstm_case(cuda, 320, reverse)
+    r = torch.randn(4, 235, 320, generator=cuda).cuda()
+    grads = []
+    for fn in (L.lstm, lambda *a, reverse: L.lstm_plain(*a, reverse)):
+        x, w = xw.clone().requires_grad_(True), w_hh.clone().requires_grad_(True)
+        before = (L.lstm_forward.launches, L.lstm_backward.launches, L.lstm_weight_grad.launches)
+        (fn(x, w, lengths, reverse=reverse) * r).sum().backward()
+        after = (L.lstm_forward.launches, L.lstm_backward.launches, L.lstm_weight_grad.launches)
+        grads.append((x.grad, w.grad, [a - b for a, b in zip(after, before)]))
+    (dx, dw, counts), (dx_ref, dw_ref, _) = grads
+    assert counts == [1, 1, 1]
+    _close(dx, dx_ref, 1e-4)
+    _close(dw, dw_ref, 1e-4 * dw_ref.abs().max().item())
+
+
+def _ctc_case(gen, b=16, t=235, length=100, vocab=1024):
+    """Main-path shapes: random labels, one row of repeated pairs, one empty
+    label, one impossible alignment (100 labels in 60 frames)."""
+    labels = torch.randint(1, vocab, (b, length), generator=gen)
+    labels[1] = labels[1, : length // 2].repeat_interleave(2)
+    label_lengths = torch.full((b,), length)
+    label_lengths[2] = 0
+    input_lengths = torch.randint(2 * length + 20, t + 1, (b,), generator=gen)
+    input_lengths[0], input_lengths[3] = t, 60
+    logits = torch.randn(b, t, vocab, generator=gen) * 2
+    return [x.cuda() for x in (logits, labels, input_lengths, label_lengths)]
+
+
+def test_ctc_kernels(cuda):
+    logits, labels, in_len, lab_len = _ctc_case(cuda)
+    ext, can_skip, _, ext_len = TC.extended_labels(labels, lab_len, 0)
+    emit = TC.emit_log_probs(torch.log_softmax(logits, -1), ext)
+    alpha = K.ctc_alpha(emit, can_skip, ext_len, in_len)
+    alpha_ref = K.ctc_alpha_plain(emit, can_skip, ext_len, in_len)
+    torch.cuda.synchronize()
+    finite = alpha_ref > TC.LOG_EPS / 2
+    assert torch.equal(alpha > TC.LOG_EPS / 2, finite)
+    assert torch.all((alpha - alpha_ref).abs()[finite] <= 1e-3 + 1e-5 * alpha_ref.abs()[finite])
+    ll, ll_ref = K.final_ll(alpha[:, -1], ext_len), K.final_ll(alpha_ref[:, -1], ext_len)
+    assert ll_ref[3] == TC.LOG_EPS and torch.all(ll_ref[[0, 1, 2]] > TC.LOG_EPS / 2)
+    torch.testing.assert_close(ll, ll_ref, rtol=1e-5, atol=0)
+    g = torch.randn(16, generator=cuda).cuda()
+    demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
+    _close(demit, K.ctc_beta_plain(emit, alpha, can_skip, ext_len, in_len, ll, g), 5e-4)
+    assert torch.isfinite(demit).all()
+
+
+def test_ctc_loss_kernel_matches_torch_ctc(cuda):
+    logits, labels, in_len, lab_len = _ctc_case(cuda)
+    x, w = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
+    before = (K.ctc_alpha.launches, K.ctc_beta.launches)
+    ours = K.ctc_loss_kernel(torch.log_softmax(x, -1), labels, in_len, lab_len, reduction=None)
+    ref = torch.nn.functional.ctc_loss(torch.log_softmax(w, -1).transpose(0, 1), labels, in_len, lab_len,
+                                       reduction="none", zero_infinity=True)
+    ours.sum().backward()
+    ref.sum().backward()
+    assert (K.ctc_alpha.launches - before[0], K.ctc_beta.launches - before[1]) == (1, 1)
+    assert ours[3] == 0 and torch.all(x.grad[3] == 0)
+    torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-5)
+    _close(x.grad, w.grad, 1e-3)

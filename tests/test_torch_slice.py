@@ -39,7 +39,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def test_config_copies_equal():
-    for name in ("FeatureConfig", "SubsamplingConfig", "ConformerConfig", "DecoderConfig", "ModelConfig"):
+    for name in ("FeatureConfig", "SpecAugmentConfig", "SubsamplingConfig", "ConformerConfig", "DecoderConfig",
+                 "ModelConfig", "OptimizerConfig"):
         assert repr(getattr(TC, name)()) == repr(getattr(C, name)()), name
     for preset in ("conformer_s", "conformer_m", "conformer_l"):
         assert repr(getattr(TC, preset)()) == repr(getattr(C, preset)()), preset
@@ -135,27 +136,35 @@ def test_predict_step_matches_jax(rng, make_cfg, vocab_size, seconds, lengths):
 
 
 def test_port_never_imports_jax():
-    """With jax and flax unimportable, the port imports and runs one CPU
-    forward through the predict step."""
+    """With jax, flax and optax unimportable, every module of the port
+    imports, and a CPU predict step and one CPU train step run."""
     code = """
-import sys
+import importlib, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["optax"] = None
 import torch
+import nn_conformer_for_speech_recognition_tpu_torch as port
+for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(info.name)
 from nn_conformer_for_speech_recognition_tpu_torch import config as C
-from nn_conformer_for_speech_recognition_tpu_torch.convert import flax_to_state_dict
 from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
 from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
-from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
-from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predict_step
+from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predict_step, make_train_step
+from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
 enc = C.ConformerConfig(num_blocks=1, d_model=16, num_heads=2, ffn_dim=32, conv_kernel_size=5)
 cfg = C.ModelConfig(encoder=enc, decoder=C.DecoderConfig(projection_dim=8, lstm_hidden=8), use_pallas=True)
 vocab = build_vocab("word", ["a b c"])
 model = init_params(ConformerCTC(cfg, len(vocab)), torch.Generator().manual_seed(0))
-ids, lens = make_predict_step(model, C.FeatureConfig(), vocab.pad_id)(
-    torch.randn(2, 4000), torch.tensor([4000, 2000]))
+audio, alen = torch.randn(2, 4000), torch.tensor([4000, 2000])
+ids, lens = make_predict_step(model, C.FeatureConfig(), vocab.pad_id)(audio, alen)
 assert ids.shape == (2, 2) and lens.tolist() == [2, 1], (ids.shape, lens)
 print([vocab.decode_ids(r) for r in ids.tolist()])
+state = TrainState.create(model, make_optimizer(C.OptimizerConfig(), model.named_parameters()), seed=0)
+step = make_train_step(model, C.FeatureConfig(), C.SpecAugmentConfig(), vocab.blank_id)
+state, metrics = step(state, audio, alen, torch.tensor([[3, 4], [5, 0]]), torch.tensor([2, 1]))
+assert state.step == 1 and torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"]), metrics
 """
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
