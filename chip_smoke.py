@@ -7,9 +7,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels from ``csrc/`` with nvcc, one process per source (the
    compiler's ``-Xptxas -v`` report is printed).
 2. Holds each kernel against its plain PyTorch twin on the card at the
-   shapes of the main paths (Conformer-M, B=16, 30 s clips, targets of
-   100 tokens), with mixed lengths, and times both with CUDA events after
-   warm-up.
+   shapes of the main paths (Conformer-M; B=16, 30 s clips, targets of
+   100 tokens; and B=4, 120 s clips, targets of 400 tokens), with mixed
+   lengths, and times both with CUDA events after warm-up.  The CTC
+   kernels are also read against the same recursions in float64.  Beside each
+   time it works out the least time the card could take for the same work
+   (bytes over the memory rate against operations over the peak rate) and,
+   where one PyTorch call computes the same function, times that call.
 3. Serving path: the Noisy Student pseudo-label pass (``make_predict_step``:
    log-mel → Conformer-M forward → greedy decode → ``WordVocab.decode_ids``)
    with weights and audio made from a seed.  The kernel path and the plain
@@ -24,7 +28,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
    gradient must be finite and non-zero, the loss must fall over 10 steps
    on a repeated batch, and the launch counters must show each kernel of
    the step the expected number of times.
-5. Prints one JSON line with each kernel's numbers, then, as the last line,
+5. Long-form training path: the same train step on B=4 clips of 120 s
+   (T'=938), where ``attention_impl='auto'`` sends the encoder's attention
+   through the flash kernels forward and backward.  One float32 step,
+   kernel path vs plain path; then bfloat16 steps timed and counted, every
+   gradient finite and non-zero, the loss falling over 10 steps, one step
+   under ``remat`` (the attention forward then runs twice per block), and
+   the peak memory of the einsum route at the same shape beside the kernel
+   route's.
+6. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
@@ -46,15 +58,29 @@ BATCH, SECONDS, VOCAB, SEED, TARGET_LEN = 16, 30.0, 1024, 0, 100
 N_BATCHES = 3  # pseudo-label batches timed and counted
 N_TRAIN_STEPS = 5  # bf16 train steps timed and counted, after two warm-up steps
 LOSS_STEPS, LOSS_LR = 10, 1e-3  # the loss must fall over 10 steps at this lr
+LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN = 4, 120.0, 400  # the long-form step: T'=938, S=801
+T_SUB, LONG_T_SUB = 235, 938  # frames after subsampling; check_train holds them to the model's own count
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense): device memory 3.35 TB/s,
+# 989 TFLOP/s in bf16 on the tensor cores, 67 TFLOP/s in float32 outside them
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {
     "stft_logmel": 1e-3, "attention_f32": 1e-4, "attention_bf16": 2e-2, "lstm": 1e-4,
+    # lse and the attention backward in float32, absolute, as the JAX package
+    # holds its Pallas backward; the bf16 gradients by `bf16_bar`
+    "attention_bwd_f32": 5e-4,
     "lstm_backward": 1e-4,  # dxw, absolute
     "lstm_weight_grad": 1e-4,  # dW_hh, relative to its largest entry
     "ctc_alpha": 1e-5,  # ll, relative
     # demit, absolute; posteriors exp(α + β - ll) are formed from log-space
     # values of ~1.5e3 at T=235, where one float32 ulp is 1.2e-4
     "ctc_beta": 5e-4,
-    "ctc_witness_loss": 1e-5, "ctc_witness_grad": 1e-3,  # against torch's own CTC
+    "ctc_witness_loss": 1e-5,  # against torch's own CTC, relative
+    # demit against the float64 recursions and the logit gradient against torch's CTC in float64, absolute,
+    # by T': a posterior is exp(α + β − ll) of float32 sums that grow with T' and round at every frame.
+    # About three times the H100's readings: 9.5e-4 at 235 frames and 6.1e-3 at 938, where torch's own
+    # float32 CTC reads 9.7e-4 and 6.3e-3 and autograd through the plain recursion 3.4e-4 and 3.8e-4
+    "ctc_float64": {235: 3e-3, 938: 2e-2},
 }
 SLICE_LOGPROB_TOL, SLICE_ID_AGREEMENT = 2e-3, 0.999
 # float32 train step, kernel path vs plain path
@@ -62,6 +88,10 @@ TRAIN_TOL = {
     # the gradients of the two CTC implementations differ by ~1e-4 relative
     # (float32 posteriors at T=235), so the norm is held as the gradients are
     "loss": 1e-5, "grad_norm": 1e-3, "grad": 1e-3, "batch_stats": 1e-4,
+    # at T'=938 the CTC kernels' float32 posteriors lie 6.4 times further from float64 than at 235 (the
+    # "ctc_float64" readings above) while the plain path's CTC does not move, and every gradient
+    # inherits that: the worst gradient read 1.44e-3 there against 3.1e-4 at 235
+    "grad_long": 4e-3,
     "step": 1e-2,  # relative to the parameter's largest step; see check_train
 }
 
@@ -92,9 +122,30 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
+def bf16_bar(ref: torch.Tensor) -> float:
+    """The bar for a bf16 gradient whose sums are float32 and which is
+    rounded once at the end: one bf16 ulp at the reference's largest entry
+    (2^-7 of it), and never below the float32 bar."""
+    return max(2.0 ** -7 * ref.abs().max().item(), TOL["attention_bwd_f32"])
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def numbers(err: float, ms: float, plain_ms: float, moved_bytes: float, flops: float, dtype: torch.dtype,
+            library_ms=None) -> dict:
+    """One kernel's measured numbers beside its bound: the larger of the
+    bytes it must move (inputs read once, outputs written once) over the
+    memory rate and its operations over the peak rate for ``dtype``."""
+    by_bytes, by_ops = moved_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=library_ms)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def counters() -> dict:
@@ -108,6 +159,10 @@ def counters() -> dict:
         "stft_logmel": S.stft_logmel, "attention_relpos": A.flash_relpos_attention, "lstm": L.lstm_forward,
         "lstm_backward": L.lstm_backward, "lstm_weight_grad": L.lstm_weight_grad,
         "ctc_alpha": K.ctc_alpha, "ctc_beta": K.ctc_beta,
+        "attention_relpos_lse": A.flash_relpos_attention_forward_lse,
+        "attention_relpos_bwd_dq": A.flash_relpos_attention_bwd_dq,
+        "attention_relpos_bwd_dkv": A.flash_relpos_attention_bwd_dkv,
+        "attention_relpos_bwd_dband": A.flash_relpos_attention_bwd_dband,
     }
 
 
@@ -126,8 +181,11 @@ def mixed_lengths(gen: torch.Generator, n: int, full: int, low: int) -> torch.Te
     return lengths.to(torch.int32)
 
 
-def check_kernels(card: str) -> dict:
-    """Each kernel against its plain twin at main-path shapes."""
+def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention: bool) -> dict:
+    """The log-mel and LSTM-forward kernels against their plain twins at the
+    shapes of one main path (``b`` clips of ``seconds``, ``t`` frames
+    after subsampling), and the inference attention forward where that
+    path runs it."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
@@ -137,42 +195,54 @@ def check_kernels(card: str) -> dict:
     gen = torch.Generator().manual_seed(SEED)
     results = {}
 
-    # -- stft_logmel: (16, 480000) f32 → (16, 938, 40)
+    # -- stft_logmel: (16, 480000) f32 → (16, 938, 40); (4, 1920000) → (4, 3751, 40)
     cfg = FeatureConfig()
-    audio = (torch.randn(BATCH, int(SECONDS * cfg.sample_rate), generator=gen) * 0.1).to(dev)
+    n_samples = int(seconds * cfg.sample_rate)
+    audio = (torch.randn(b, n_samples, generator=gen) * 0.1).to(dev)
     got, ref = S.stft_logmel(audio, cfg), S.stft_logmel_plain(audio, cfg)
     torch.cuda.synchronize()
-    check(got.shape == ref.shape == (BATCH, 938, cfg.n_mels), f"stft_logmel shape {tuple(got.shape)}")
+    check(got.shape == ref.shape == (b, cfg.num_frames(n_samples), cfg.n_mels),
+          f"stft_logmel shape {tuple(got.shape)}")
     err = max_abs(got, ref)
     ms = cuda_ms(lambda: S.stft_logmel(audio, cfg))
     plain_ms = cuda_ms(lambda: S.stft_logmel_plain(audio, cfg))
-    print(f"stft_logmel (16, 480000) f32: max|Δ| {err:.3e} (tol {TOL['stft_logmel']}), "
+    print(f"stft_logmel ({b}, {n_samples}) f32: max|Δ| {err:.3e} (tol {TOL['stft_logmel']}), "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
     check(err <= TOL["stft_logmel"], "stft_logmel disagrees with its plain twin")
-    results["stft_logmel"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    n_bins, frames = cfg.n_fft // 2 + 1, got.shape[1]
+    # read: audio, window, the two DFT matrices, the mel filterbank; written: the log-mel.  Per frame a
+    # windowed real DFT (two n_fft x n_bins products) and the mel product.  The plain version is a framed
+    # cuBLAS matmul with elementwise ops around it: it doubles as the library yardstick
+    stft_bytes = nbytes(audio, got) + 4 * (cfg.n_fft + 2 * cfg.n_fft * n_bins + n_bins * cfg.n_mels)
+    stft_flops = b * frames * (4 * cfg.n_fft * n_bins + 2 * n_bins * cfg.n_mels)
+    results["stft_logmel"] = numbers(err, ms, plain_ms, stft_bytes, stft_flops, torch.float32, library_ms=plain_ms)
 
-    # -- rel-pos attention: (16, 235, 4, 64), p (469, 4, 64)
-    b, t, h, dh = BATCH, 235, 4, 64
-    qu, qv, k, v = (torch.randn(b, t, h, dh, generator=gen) * 0.5 for _ in range(4))
-    p = torch.randn(2 * t - 1, h, dh, generator=gen) * 0.5
     lengths = mixed_lengths(gen, b, t, t // 3)
-    args32 = [x.to(dev) for x in (qu, qv, k, v, p)] + [lengths.to(dev), dh ** -0.5]
-    args16 = [x.to(torch.bfloat16) for x in args32[:5]] + args32[5:]
-    err32 = max_abs(A.flash_relpos_attention(*args32), A.flash_relpos_attention_plain(*args32))
-    err16 = max_abs(A.flash_relpos_attention(*args16), A.flash_relpos_attention_plain(*args16))
-    torch.cuda.synchronize()
-    ms32 = cuda_ms(lambda: A.flash_relpos_attention(*args32))
-    plain_ms32 = cuda_ms(lambda: A.flash_relpos_attention_plain(*args32))
-    ms = cuda_ms(lambda: A.flash_relpos_attention(*args16))
-    plain_ms = cuda_ms(lambda: A.flash_relpos_attention_plain(*args16))
-    print(f"attention_relpos (16, 235, 4, 64): f32 max|Δ| {err32:.3e} (tol {TOL['attention_f32']}), "
-          f"kernel {ms32:.4f} ms, plain {plain_ms32:.4f} ms; bf16 max|Δ| {err16:.3e} "
-          f"(tol {TOL['attention_bf16']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
-    check(err32 <= TOL["attention_f32"], "attention (f32) disagrees with its plain twin")
-    check(err16 <= TOL["attention_bf16"], "attention (bf16) disagrees with its plain twin")
-    results["attention_relpos"] = dict(max_abs_err=err32, ms=ms, plain_ms=plain_ms)
+    if inference_attention:
+        # -- rel-pos attention: (16, 235, 4, 64), p (469, 4, 64)
+        h, dh = 4, 64
+        qu, qv, k, v = (torch.randn(b, t, h, dh, generator=gen) * 0.5 for _ in range(4))
+        p = torch.randn(2 * t - 1, h, dh, generator=gen) * 0.5
+        args32 = [x.to(dev) for x in (qu, qv, k, v, p)] + [lengths.to(dev), dh ** -0.5]
+        args16 = [x.to(torch.bfloat16) for x in args32[:5]] + args32[5:]
+        err32 = max_abs(A.flash_relpos_attention(*args32), A.flash_relpos_attention_plain(*args32))
+        err16 = max_abs(A.flash_relpos_attention(*args16), A.flash_relpos_attention_plain(*args16))
+        torch.cuda.synchronize()
+        ms32 = cuda_ms(lambda: A.flash_relpos_attention(*args32))
+        plain_ms32 = cuda_ms(lambda: A.flash_relpos_attention_plain(*args32))
+        ms = cuda_ms(lambda: A.flash_relpos_attention(*args16))
+        plain_ms = cuda_ms(lambda: A.flash_relpos_attention_plain(*args16))
+        print(f"attention_relpos (16, 235, 4, 64): f32 max|Δ| {err32:.3e} (tol {TOL['attention_f32']}), "
+              f"kernel {ms32:.4f} ms, plain {plain_ms32:.4f} ms; bf16 max|Δ| {err16:.3e} "
+              f"(tol {TOL['attention_bf16']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+        check(err32 <= TOL["attention_f32"], "attention (f32) disagrees with its plain twin")
+        check(err16 <= TOL["attention_bf16"], "attention (bf16) disagrees with its plain twin")
+        # 6·H·dh operations for each (query, valid key) pair; no one PyTorch call computes rel-pos attention
+        pairs = t * int(lengths.sum())
+        results["attention_relpos"] = numbers(err32, ms, plain_ms, nbytes(*args16[:5], args16[0]), 6 * h * dh * pairs,
+                                              torch.bfloat16)
 
-    # -- LSTM, one direction: xw (16, 235, 1280) f32, w_hh (320, 1280)
+    # -- LSTM, one direction: xw (16, 235, 1280) or (4, 938, 1280) f32, w_hh (320, 1280)
     hidden = 320
     xw = torch.randn(b, t, 4 * hidden, generator=gen).to(dev)
     w_hh = (torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev)
@@ -185,15 +255,20 @@ def check_kernels(card: str) -> dict:
     err = max(errs)
     ms = cuda_ms(lambda: L.lstm(xw, w_hh, lengths, reverse=True))
     plain_ms = cuda_ms(lambda: L.lstm_plain(xw, w_hh, lengths, True), iters=5)
-    print(f"lstm (16, 235, 4x320) f32, per direction: max|Δ| fwd {errs[0]:.3e} bwd {errs[1]:.3e} "
+    print(f"lstm ({b}, {t}, 4x320) f32, per direction: max|Δ| fwd {errs[0]:.3e} bwd {errs[1]:.3e} "
           f"(tol {TOL['lstm']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
     check(err <= TOL["lstm"], "lstm disagrees with its plain twin")
-    results["lstm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # per valid step h·W_hh: 2·H·4H operations; read xw and W_hh, write h
+    steps = int(lengths.sum())
+    results["lstm"] = numbers(err, ms, plain_ms, nbytes(xw, w_hh) + 4 * b * t * hidden, 8 * hidden * hidden * steps,
+                              torch.float32)
     return results
 
 
-def check_train_kernels(card: str) -> dict:
-    """The train path's kernels against their twins at main-path shapes."""
+def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
+    """The train path's LSTM and CTC kernels against their twins at the
+    shapes of one train step: ``b`` rows of ``t`` subsampled frames and
+    ``target_len`` targets."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops import ctc as TC
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
@@ -202,8 +277,8 @@ def check_train_kernels(card: str) -> dict:
     gen = torch.Generator().manual_seed(SEED + 2)
     results = {}
 
-    # -- LSTM backward + dW_hh: B=16, T=235, H=320, both directions
-    b, t, hidden = BATCH, 235, 320
+    # -- LSTM backward + dW_hh: H=320, both directions
+    hidden = 320
     xw = torch.randn(b, t, 4 * hidden, generator=gen).to(dev)
     w_hh = (torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev)
     lengths = mixed_lengths(gen, b, t, t // 3).to(dev)
@@ -228,25 +303,30 @@ def check_train_kernels(card: str) -> dict:
     wms = cuda_ms(lambda: L.lstm_weight_grad(h, dxw, reverse=True))
     wplain_ms = cuda_ms(lambda: L.lstm_weight_grad_plain(h, dxw, True))
     fms = cuda_ms(lambda: L.lstm_forward(xw, w_hh, lengths, reverse=True, save=True))
-    print(f"lstm training forward (h, c, gates) vs twin: max|Δ| {fwd_err:.3e} (tol {TOL['lstm']}), "
+    print(f"lstm training forward ({b}, {t}, 4x320) (h, c, gates) vs twin: max|Δ| {fwd_err:.3e} (tol {TOL['lstm']}), "
           f"kernel {fms:.4f} ms  [{card}]")
-    print(f"lstm_backward (16, 235, 4x320) f32, per direction: dxw max|Δ| fwd {errs[1]:.3e} bwd {errs[3]:.3e} "
+    print(f"lstm_backward ({b}, {t}, 4x320) f32, per direction: dxw max|Δ| fwd {errs[1]:.3e} bwd {errs[3]:.3e} "
           f"(tol {TOL['lstm_backward']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
-    print(f"lstm_weight_grad (320 x 3760)·(3760 x 1280) f32: dW_hh max|Δ|/max|dW| fwd {werrs[0]:.3e} "
+    print(f"lstm_weight_grad (320 x {b * t})·({b * t} x 1280) f32: dW_hh max|Δ|/max|dW| fwd {werrs[0]:.3e} "
           f"bwd {werrs[1]:.3e} (tol {TOL['lstm_weight_grad']}), kernel {wms:.4f} ms, plain {wplain_ms:.4f} ms  [{card}]")
     check(fwd_err <= TOL["lstm"], "lstm training forward disagrees with its plain twin")
     check(bwd_err <= TOL["lstm_backward"], "lstm_backward disagrees with its plain twin")
     check(max(werrs) <= TOL["lstm_weight_grad"], "lstm_weight_grad disagrees with its plain twin")
-    results["lstm_backward"] = dict(max_abs_err=bwd_err, ms=ms, plain_ms=plain_ms)
-    results["lstm_weight_grad"] = dict(max_abs_err=max(werrs), ms=wms, plain_ms=wplain_ms)
+    steps = int(lengths.sum())
+    results["lstm_backward"] = numbers(bwd_err, ms, plain_ms, nbytes(gout, gates, c, w_hh, dxw),
+                                       8 * hidden * hidden * steps, torch.float32)
+    # the plain version is one einsum (a cuBLAS GEMM): it doubles as the library yardstick
+    results["lstm_weight_grad"] = numbers(max(werrs), wms, wplain_ms, nbytes(h, dxw, w_hh),
+                                          8 * hidden * hidden * b * t, torch.float32, library_ms=wplain_ms)
 
-    # -- CTC alpha/beta: B=16, T'=235, L=100 (S=201), V=1024; one row of
+    # -- CTC alpha/beta: S = 2·target_len + 1 states, V=1024; one row of
     #    repeated pairs, one empty label, one impossible alignment
-    labels = torch.randint(3, VOCAB, (b, TARGET_LEN), generator=gen)
-    labels[1] = labels[1, : TARGET_LEN // 2].repeat_interleave(2)
-    label_lengths = torch.full((b,), TARGET_LEN)
+    s = 2 * target_len + 1
+    labels = torch.randint(3, VOCAB, (b, target_len), generator=gen)
+    labels[1] = labels[1, : target_len // 2].repeat_interleave(2)
+    label_lengths = torch.full((b,), target_len)
     label_lengths[2] = 0
-    input_lengths = torch.randint(2 * TARGET_LEN + 20, t + 1, (b,), generator=gen)
+    input_lengths = torch.randint(2 * target_len + 20, t + 1, (b,), generator=gen)
     input_lengths[0], input_lengths[3] = t, 60
     logits = (torch.randn(b, t, VOCAB, generator=gen) * 2).to(dev)
     labels, label_lengths, input_lengths = labels.to(dev), label_lengths.to(dev), input_lengths.to(dev)
@@ -264,45 +344,163 @@ def check_train_kernels(card: str) -> dict:
     ll_err = ((ll - ll_ref).abs() / ll_ref.abs()).max().item()
     demit_err = max_abs(demit, demit_ref)
     check(bool(torch.isfinite(demit).all()), "ctc_beta gives non-finite values")
+    # which float32 CTC carries what error: the kernels' demit, and the plain path's (autograd through the
+    # plain alpha recursion, as ctc_impl='xla' trains), against the same recursions in float64, on the
+    # rows that have an alignment
+    emit64 = emit.double()
+    alpha64 = K.ctc_alpha_plain(emit64, can_skip, ext_len, input_lengths)
+    ll64 = K.final_ll(alpha64[:, -1], ext_len)
+    demit64 = K.ctc_beta_plain(emit64, alpha64, can_skip, ext_len, input_lengths, ll64, g.double())
+    leaf = emit.clone().requires_grad_(True)
+    ll_auto = K.final_ll(K.ctc_alpha_plain(leaf, can_skip, ext_len, input_lengths)[:, -1], ext_len)
+    (demit_auto,) = torch.autograd.grad(ll_auto, leaf, g)
+    possible = ll_ref > TC.LOG_EPS / 2
+    kernel64 = (demit[possible].double() - demit64[possible]).abs().max().item()
+    auto64 = (demit_auto[possible].double() - demit64[possible]).abs().max().item()
+    ll_err64 = ((ll[possible].double() - ll64[possible]).abs() / ll64[possible].abs()).max().item()
+    tol64 = TOL["ctc_float64"][t]
     x, w = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
     ours = K.ctc_loss_kernel(torch.log_softmax(x, -1), labels, input_lengths, label_lengths, reduction=None)
     ref = torch.nn.functional.ctc_loss(torch.log_softmax(w, -1).transpose(0, 1), labels, input_lengths,
                                        label_lengths, reduction="none", zero_infinity=True)
-    ours.sum().backward()
-    ref.sum().backward()
+    (ours * g).sum().backward()
+    (ref * g).sum().backward()
     witness_loss = ((ours - ref).abs() / ref.abs().clamp_min(1.0)).max().item()
     witness_grad = max_abs(x.grad, w.grad)
+    w64 = logits.double().requires_grad_(True)
+    ref64 = torch.nn.functional.ctc_loss(torch.log_softmax(w64, -1).transpose(0, 1), labels, input_lengths,
+                                         label_lengths, reduction="none", zero_infinity=True)
+    (ref64 * g).sum().backward()
+    ours64, torch64 = max_abs(x.grad, w64.grad), max_abs(w.grad, w64.grad)
     check(bool(ours[3] == 0) and bool((x.grad[3] == 0).all()), "zero_infinity row not zeroed")
     ams = cuda_ms(lambda: K.ctc_alpha(emit, can_skip, ext_len, input_lengths))
     aplain_ms = cuda_ms(lambda: K.ctc_alpha_plain(emit, can_skip, ext_len, input_lengths), iters=5)
     bms = cuda_ms(lambda: K.ctc_beta(emit, alpha, can_skip, ext_len, input_lengths, ll, g))
     bplain_ms = cuda_ms(lambda: K.ctc_beta_plain(emit, alpha, can_skip, ext_len, input_lengths, ll, g), iters=5)
-    print(f"ctc_alpha (16, 235, 201) f32: ll max rel|Δ| {ll_err:.3e} (tol {TOL['ctc_alpha']}), "
+    print(f"ctc_alpha ({b}, {t}, {s}) f32: ll max rel|Δ| {ll_err:.3e} (tol {TOL['ctc_alpha']}), "
           f"kernel {ams:.4f} ms, plain {aplain_ms:.4f} ms  [{card}]")
-    print(f"ctc_beta (16, 235, 201) f32: demit max|Δ| {demit_err:.3e} (tol {TOL['ctc_beta']}), "
+    print(f"ctc_beta ({b}, {t}, {s}) f32: demit max|Δ| {demit_err:.3e} (tol {TOL['ctc_beta']}), "
           f"kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms  [{card}]")
+    print(f"ctc against the float64 recursions ({b}, {t}, {s}): ll max rel|Δ| {ll_err64:.3e}; demit max|Δ| of the "
+          f"kernels {kernel64:.3e} (tol {tol64}), of autograd through the plain recursion {auto64:.3e}")
     print(f"ctc_loss_kernel vs torch.nn.functional.ctc_loss: loss max rel|Δ| {witness_loss:.3e} "
-          f"(tol {TOL['ctc_witness_loss']}), logit-grad max|Δ| {witness_grad:.3e} (tol {TOL['ctc_witness_grad']})")
+          f"(tol {TOL['ctc_witness_loss']}); logit-grad max|Δ| against torch's CTC in float64: the kernels "
+          f"{ours64:.3e} (tol {tol64}), torch's float32 CTC {torch64:.3e}; the kernels against torch's "
+          f"float32 CTC {witness_grad:.3e}")
     check(ll_err <= TOL["ctc_alpha"], "ctc_alpha disagrees with its plain twin")
     check(demit_err <= TOL["ctc_beta"], "ctc_beta disagrees with its plain twin")
+    check(kernel64 <= tol64, "ctc_beta disagrees with the float64 recursion")
     check(witness_loss <= TOL["ctc_witness_loss"], "ctc loss disagrees with torch's CTC")
-    check(witness_grad <= TOL["ctc_witness_grad"], "ctc gradient disagrees with torch's CTC")
-    results["ctc_alpha"] = dict(max_abs_err=(ll - ll_ref).abs().max().item(), ms=ams, plain_ms=aplain_ms)
-    results["ctc_beta"] = dict(max_abs_err=demit_err, ms=bms, plain_ms=bplain_ms)
+    check(ours64 <= tol64, "ctc gradient disagrees with torch's CTC in float64")
+    # torch's own CTC as the library yardstick: its forward beside alpha, its backward beside beta
+    w = torch.log_softmax(logits, -1).transpose(0, 1).contiguous().requires_grad_(True)
+    lib_loss = lambda: torch.nn.functional.ctc_loss(  # noqa: E731
+        w, labels, input_lengths, label_lengths, reduction="sum", zero_infinity=True)
+    lib_fwd_ms = cuda_ms(lib_loss)
+    loss = lib_loss()
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss, w, retain_graph=True))
+    print(f"torch.nn.functional.ctc_loss at the same shape: forward {lib_fwd_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms")
+    # about 10 operations per (frame, state): a three-term logsumexp; alpha reads emit and writes alpha,
+    # beta reads emit and alpha and writes demit
+    cells = int((input_lengths.to(torch.int64) * ext_len.to(torch.int64)).sum())
+    results["ctc_alpha"] = numbers((ll - ll_ref).abs().max().item(), ams, aplain_ms, nbytes(emit, alpha), 10 * cells,
+                                   torch.float32, library_ms=lib_fwd_ms)
+    results["ctc_beta"] = numbers(demit_err, bms, bplain_ms, nbytes(emit, alpha, demit), 10 * cells, torch.float32,
+                                  library_ms=lib_bwd_ms)
     return results
 
 
-def make_batches(n_samples: int):
-    """N_BATCHES + 1 padded batches of synthetic audio (tones + noise) with
+def check_attention_backward_kernels(card: str) -> dict:
+    """The lse forward and the dq, dkv and dband kernels against their
+    plain twins, float32 and bf16, at the long-form step's shape (ragged:
+    one row full, one short, one shorter than a tile) and at the 30 s
+    shape; the bf16 numbers at the long-form shape go into the result."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    results = {}
+    h, dh = 4, 64
+    shapes = [(LONG_BATCH, 938, torch.tensor([938, 500, 20, 811], dtype=torch.int32)),
+              (BATCH, 235, mixed_lengths(gen, BATCH, 235, 235 // 3))]
+    for b, t, lengths in shapes:
+        qu, qv, k, v, g = (torch.randn(b, t, h, dh, generator=gen) * 0.5 for _ in range(5))
+        p = torch.randn(2 * t - 1, h, dh, generator=gen) * 0.5
+        pairs = t * int(lengths.sum())  # (query, valid key) pairs per head
+        for dtype in (torch.float32, torch.bfloat16):
+            args = [x.to(dev, dtype) for x in (qu, qv, k, v, p)] + [lengths.to(dev), dh ** -0.5]
+            gd = g.to(dev, dtype)
+            out_ref, lse_ref = A.flash_relpos_attention_plain(*args, return_lse=True)
+            out, lse = A.flash_relpos_attention_forward_lse(*args)
+            ref = A.flash_relpos_attention_backward_plain(*args, out_ref, lse_ref, gd)
+            delta = A.attention_delta(out_ref, gd)
+            call = (*args, lse_ref, delta, gd)
+            got = (*A.flash_relpos_attention_bwd_dq(*call), *A.flash_relpos_attention_bwd_dkv(*call),
+                   A.flash_relpos_attention_bwd_dband(*call))
+            again = A.flash_relpos_attention_bwd_dband(*call)
+            torch.cuda.synchronize()
+            check(torch.equal(got[4], again), "dband is not bit-equal from run to run")
+            grads = ("dqu", "dqv", "dk", "dv", "dp")
+            errs = {"out": max_abs(out, out_ref), "lse": max_abs(lse, lse_ref)}
+            errs.update({n: max_abs(x, r) for n, x, r in zip(grads, got, ref)})
+            for x in (out, lse, *got):
+                check(bool(torch.isfinite(x).all()), "an attention kernel gives non-finite values")
+            bf16 = dtype == torch.bfloat16
+            tols = {"out": TOL["attention_bf16" if bf16 else "attention_f32"], "lse": TOL["attention_bwd_f32"]}
+            tols.update({n: bf16_bar(r) if bf16 else TOL["attention_bwd_f32"] for n, r in zip(grads, ref)})
+            name = str(dtype).replace("torch.", "")
+            print(f"attention backward ({b}, {t}, {h}, {dh}) {name}, lengths {lengths.tolist()[:4]}…: max|Δ| (tol) "
+                  + ", ".join(f"{n} {e:.3e} ({tols[n]:.1e})" for n, e in errs.items()) + "; largest entries "
+                  + ", ".join(f"{n} {r.abs().max().item():.3f}" for n, r in zip(grads, ref)))
+            for n, e in errs.items():
+                check(e <= tols[n], f"attention {'forward with lse' if n in ('out', 'lse') else 'backward'} "
+                                    f"({name}): {n} disagrees with the plain twin")
+
+            times = {
+                "lse": cuda_ms(lambda: A.flash_relpos_attention_forward_lse(*args)),
+                "dq": cuda_ms(lambda: A.flash_relpos_attention_bwd_dq(*call)),
+                "dkv": cuda_ms(lambda: A.flash_relpos_attention_bwd_dkv(*call)),
+                "dband": cuda_ms(lambda: A.flash_relpos_attention_bwd_dband(*call)),
+                "plain_fwd": cuda_ms(lambda: A.flash_relpos_attention_plain(*args, return_lse=True), iters=5),
+                "plain_bwd": cuda_ms(
+                    lambda: A.flash_relpos_attention_backward_plain(*args, out_ref, lse_ref, gd), iters=5),
+            }
+
+            def autograd(fn):
+                leaves = [x.detach().requires_grad_(True) for x in args[:5]]
+                fn(*leaves, *args[5:]).backward(gd)
+
+            times["einsum_autograd"] = cuda_ms(lambda: autograd(A.flash_relpos_attention_plain), iters=5)
+            times["kernel_autograd"] = cuda_ms(lambda: autograd(A.flash_relpos_attention), iters=5)
+            print(f"  times, ms: " + ", ".join(f"{n} {x:.4f}" for n, x in times.items())
+                  + f"  (plain_bwd computes all five gradients; *_autograd: forward + backward)  [{card}]")
+            if (b, dtype) != (LONG_BATCH, torch.bfloat16):
+                continue
+            # bytes: each (B,T,H,dh) input and output once, the table, lse and delta; operations per
+            # (query, valid key) pair and head: 6·dh forward, 10·dh dq, 10·dh dkv, 8·dh dband
+            x, stat = nbytes(args[0]), nbytes(lse)
+            work = {"lse": (5 * x + nbytes(args[4]) + stat, 6), "dq": (7 * x + nbytes(args[4]) + 2 * stat, 10),
+                    "dkv": (7 * x + nbytes(args[4]) + 2 * stat, 10), "dband": (5 * x + 2 * nbytes(args[4]) + 2 * stat, 8)}
+            worst = {"lse": max(errs["out"], errs["lse"]), "dq": max(errs["dqu"], errs["dqv"]),
+                     "dkv": max(errs["dk"], errs["dv"]), "dband": errs["dp"]}
+            for key, (moved, units) in work.items():
+                full = "attention_relpos_lse" if key == "lse" else f"attention_relpos_bwd_{key}"
+                results[full] = numbers(worst[key], times[key], times["plain_fwd" if key == "lse" else "plain_bwd"],
+                                        moved, units * h * dh * pairs, dtype)
+    return results
+
+
+def make_batches(n_samples: int, batch: int = BATCH, count: int = N_BATCHES + 1):
+    """``count`` padded batches of synthetic audio (tones + noise) with
     mixed lengths; batch 0 doubles as the warm-up."""
     gen = torch.Generator().manual_seed(SEED + 1)
     times = torch.arange(n_samples) / 16000.0
     batches = []
-    for _ in range(N_BATCHES + 1):
-        freqs = 100.0 + 3000.0 * torch.rand(BATCH, 3, 1, generator=gen)
+    for _ in range(count):
+        freqs = 100.0 + 3000.0 * torch.rand(batch, 3, 1, generator=gen)
         audio = torch.sin(2 * np.pi * freqs * times).sum(dim=1) * 0.1
-        audio += 0.05 * torch.randn(BATCH, n_samples, generator=gen)
-        lengths = mixed_lengths(gen, BATCH, n_samples, n_samples // 3)
+        audio += 0.05 * torch.randn(batch, n_samples, generator=gen)
+        lengths = mixed_lengths(gen, batch, n_samples, n_samples // 3)
         audio *= torch.arange(n_samples)[None, :] < lengths[:, None]
         batches.append((audio.cuda(), lengths.cuda()))
     return batches
@@ -400,17 +598,28 @@ def relative_error(got: torch.Tensor, ref: torch.Tensor) -> float:
     return max_abs(got, ref) / max(ref.abs().max().item(), 1e-30)
 
 
-def check_train(card: str) -> dict:
+def check_train(card: str, batch: int, seconds: float, target_len: int, long_form: bool) -> dict:
     """The supervised train step: float32 kernel path vs plain path, then
-    the bf16 step as a user runs it."""
+    the bf16 step as a user runs it.  ``long_form``: the subsampled length
+    is at least 768, so 'auto' trains the attention through the flash
+    kernels; the einsum route's peak memory and one step under remat are
+    measured too."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import (
-        FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
+        ATTENTION_KERNEL_MIN_T_TRAINING, FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
     )
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
     from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_augment_step, make_feature_train_step
     from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
     from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
     from nn_conformer_for_speech_recognition_tpu_torch.utils.flops import peak_bf16_flops, train_step_flops
+
+    n_samples = int(seconds * 16000)
+    frames = FeatureConfig().num_frames(n_samples)
+    t_sub = conformer_m().subsampled_length(frames)
+    check((t_sub >= ATTENTION_KERNEL_MIN_T_TRAINING) == long_form, f"T'={t_sub} is on the wrong side of the switch")
+    check(t_sub == (LONG_T_SUB if long_form else T_SUB), f"T'={t_sub}: the kernel phase ran at another length")
+    what = f"B={batch}, {seconds:.0f} s clips, T'={t_sub}, {target_len} targets"
+    blocks = conformer_m().encoder.num_blocks
 
     gen = torch.Generator().manual_seed(SEED + 3)
     base = init_params(ConformerCTC(conformer_m(use_pallas=True), VOCAB), gen)
@@ -425,9 +634,8 @@ def check_train(card: str) -> dict:
         state = TrainState.create(m, make_optimizer(OptimizerConfig(learning_rate=lr), m.named_parameters()), SEED)
         return state, make_feature_train_step(m, blank_id=0, ctc_impl=ctc_impl)
 
-    n_samples = int(SECONDS * 16000)
     augment = make_augment_step(FeatureConfig(), SpecAugmentConfig())
-    targets = torch.randint(3, VOCAB, (BATCH, TARGET_LEN), generator=gen).cuda()
+    targets = torch.randint(3, VOCAB, (batch, target_len), generator=gen).cuda()
 
     # -- float32, kernel path vs plain path: one step from the same weights
     #    and the same (augmented) features, dropout 0
@@ -436,99 +644,126 @@ def check_train(card: str) -> dict:
         return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0),
                                    decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
 
-    audio, alen = make_batches(n_samples)[0]
-    alen = torch.clamp_min(alen, n_samples // 2)  # 15-30 s: room for 100 targets
+    audio, alen = make_batches(n_samples, batch, 2)[0]
+    # ragged rows that still leave room for the targets (2·L + 1 frames and a few repeats)
+    alen = torch.clamp_min(alen, n_samples * 7 // 8 if long_form else n_samples // 2)
     feats, flens = augment(torch.Generator(device="cuda").manual_seed(SEED), audio, alen)
-    tlen = torch.full((BATCH,), TARGET_LEN, device="cuda")
-    tlen[1], tlen[2] = 0, TARGET_LEN // 3
+    tlen = torch.full((batch,), target_len, device="cuda")
+    tlen[1], tlen[2] = 0, target_len // 3
     lr32 = OptimizerConfig().learning_rate
-    runs = []
-    for use_pallas, ctc_impl in ((True, "auto"), (False, "xla")):
+
+    def one_step(use_pallas: bool, ctc_impl: str):
         state, step = trainer(f32(use_pallas), lr32, ctc_impl)
         before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        reset_counters()
         state, metrics = step(state, feats, flens, targets, tlen)
-        runs.append((state, metrics, before))
-    (sk, met_k, before), (sp, met_p, _) = runs
-    loss_err = abs(met_k["loss"].item() - met_p["loss"].item()) / abs(met_p["loss"].item())
-    norm_err = abs(met_k["grad_norm"].item() - met_p["grad_norm"].item()) / met_p["grad_norm"].item()
-    params_p = dict(sp.model.named_parameters())
-    # updates: Adafactor normalises each row and column of a gradient (and
-    # moves an unfactored entry by ±0.1·lr on the first step), so an entry
-    # whose gradient is at noise level takes a full-size step of
-    # noise-determined direction on either path; the update is held on the
-    # entries whose gradient is clear of 0 by 1e-3 of the tensor's largest
-    grad_err = step_err = 0.0
-    noisy = total = 0
-    for name, pk in sk.model.named_parameters():
-        pp = params_p[name]
-        grad_err = max(grad_err, relative_error(pk.grad, pp.grad))
-        dk, dp = pk.detach() - before[name], pp.detach() - before[name]
-        clear = pp.grad.abs() > 1e-3 * pp.grad.abs().max()
-        step_err = max(step_err, max_abs(dk[clear], dp[clear]) / dp.abs().max().item())
-        noisy += (~clear).sum().item()
-        total += clear.numel()
-    stats_p = dict(sp.model.named_buffers())
-    stats_err = max(max_abs(b, stats_p[n]) for n, b in sk.model.named_buffers())
-    print(f"train step f32, kernel vs plain path: loss {met_k['loss'].item():.6f} vs {met_p['loss'].item():.6f} "
-          f"(rel {loss_err:.3e}, tol {TRAIN_TOL['loss']}), grad norm rel {norm_err:.3e} (tol {TRAIN_TOL['grad_norm']}), "
-          f"worst gradient max|Δ|/max|g| {grad_err:.3e} (tol {TRAIN_TOL['grad']}), batch stats max|Δ| {stats_err:.3e} "
-          f"(tol {TRAIN_TOL['batch_stats']}); updates at lr {lr32}: max|Δ|/max|step| {step_err:.3e} "
-          f"(tol {TRAIN_TOL['step']}) on the {total - noisy}/{total} entries whose gradient is clear of 0")
-    check(loss_err <= TRAIN_TOL["loss"], "f32 train-step loss of the kernel path disagrees")
-    check(norm_err <= TRAIN_TOL["grad_norm"], "f32 gradient norm of the kernel path disagrees")
-    check(grad_err <= TRAIN_TOL["grad"], "f32 gradients of the kernel path disagree")
-    check(stats_err <= TRAIN_TOL["batch_stats"], "f32 batch statistics of the kernel path disagree")
-    check(step_err <= TRAIN_TOL["step"], "f32 updated parameters of the kernel path disagree")
-    del runs, sk, sp, params_p, stats_p, before
+        return state.model, metrics, before, read_counters()
+
+    def compare(kernel_run, plain_run) -> None:
+        (mk, met_k, before, _), (mp, met_p, _, _) = kernel_run, plain_run
+        grad_tol = TRAIN_TOL["grad_long" if long_form else "grad"]
+        loss_err = abs(met_k["loss"].item() - met_p["loss"].item()) / abs(met_p["loss"].item())
+        norm_err = abs(met_k["grad_norm"].item() - met_p["grad_norm"].item()) / met_p["grad_norm"].item()
+        params_p = dict(mp.named_parameters())
+        # updates: Adafactor normalises each row and column of a gradient (and
+        # moves an unfactored entry by ±0.1·lr on the first step), so an entry
+        # whose gradient is at noise level takes a full-size step of
+        # noise-determined direction on either path; the update is held on the
+        # entries whose gradient is clear of 0 by 1e-3 of the tensor's largest
+        grad_err, worst, step_err = 0.0, "", 0.0
+        noisy = total = 0
+        for name, pk in mk.named_parameters():
+            pp = params_p[name]
+            err = relative_error(pk.grad, pp.grad)
+            if err > grad_err:
+                grad_err, worst = err, name
+            dk, dp = pk.detach() - before[name], pp.detach() - before[name]
+            clear = pp.grad.abs() > 1e-3 * pp.grad.abs().max()
+            step_err = max(step_err, max_abs(dk[clear], dp[clear]) / dp.abs().max().item())
+            noisy += (~clear).sum().item()
+            total += clear.numel()
+        stats_p = dict(mp.named_buffers())
+        stats_err = max(max_abs(b, stats_p[n]) for n, b in mk.named_buffers())
+        print(f"train step f32 ({what}), kernel vs plain path: loss {met_k['loss'].item():.6f} vs "
+              f"{met_p['loss'].item():.6f} (rel {loss_err:.3e}, tol {TRAIN_TOL['loss']}), grad norm rel {norm_err:.3e} "
+              f"(tol {TRAIN_TOL['grad_norm']}), worst gradient max|Δ|/max|g| {grad_err:.3e} in {worst} (tol {grad_tol:.1e}), "
+              f"batch stats max|Δ| {stats_err:.3e} (tol {TRAIN_TOL['batch_stats']}); updates at lr {lr32}: "
+              f"max|Δ|/max|step| {step_err:.3e} (tol {TRAIN_TOL['step']}) on the {total - noisy}/{total} entries "
+              f"whose gradient is clear of 0")
+        check(loss_err <= TRAIN_TOL["loss"], "f32 train-step loss disagrees")
+        check(norm_err <= TRAIN_TOL["grad_norm"], "f32 gradient norm disagrees")
+        check(grad_err <= grad_tol, "f32 gradients disagree")
+        check(stats_err <= TRAIN_TOL["batch_stats"], "f32 batch statistics disagree")
+        check(step_err <= TRAIN_TOL["step"], "f32 updated parameters disagree")
+
+    kernel_run, plain_run = one_step(True, "auto"), one_step(False, "xla")
+    check(not any(plain_run[3].values()), f"the plain path launched a kernel: {plain_run[3]}")
+    check((kernel_run[3]["attention_relpos_bwd_dq"] == blocks) == long_form, f"f32 kernel path launches: {kernel_run[3]}")
+    compare(kernel_run, plain_run)
+    del kernel_run, plain_run
 
     # -- bf16, as a user runs it: augment, then the train step; full-length
-    #    30 s clips, 100 targets per row (bench.py's shape)
+    #    clips, the same count of targets in every row
     cfg16 = conformer_m(use_pallas=True)  # compute 'auto': bfloat16 on CUDA
-    state, step = trainer(cfg16, OptimizerConfig().learning_rate)
-    audio = make_batches(n_samples)[1][0]
-    alen = torch.full((BATCH,), n_samples, device="cuda")
-    tlen = torch.full((BATCH,), TARGET_LEN, device="cuda")
+    audio = make_batches(n_samples, batch, 2)[1][0]
+    alen = torch.full((batch,), n_samples, device="cuda")
+    tlen = torch.full((batch,), target_len, device="cuda")
 
-    def train_step(state):
-        f, fl = augment(state.generator, audio, alen)
-        return step(state, f, fl, targets, tlen)
+    def run_steps(cfg, lr: float, warmup: int, n: int):
+        """``n`` user steps after ``warmup``: (state, seconds per step, launches, peak bytes, losses)."""
+        state, step = trainer(cfg, lr)
+        losses = []
+        for i in range(warmup + n):
+            if i == warmup:
+                torch.cuda.synchronize()
+                reset_counters()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+            f, fl = augment(state.generator, audio, alen)
+            state, metrics = step(state, f, fl, targets, tlen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+        return state, dt, read_counters(), torch.cuda.max_memory_allocated(), [x.item() for x in losses]
 
-    for _ in range(2):  # warm-up
-        state, _ = train_step(state)
-    torch.cuda.synchronize()
-    reset_counters()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(N_TRAIN_STEPS):
-        state, metrics = train_step(state)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / N_TRAIN_STEPS
-    launches = read_counters()
-    peak = torch.cuda.max_memory_allocated()
+    state, dt, launches, peak, losses = run_steps(cfg16, OptimizerConfig().learning_rate, 2, N_TRAIN_STEPS)
     for name, p in state.model.named_parameters():
         check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and p.grad.abs().max().item() > 0,
               f"bf16 train step: gradient of {name} is missing, non-finite or zero")
-    check(bool(torch.isfinite(metrics["loss"])), "bf16 train-step loss is not finite")
-    flops = train_step_flops(cfg16, VOCAB, BATCH, FeatureConfig().num_frames(n_samples))
+    check(bool(np.isfinite(losses).all()), "bf16 train-step loss is not finite")
+    flops = train_step_flops(cfg16, VOCAB, batch, frames)
     mfu = flops / dt / peak_bf16_flops(torch.cuda.get_device_name(0))
-    print(f"bf16 train step (B={BATCH}, {SECONDS:.0f} s clips, {TARGET_LEN} targets, Adafactor lr "
-          f"{OptimizerConfig().learning_rate}): {dt * 1e3:.2f} ms/step over {N_TRAIN_STEPS} steps, "
-          f"{BATCH * SECONDS / dt:.1f} audio-s/s, MFU {mfu:.4%} of the card's dense bf16 peak "
+    print(f"bf16 train step ({what}, Adafactor lr {OptimizerConfig().learning_rate}): {dt * 1e3:.2f} ms/step over "
+          f"{N_TRAIN_STEPS} steps, {batch * seconds / dt:.1f} audio-s/s, MFU {mfu:.4%} of the card's dense bf16 peak "
           f"({flops / 1e12:.3f} model TFLOP/step), peak memory {peak / 2**20:.1f} MiB  [{card}]")
     print(f"launch counts over {N_TRAIN_STEPS} bf16 train steps: {launches}")
-    n = N_TRAIN_STEPS
+    n, attn = N_TRAIN_STEPS, blocks * N_TRAIN_STEPS if long_form else 0
     expected = {"stft_logmel": n, "attention_relpos": 0, "lstm": 2 * n, "lstm_backward": 2 * n,
-                "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n}
+                "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
+                "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn}
     check(launches == expected, f"train-step launch counts, want {expected}")
+    del state
 
     # -- the loss falls over 10 steps on one repeated batch
-    state, step = trainer(cfg16, LOSS_LR)
-    losses = []
-    for _ in range(LOSS_STEPS + 1):
-        state, metrics = train_step(state)
-        losses.append(metrics["loss"].item())
+    _, _, _, _, losses = run_steps(cfg16, LOSS_LR, 0, LOSS_STEPS + 1)
     print(f"bf16 loss on a repeated batch at lr {LOSS_LR}: " + " ".join(f"{x:.3f}" for x in losses))
     check(losses[-1] < losses[0], f"the loss did not fall in {LOSS_STEPS} steps")
+    if not long_form:
+        return launches
+
+    # -- under remat each block's forward runs again in the backward: the
+    #    attention forward is launched twice per block, each backward once
+    _, dt_remat, count, peak_remat, _ = run_steps(dataclasses.replace(cfg16, remat=True), lr32, 1, 2)
+    print(f"bf16 train step under remat ({what}): {dt_remat * 1e3:.2f} ms/step, peak memory "
+          f"{peak_remat / 2**20:.1f} MiB, launches over 2 steps {count}  [{card}]")
+    check(count == {k: (2 * v if k == "attention_relpos_lse" else v) * 2 // n for k, v in expected.items()},
+          "launch counts under remat")
+    # -- the einsum route at the same shape (attention_impl='xla'): its T² tensors in memory
+    _, dt_einsum, count, peak_einsum, _ = run_steps(dataclasses.replace(cfg16, attention_impl="xla"), lr32, 1, 2)
+    check(not any(v for k, v in count.items() if k.startswith("attention")), "the einsum route launched attention")
+    print(f"bf16 train step on the einsum route ({what}, attention_impl='xla', probability dropout): "
+          f"{dt_einsum * 1e3:.2f} ms/step, peak memory {peak_einsum / 2**20:.1f} MiB against "
+          f"{peak / 2**20:.1f} MiB on the kernel route  [{card}]")
     return launches
 
 
@@ -545,27 +780,41 @@ def main() -> None:
     t0 = time.perf_counter()
     build.build(verbose=True)
     print(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    results = check_kernels(card)
-    results.update(check_train_kernels(card))
+    # every kernel at the shapes of both train steps; the 30 s numbers go into the kernels line
+    results = check_kernels(card, BATCH, SECONDS, T_SUB, inference_attention=True)
+    results.update(check_train_kernels(card, BATCH, T_SUB, TARGET_LEN))
+    check_kernels(card, LONG_BATCH, LONG_SECONDS, LONG_T_SUB, inference_attention=False)
+    check_train_kernels(card, LONG_BATCH, LONG_T_SUB, LONG_TARGET_LEN)
+    results.update(check_attention_backward_kernels(card))
     serve = check_slice(card)
-    train = check_train(card)
+    train = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False)
+    long_train = check_train(card, LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN, long_form=True)
+    pallas = "ops/pallas"
     sources = {
-        "stft_logmel": ("csrc/stft_logmel.cu", "ops/pallas/stft_logmel.py:74"),
-        "attention_relpos": ("csrc/attention_relpos.cu", "ops/pallas/attention.py:281"),
-        "lstm": ("csrc/lstm.cu", "ops/pallas/lstm.py:69"),
-        "lstm_backward": ("csrc/lstm.cu", "ops/pallas/lstm.py:107"),
-        "lstm_weight_grad": ("csrc/lstm.cu", "ops/pallas/lstm.py:159"),
-        "ctc_alpha": ("csrc/ctc.cu", "ops/pallas/ctc.py:57"),
-        "ctc_beta": ("csrc/ctc.cu", "ops/pallas/ctc.py:95"),
+        "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),
+        "attention_relpos": ("csrc/attention_relpos.cu", f"{pallas}/attention.py:281"),
+        "lstm": ("csrc/lstm.cu", f"{pallas}/lstm.py:69"),
+        "lstm_backward": ("csrc/lstm.cu", f"{pallas}/lstm.py:107"),
+        "lstm_weight_grad": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
+        "ctc_alpha": ("csrc/ctc.cu", f"{pallas}/ctc.py:57"),
+        "ctc_beta": ("csrc/ctc.cu", f"{pallas}/ctc.py:95"),
+        "attention_relpos_lse": ("csrc/attention_relpos.cu", f"{pallas}/attention.py:281"),
+        "attention_relpos_bwd_dq": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:530"),
+        "attention_relpos_bwd_dkv": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:559"),
+        "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:590"),
     }
-    print(f"launches, pseudo-label pass + train steps: { {k: (serve[k], train[k]) for k in sources} }")
+    paths = (serve, train, long_train)
+    print("launches, pseudo-label pass + 30 s train steps + long-form train steps: "
+          f"{ {k: tuple(path[k] for path in paths) for k in sources} }")
+    for name in sources:
+        check(sum(path[name] for path in paths) > 0, f"no main path launched {name}")
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": f"nn_conformer_for_speech_recognition_tpu_torch/{src}",
             "replaces": f"nn_conformer_for_speech_recognition_tpu/{tpu}",
-            "launches": serve[name] + train[name],
+            "launches": sum(path[name] for path in paths),
             **results[name],
         }
         for name, (src, tpu) in sources.items()

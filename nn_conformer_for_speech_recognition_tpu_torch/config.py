@@ -6,12 +6,15 @@ holds every field and default equal to the original
 (`nn_conformer_for_speech_recognition_tpu/config.py`).
 
 Dropped from the copy: ``ModelConfig.resolved_*`` (they key off
-``jax.default_backend()``) and ``FLASH_ATTENTION_MIN_T`` (a TPU crossover).
-The port resolves by tensor device instead (`resolve_compute_dtype`,
-`uses_attention_kernel`, `attention_route`, `uses_lstm_kernel`): on CUDA
-the compute dtype is bfloat16 and the hand-written kernels run at every
-sequence length; on the CPU the compute dtype is float32 and every kernel
-wrapper runs its plain PyTorch twin.
+``jax.default_backend()``).  The port resolves by tensor device instead
+(`resolve_compute_dtype`, `uses_attention_kernel`, `attention_route`,
+`uses_lstm_kernel`): on CUDA the compute dtype is bfloat16 and the
+hand-written kernels run; on the CPU the compute dtype is float32 and every
+kernel wrapper runs its plain PyTorch twin.  In eval mode the attention
+kernel runs at every sequence length; in training `attention_route` keeps
+the JAX package's switch at 768 subsampled frames
+(`ATTENTION_KERNEL_MIN_T_TRAINING`), because there it decides what is
+computed, not only how fast.
 """
 
 from __future__ import annotations
@@ -186,30 +189,38 @@ def resolve_compute_dtype(config: ModelConfig, device: torch.device) -> torch.dt
 
 
 def uses_attention_kernel(config: ModelConfig) -> bool:
-    """True when attention in eval mode goes through the rel-pos flash
-    kernel wrapper.  No sequence-length threshold: on CUDA the kernel runs
-    at every T."""
+    """True when the config lets attention go through the rel-pos flash
+    kernel wrappers (always in eval mode; in training see
+    `attention_route`)."""
     return config.use_pallas and config.attention_impl in ("auto", "flash")
 
 
-def attention_route(config: ModelConfig, training: bool) -> str:
-    """'kernel' (the rel-pos flash kernel wrapper) or 'einsum' (the plain,
-    differentiable rel-pos attention).
+# In training the two attention routes compute different things: the einsum
+# route drops attention probabilities, the kernel route (as the JAX
+# package's flash path) drops the attention output only.  The JAX package
+# resolves attention_impl='auto' to its flash kernels from 768 subsampled
+# frames on (its FLASH_ATTENTION_MIN_T), so the port switches at the same
+# length: one config must train the same model in both packages.  It is not
+# a claim about which route is faster on a GPU.
+ATTENTION_KERNEL_MIN_T_TRAINING = 768
 
-    Eval mode follows `uses_attention_kernel`.  Training always takes the
-    einsum route, as the JAX package does below ``FLASH_ATTENTION_MIN_T``
-    (768 frames, i.e. clips under ~98 s): the attention kernel has no
-    backward yet, and its wrapper refuses inputs that need a gradient.
-    Asking for ``attention_impl='flash'`` in training raises.
+
+def attention_route(config: ModelConfig, training: bool, t: int) -> str:
+    """'kernel' (the rel-pos flash kernels, forward and backward) or
+    'einsum' (the plain rel-pos attention, differentiated by autograd) for
+    a sequence of ``t`` subsampled frames.
+
+    Eval mode follows `uses_attention_kernel`: the kernel at every length
+    (no dropout there, so both routes give the same result).  Training:
+    ``attention_impl='xla'`` or ``use_pallas=False`` → einsum; 'flash' →
+    kernel at every length; 'auto' → kernel where
+    ``t >= ATTENTION_KERNEL_MIN_T_TRAINING``, einsum below.
     """
-    if not training:
-        return "kernel" if uses_attention_kernel(config) else "einsum"
-    if config.use_pallas and config.attention_impl == "flash":
-        raise NotImplementedError(
-            "attention_impl='flash' cannot train yet: the attention backward "
-            "kernels come with the long-form slice"
-        )
-    return "einsum"
+    if not uses_attention_kernel(config):
+        return "einsum"
+    if training and config.attention_impl == "auto" and t < ATTENTION_KERNEL_MIN_T_TRAINING:
+        return "einsum"
+    return "kernel"
 
 
 def uses_lstm_kernel(config: ModelConfig) -> bool:

@@ -1,11 +1,14 @@
 // Rel-pos (Transformer-XL) flash attention forward for sm_90a.
 //
 // Replaces nn_conformer_for_speech_recognition_tpu/ops/pallas/attention.py:
-// _flash_relpos_kernel (forward, no logsumexp output).
+// _flash_relpos_kernel (forward, with or without the logsumexp output).
 //   s[i][j] = ((qu_i . k_j) + (qv_i . p[j - i + T - 1])) * scale
 //   s[i][j] = -1e30 where j >= length[b]
 //   out_i   = softmax_j(s[i]) @ v
-// Layout: qu, qv, k, v, out (B, T, H, dh) and p (2T-1, H, dh), contiguous.
+//   lse_i   = m_i + log(max(l_i, 1e-30))   (training variant only)
+// Layout: qu, qv, k, v, out (B, T, H, dh), p (2T-1, H, dh) and lse
+// (B, H, T) float32, contiguous.  The lse store is a template flag, so the
+// inference instantiation writes nothing more.
 //
 // One block of 256 threads per (32-row query tile, head, batch row); eight
 // threads share a query row.  Each 32-key tile loads k, v and the 63-row
@@ -15,29 +18,13 @@
 // skew.  Online softmax state (m, l) and the output accumulator stay in
 // float32 registers.  Bound on the H100: CUDA-core float32 FMAs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
+
+#include "attention_relpos.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 32;
-constexpr int kBlockK = 32;
-constexpr int kThreads = 256;  // 8 threads per query row
-constexpr int kBand = kBlockQ + kBlockK - 1;
-constexpr float kMaskValue = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace relpos;
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -46,12 +33,13 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * ((2 * kBlockQ + 2 * kBlockK + kBand) * (DH + 1) + kBlockQ * (kBlockK + 1));
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 attention_relpos_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
                         const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ p, const int* __restrict__ lengths,
-                        T* __restrict__ out, int seq, int heads, float scale) {
+                        T* __restrict__ out, float* __restrict__ lse, int seq, int heads,
+                        float scale) {
   constexpr int LD = DH + 1;
   constexpr int kPerThread = DH / 8;
   extern __shared__ float smem[];
@@ -72,19 +60,8 @@ attention_relpos_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
   const size_t time_stride = static_cast<size_t>(heads) * DH;
   const size_t batch_base = static_cast<size_t>(b) * seq * time_stride + static_cast<size_t>(h) * DH;
 
-  for (int idx = tid; idx < kBlockQ * DH; idx += kThreads) {
-    const int r = idx / DH;
-    const int d = idx - r * DH;
-    const int i = i0 + r;
-    float a = 0.f, c = 0.f;
-    if (i < seq) {
-      const size_t off = batch_base + i * time_stride + d;
-      a = to_float(qu[off]);
-      c = to_float(qv[off]);
-    }
-    s_qu[r * LD + d] = a;
-    s_qv[r * LD + d] = c;
-  }
+  load_rows<T, DH>(s_qu, qu + batch_base, i0, kBlockQ, seq, time_stride, tid);
+  load_rows<T, DH>(s_qv, qv + batch_base, i0, kBlockQ, seq, time_stride, tid);
 
   float acc[kPerThread];
 #pragma unroll
@@ -95,28 +72,9 @@ attention_relpos_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
 
   for (int j0 = 0; j0 < seq; j0 += kBlockK) {
     __syncthreads();  // the previous tile's k, v, band and prob reads are done
-    for (int idx = tid; idx < kBlockK * DH; idx += kThreads) {
-      const int r = idx / DH;
-      const int d = idx - r * DH;
-      const int j = j0 + r;
-      float a = 0.f, c = 0.f;
-      if (j < seq) {
-        const size_t off = batch_base + j * time_stride + d;
-        a = to_float(k[off]);
-        c = to_float(v[off]);
-      }
-      s_k[r * LD + d] = a;
-      s_v[r * LD + d] = c;
-    }
-    const int r_lo = j0 - (i0 + kBlockQ - 1) + seq - 1;
-    for (int idx = tid; idx < kBand * DH; idx += kThreads) {
-      const int r = idx / DH;
-      const int d = idx - r * DH;
-      const int rel = r_lo + r;
-      float a = 0.f;
-      if (rel >= 0 && rel < n_rel) a = to_float(p[(static_cast<size_t>(rel) * heads + h) * DH + d]);
-      s_p[r * LD + d] = a;
-    }
+    load_rows<T, DH>(s_k, k + batch_base, j0, kBlockK, seq, time_stride, tid);
+    load_rows<T, DH>(s_v, v + batch_base, j0, kBlockK, seq, time_stride, tid);
+    load_band<T, DH>(s_p, p, j0 - (i0 + kBlockQ - 1) + seq - 1, kBand, n_rel, heads, h, tid);
     __syncthreads();
 
     float s[kBlockK / 8];
@@ -177,38 +135,53 @@ attention_relpos_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
     T* o = out + batch_base + i * time_stride + sub;
 #pragma unroll
     for (int e = 0; e < kPerThread; ++e) o[8 * e] = from_float<T>(acc[e] * inv);
+    if (LSE && sub == 0) {
+      lse[(static_cast<size_t>(b) * heads + h) * seq + i] = m_i + logf(fmaxf(l_i, 1e-30f));
+    }
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* qu, const void* qv, const void* k, const void* v, const void* p,
-                   const int* lengths, void* out, int batch, int seq, int heads, float scale,
-                   cudaStream_t stream) {
+struct Args {
+  const void *qu, *qv, *k, *v, *p;
+  const int* lengths;
+  void* out;
+  float* lse;  // NULL: the inference variant, no lse store
+  int batch, seq, heads;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int DH, bool LSE>
+cudaError_t launch(const Args& a) {
   constexpr size_t smem = smem_bytes<DH>();
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_relpos_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const cudaError_t err =
+        cudaFuncSetAttribute(attention_relpos_kernel<T, DH, LSE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, heads, batch);
-  attention_relpos_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qu), static_cast<const T*>(qv), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(p), lengths, static_cast<T*>(out), seq, heads,
-      scale);
+  const dim3 grid((a.seq + kBlockQ - 1) / kBlockQ, a.heads, a.batch);
+  attention_relpos_kernel<T, DH, LSE><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.qu), static_cast<const T*>(a.qv), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.p), a.lengths, static_cast<T*>(a.out),
+      a.lse, a.seq, a.heads, a.scale);
   return cudaGetLastError();
 }
 
+template <typename T, int DH>
+cudaError_t launch_variant(const Args& a) {
+  return a.lse != nullptr ? launch<T, DH, true>(a) : launch<T, DH, false>(a);
+}
+
 template <typename T>
-cudaError_t dispatch(int head_dim, const void* qu, const void* qv, const void* k, const void* v,
-                     const void* p, const int* lengths, void* out, int batch, int seq, int heads,
-                     float scale, cudaStream_t stream) {
+cudaError_t dispatch(int head_dim, const Args& a) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(qu, qv, k, v, p, lengths, out, batch, seq, heads, scale, stream);
-    case 32: return launch<T, 32>(qu, qv, k, v, p, lengths, out, batch, seq, heads, scale, stream);
-    case 64: return launch<T, 64>(qu, qv, k, v, p, lengths, out, batch, seq, heads, scale, stream);
-    case 128: return launch<T, 128>(qu, qv, k, v, p, lengths, out, batch, seq, heads, scale, stream);
+    case 16: return launch_variant<T, 16>(a);
+    case 32: return launch_variant<T, 32>(a);
+    case 64: return launch_variant<T, 64>(a);
+    case 128: return launch_variant<T, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -216,13 +189,10 @@ cudaError_t dispatch(int head_dim, const void* qu, const void* qv, const void* k
 }  // namespace
 
 extern "C" int attention_relpos_fwd(const void* qu, const void* qv, const void* k, const void* v,
-                                    const void* p, const void* lengths, void* out, int batch,
-                                    int seq, int heads, int head_dim, float scale, int is_bf16,
-                                    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* len = static_cast<const int*>(lengths);
-  if (is_bf16) {
-    return dispatch<__nv_bfloat16>(head_dim, qu, qv, k, v, p, len, out, batch, seq, heads, scale, s);
-  }
-  return dispatch<float>(head_dim, qu, qv, k, v, p, len, out, batch, seq, heads, scale, s);
+                                    const void* p, const void* lengths, void* out, void* lse,
+                                    int batch, int seq, int heads, int head_dim, float scale,
+                                    int is_bf16, void* stream) {
+  const Args a{qu, qv, k, v, p, static_cast<const int*>(lengths), out, static_cast<float*>(lse),
+               batch, seq, heads, scale, static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? dispatch<__nv_bfloat16>(head_dim, a) : dispatch<float>(head_dim, a);
 }

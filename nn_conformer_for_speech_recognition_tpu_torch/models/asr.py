@@ -98,7 +98,7 @@ class ConformerCTC(nn.Module):
         dtype = resolve_compute_dtype(self.config, features.device)
         h, lengths = self.subsampling(features, frame_lengths, dtype)
         h = F.dropout(h, self.config.encoder.dropout, self.training)
-        h = self.encoder(h, lengths, attention_route(self.config, self.training) == "kernel")
+        h = self.encoder(h, lengths, attention_route(self.config, self.training, h.shape[1]) == "kernel")
         mask = length_mask(lengths, h.shape[1])
         h = self.projection_norm(F.silu(self.projection(h)), mask)
         return h * mask[..., None].to(h.dtype), lengths

@@ -5,9 +5,9 @@ Macaron block: ½FFN → MHSA(rel-pos) → ConvModule → ½FFN → LayerNorm, w
 mask-based length handling.  Parameters are float32; each layer computes in
 the dtype of its input (bfloat16 on CUDA, float32 on the CPU, see
 `config.resolve_compute_dtype`).  The caller picks the attention route per
-forward (`config.attention_route`): the rel-pos flash kernel wrapper
-(`ops/cuda/attention.py`, forward only) or the plain einsum attention,
-which also drops attention probabilities in training.  With ``remat`` each
+forward (`config.attention_route`): the rel-pos flash kernels
+(`ops/cuda/attention.py`, forward and backward) or the plain einsum
+attention, which also drops attention probabilities in training.  With ``remat`` each
 block is recomputed in the backward pass (`torch.utils.checkpoint`).
 """
 
@@ -117,8 +117,8 @@ class RelPositionMHSA(nn.Module):
         self, x: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor, use_kernel: bool = False
     ) -> torch.Tensor:
         """``rel``: (2T-1, d_model) sinusoidal table in x's dtype.
-        ``use_kernel`` sends the attention through the flash kernel wrapper
-        (forward only; dropout on the output only, as the JAX flash path);
+        ``use_kernel`` sends the attention through the flash kernels, forward
+        and backward (dropout on the output only, as the JAX flash path);
         otherwise the einsum attention also drops probabilities in training."""
         b, t, _ = x.shape
         h, dh = self.num_heads, self.d_model // self.num_heads

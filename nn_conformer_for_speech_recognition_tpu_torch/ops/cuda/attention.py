@@ -1,43 +1,71 @@
-"""Rel-pos flash attention forward: kernel wrapper and plain twin.
+"""Rel-pos flash attention, forward and backward: kernel wrappers, plain
+twins and the autograd Function that joins them.
 
-Replaces the TPU kernel
-`nn_conformer_for_speech_recognition_tpu/ops/pallas/attention.py:_flash_relpos_kernel`
-(called through ``_flash_relpos_forward``), forward only and without the
-logsumexp output, which only the backward needs.  It has no backward yet,
-so the wrapper refuses inputs that need a gradient rather than return a
-tensor cut off from the graph; training takes the plain (einsum) route
-(`config.attention_route`).  Score:
+Replaces the TPU kernels of
+`nn_conformer_for_speech_recognition_tpu/ops/pallas/attention.py`:
+``_flash_relpos_kernel`` (forward, with or without the logsumexp output),
+``_flash_relpos_bwd_dq_kernel``, ``_flash_relpos_bwd_dkv_kernel`` and
+``_flash_relpos_bwd_dband_kernel``, and the ``custom_vjp`` of
+``flash_attention_relpos`` (`RelPosFlashAttention`).  Score:
 
     s[i, j] = ((q_i + u)·k_j + (q_i + v)·p[j - i + T - 1]) · scale
 
-with keys at or beyond the row's length set to −1e30 (not −inf) and the
-``l == 0 → 1`` guard, so the kernel and the plain version agree on every
-row the model can produce.
+Forward: keys at or beyond the row's length get −1e30 (not −inf), with the
+``l == 0 → 1`` guard, and ``lse = m + log(max(l, 1e-30))``.  Backward,
+recomputed tile by tile from the saved lse (no T² tensor is kept):
 
-The CUDA kernel (`csrc/attention_relpos.cu`) gives one block of 256 threads
-to each (query tile of 32 rows, head, batch row) and walks 32-key tiles
-with an online softmax in float32.  The rel-pos row ``p[j - i + T - 1]`` is
-read by index from a 63-row band held in shared memory beside the key and
-value tiles: the TPU kernel's lane-roll ``_skew`` is not needed.  Inputs
-may be bfloat16 or float32; accumulation is float32; the output has q's
-dtype.
+    prob = exp(s − lse), exactly 0 where j >= length[b]
+    ds   = prob · (dO·vᵀ − delta) · scale,   delta_i = Σ_d dO_i · O_i
+    dqu = ds·k    dqv[i] = Σ_j ds[i, j] · p[j − i + T − 1]
+    dk  = dsᵀ·qu  dv = probᵀ·dO
+    dp[l] = Σ_b Σ_i ds[b, i, i + l − (T − 1)] · qv[b, i]
 
-What bounds it on the H100: float32 FMAs on the CUDA cores (two dot
-products of length dh per score, one per output element per key); the
-tiles are small and L2-resident, so device-memory traffic is O(B·T·H·dh).
-Tensor-core (wgmma) tiles and TMA loads are later work.
+Query rows at or beyond the length are not masked in either direction.
+
+The CUDA kernels (`csrc/attention_relpos.cu`, `csrc/attention_relpos_bwd.cu`)
+work on 32 × 32 tiles with 256 threads, float32 accumulation on the CUDA
+cores, and read the rel-pos row by index from a band held in shared memory:
+the TPU kernels' lane-roll ``_skew`` / ``_unskew`` are not needed.  The
+table gradient is deterministic: a block owns (32 table rows, head, batch
+row) and walks the query tiles in order into a float32 partial, and a second
+kernel sums the partials over the batch in order.  Inputs may be bfloat16 or
+float32; outputs have the inputs' dtype; lse and delta are float32.
+
+What bounds them on the H100: float32 FMAs fed from shared memory (two to
+three dot products of length dh per score, two products per output); the
+tiles are L2-resident, so device-memory traffic is O(B·T·H·dh).  Tensor-core
+(wgmma) tiles and TMA loads are later work.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from nn_conformer_for_speech_recognition_tpu_torch.ops.relshift import rel_shift
+from nn_conformer_for_speech_recognition_tpu_torch.ops.relshift import rel_shift, rel_shift_adjoint
 
 MASK_VALUE = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' compiled head widths
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The twins accumulate in float32 (float64 inputs stay float64, for
+    gradient checks)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _plain_scores(qu, qv, k, p, scale) -> torch.Tensor:
+    """Unmasked (B, H, T, T) scores in the accumulation dtype."""
+    acc = _acc_dtype(qu)
+    ac = torch.einsum("bihd,bjhd->bhij", qu.to(acc), k.to(acc))
+    bd = rel_shift(torch.einsum("bihd,lhd->bhil", qv.to(acc), p.to(acc)))
+    return (ac + bd) * scale
+
+
+def _key_mask(lengths: torch.Tensor, t: int, device: torch.device) -> torch.Tensor:
+    """(B, 1, 1, T) bool: key j is valid for row b."""
+    return (torch.arange(t, device=device)[None, :] < lengths.to(device)[:, None])[:, None, None, :]
 
 
 def flash_relpos_attention_plain(
@@ -50,24 +78,208 @@ def flash_relpos_attention_plain(
     scale: float,
     dropout: float = 0.0,
     keep: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain PyTorch rel-pos attention (the JAX einsum path): scores in
     float32, probabilities cast to v's dtype before the value product.
     With ``dropout`` > 0 the probabilities are dropped after the cast, as
     the JAX einsum path does in training; ``keep`` (B, H, T, T) bool
-    supplies the mask instead of a draw."""
-    t = qu.shape[1]
-    ac = torch.einsum("bihd,bjhd->bhij", qu.float(), k.float())
-    bd = rel_shift(torch.einsum("bihd,lhd->bhil", qv.float(), p.float()))
-    scores = (ac + bd) * scale
-    valid = torch.arange(t, device=qu.device)[None, :] < lengths[:, None]
-    scores = scores.masked_fill(~valid[:, None, None, :], MASK_VALUE)
+    supplies the mask instead of a draw.  With ``return_lse`` also the
+    (B, H, T) float32 logsumexp of the masked scores, the twin of the
+    forward kernel's second output."""
+    scores = _plain_scores(qu, qv, k, p, scale)
+    scores = scores.masked_fill(~_key_mask(lengths, qu.shape[1], qu.device), MASK_VALUE)
     attn = torch.softmax(scores, dim=-1).to(v.dtype)
     if dropout > 0.0:
         if keep is None:
             keep = torch.rand(attn.shape, device=attn.device) >= dropout
         attn = torch.where(keep, attn / (1.0 - dropout), 0.0).to(v.dtype)
-    return torch.einsum("bhij,bjhd->bihd", attn, v)
+    out = torch.einsum("bhij,bjhd->bihd", attn, v)
+    return (out, torch.logsumexp(scores, dim=-1)) if return_lse else out
+
+
+def attention_delta(o: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """delta[b, h, i] = Σ_d dO·O in float32, (B, H, T); a plain reduction
+    outside the kernels, as in the JAX package."""
+    acc = _acc_dtype(o)
+    return (g.to(acc) * o.to(acc)).sum(dim=-1).transpose(1, 2).contiguous()
+
+
+def _backward_plain_from_delta(qu, qv, k, v, p, lengths, scale, lse, delta, g):
+    acc = _acc_dtype(qu)
+    prob = torch.exp(_plain_scores(qu, qv, k, p, scale) - lse.to(acc)[..., None])
+    prob = torch.where(_key_mask(lengths, qu.shape[1], qu.device), prob, 0.0)
+    g_acc = g.to(acc)
+    ds = prob * (torch.einsum("bihd,bjhd->bhij", g_acc, v.to(acc)) - delta.to(acc)[..., None]) * scale
+    dv = torch.einsum("bhij,bihd->bjhd", prob, g_acc)
+    dqu = torch.einsum("bhij,bjhd->bihd", ds, k.to(acc))
+    dk = torch.einsum("bhij,bihd->bjhd", ds, qu.to(acc))
+    dbd = rel_shift_adjoint(ds)  # ds re-binned over relative distances
+    dqv = torch.einsum("bhil,lhd->bihd", dbd, p.to(acc))
+    dp = torch.einsum("bhil,bihd->lhd", dbd, qv.to(acc))
+    return dqu.to(qu.dtype), dqv.to(qv.dtype), dk.to(k.dtype), dv.to(v.dtype), dp.to(p.dtype)
+
+
+def flash_relpos_attention_backward_plain(
+    qu, qv, k, v, p, lengths, scale: float, o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of the three backward kernels: (dqu, dqv, dk, dv, dp) from
+    the saved output ``o``, the saved ``lse`` (B, H, T) and the cotangent
+    ``g``, by the recompute-from-lse recipe the kernels follow (float32
+    accumulation, results cast to the inputs' dtype)."""
+    return _backward_plain_from_delta(qu, qv, k, v, p, lengths, scale, lse, attention_delta(o, g), g)
+
+
+def _check_inputs(what: str, qu, qv, k, v, p, lengths) -> Tuple[int, int, int, int]:
+    """Raises on what the kernels do not take; returns (B, T, H, dh)."""
+    if qu.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {qu.device}")
+    b, t, h, dh = qu.shape
+    dtype = qu.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: unsupported dtype {dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {dh} not in {HEAD_DIMS}")
+    for name, x in (("qv", qv), ("k", k), ("v", v)):
+        if x.shape != qu.shape or x.dtype != dtype or x.device != qu.device:
+            raise ValueError(f"{what}: {name} does not match qu")
+    if p.shape != (2 * t - 1, h, dh) or p.dtype != dtype or p.device != qu.device:
+        raise ValueError(f"{what}: p must be {(2 * t - 1, h, dh)} {dtype}")
+    if lengths.shape != (b,):
+        raise ValueError(f"{what}: lengths must be (B,)")
+    return b, t, h, dh
+
+
+def _check_backward_inputs(what: str, qu, qv, k, v, p, lengths, lse, delta, g) -> Tuple[int, int, int, int]:
+    b, t, h, dh = _check_inputs(what, qu, qv, k, v, p, lengths)
+    if g.shape != qu.shape or g.dtype != qu.dtype or g.device != qu.device:
+        raise ValueError(f"{what}: g does not match qu")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b, h, t) or x.dtype != torch.float32 or x.device != qu.device:
+            raise ValueError(f"{what}: {name} must be {(b, h, t)} float32")
+    return b, t, h, dh
+
+
+def _lengths_i32(lengths: torch.Tensor, device: torch.device) -> torch.Tensor:
+    return lengths.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _launch_forward(qu, qv, k, v, p, lengths, scale, with_lse: bool):
+    b, t, h, dh = _check_inputs("flash_relpos_attention", qu, qv, k, v, p, lengths)
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    qu, qv, k, v, p = (x.contiguous() for x in (qu, qv, k, v, p))
+    lengths = _lengths_i32(lengths, qu.device)
+    out = torch.empty_like(qu)
+    lse = torch.empty(b, h, t, device=qu.device, dtype=torch.float32) if with_lse else None
+    err = build.library().attention_relpos_fwd(
+        qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, t, h, dh, float(scale), int(qu.dtype == torch.bfloat16), build.stream_of(qu),
+    )
+    build.check(err, "attention_relpos")
+    return out, lse
+
+
+def flash_relpos_attention_forward_lse(
+    qu, qv, k, v, p, lengths, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward that also returns the (B, H, T) float32 logsumexp the
+    backward recomputes from.  The kernel for CUDA tensors, the plain twin
+    for CPU ones.  Returns graph-less tensors: `RelPosFlashAttention` is
+    the differentiable entry."""
+    if qu.device.type == "cpu":
+        return flash_relpos_attention_plain(qu, qv, k, v, p, lengths, scale, return_lse=True)
+    out, lse = _launch_forward(qu, qv, k, v, p, lengths, scale, with_lse=True)
+    flash_relpos_attention_forward_lse.launches += 1
+    return out, lse
+
+
+def _launch_backward(symbol: str, shapes_like, qu, qv, k, v, p, lengths, scale, lse, delta, g):
+    """Launches one backward kernel; its two (or one) outputs are allocated
+    like ``shapes_like``."""
+    b, t, h, dh = _check_backward_inputs(symbol, qu, qv, k, v, p, lengths, lse, delta, g)
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    qu, qv, k, v, p, g, lse, delta = (x.contiguous() for x in (qu, qv, k, v, p, g, lse, delta))
+    lengths = _lengths_i32(lengths, qu.device)
+    outs = [torch.empty_like(x) for x in shapes_like]
+    scratch = []
+    if symbol == "attention_relpos_bwd_dband":  # per-batch-row float32 partials
+        scratch = [torch.empty((b, *p.shape), device=p.device, dtype=torch.float32)]
+    err = getattr(build.library(), symbol)(
+        qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(), lengths.data_ptr(),
+        g.data_ptr(), lse.data_ptr(), delta.data_ptr(), *(x.data_ptr() for x in outs + scratch),
+        b, t, h, dh, float(scale), int(qu.dtype == torch.bfloat16), build.stream_of(qu),
+    )
+    build.check(err, symbol)
+    return outs
+
+
+def flash_relpos_attention_bwd_dq(
+    qu, qv, k, v, p, lengths, scale: float, lse: torch.Tensor, delta: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dqu, dqv), each (B, T, H, dh) in q's dtype.  The kernel for CUDA
+    tensors, the plain twin for CPU ones."""
+    if qu.device.type == "cpu":
+        return _backward_plain_from_delta(qu, qv, k, v, p, lengths, scale, lse, delta, g)[0:2]
+    dqu, dqv = _launch_backward("attention_relpos_bwd_dq", (qu, qv), qu, qv, k, v, p, lengths, scale, lse, delta, g)
+    flash_relpos_attention_bwd_dq.launches += 1
+    return dqu, dqv
+
+
+def flash_relpos_attention_bwd_dkv(
+    qu, qv, k, v, p, lengths, scale: float, lse: torch.Tensor, delta: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv), each (B, T, H, dh).  The kernel for CUDA tensors, the
+    plain twin for CPU ones."""
+    if qu.device.type == "cpu":
+        return _backward_plain_from_delta(qu, qv, k, v, p, lengths, scale, lse, delta, g)[2:4]
+    dk, dv = _launch_backward("attention_relpos_bwd_dkv", (k, v), qu, qv, k, v, p, lengths, scale, lse, delta, g)
+    flash_relpos_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_relpos_attention_bwd_dband(
+    qu, qv, k, v, p, lengths, scale: float, lse: torch.Tensor, delta: torch.Tensor, g: torch.Tensor
+) -> torch.Tensor:
+    """dp (2T-1, H, dh), the rel-pos table's gradient summed over the batch
+    in a fixed order (float32 partials per batch row, then their sum; one
+    launch of the wrapper runs both kernels).  The kernel for CUDA tensors,
+    the plain twin for CPU ones."""
+    if qu.device.type == "cpu":
+        return _backward_plain_from_delta(qu, qv, k, v, p, lengths, scale, lse, delta, g)[4]
+    (dp,) = _launch_backward("attention_relpos_bwd_dband", (p,), qu, qv, k, v, p, lengths, scale, lse, delta, g)
+    flash_relpos_attention_bwd_dband.launches += 1
+    return dp
+
+
+class RelPosFlashAttention(torch.autograd.Function):
+    """(qu, qv, k, v, p, lengths, scale) → out, with the backward of
+    ``flash_attention_relpos``'s ``custom_vjp`` in the JAX package: the
+    forward saves the inputs, the output and the lse; the backward
+    recomputes the probabilities from them.  CUDA tensors go through the
+    four kernels, CPU tensors through the plain twins."""
+
+    @staticmethod
+    def forward(ctx, qu, qv, k, v, p, lengths, scale):
+        out, lse = flash_relpos_attention_forward_lse(qu, qv, k, v, p, lengths, scale)
+        ctx.save_for_backward(qu, qv, k, v, p, lengths, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qu, qv, k, v, p, lengths, out, lse = ctx.saved_tensors
+        g = g.to(out.dtype)
+        if g.device.type == "cpu":
+            grads = flash_relpos_attention_backward_plain(qu, qv, k, v, p, lengths, ctx.scale, out, lse, g)
+            return (*grads, None, None)
+        args = (qu, qv, k, v, p, lengths, ctx.scale, lse, attention_delta(out, g), g)
+        dqu, dqv = flash_relpos_attention_bwd_dq(*args)
+        dk, dv = flash_relpos_attention_bwd_dkv(*args)
+        dp = flash_relpos_attention_bwd_dband(*args)
+        return dqu, dqv, dk, dv, dp, None, None
 
 
 def flash_relpos_attention(
@@ -79,44 +291,22 @@ def flash_relpos_attention(
     lengths: torch.Tensor,
     scale: float,
 ) -> torch.Tensor:
-    """(B, T, H, dh) rel-pos attention, forward only.  The kernel for CUDA
-    tensors, the plain twin for CPU ones.  Raises when autograd is
-    recording and an input requires a gradient, on either device."""
+    """(B, T, H, dh) rel-pos attention, differentiable in qu, qv, k, v and
+    p.  With autograd recording and an input that needs a gradient it goes
+    through `RelPosFlashAttention` (forward kernel writing the lse, then the
+    three backward kernels); otherwise the forward kernel writes the output
+    only.  CPU tensors run the plain twins in the same places."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (qu, qv, k, v, p)):
-        raise RuntimeError(
-            "flash_relpos_attention has no backward kernel yet (it comes with the "
-            "long-form slice); train through the einsum route (config.attention_route)"
-        )
+        return RelPosFlashAttention.apply(qu, qv, k, v, p, lengths, scale)
     if qu.device.type == "cpu":
         return flash_relpos_attention_plain(qu, qv, k, v, p, lengths, scale)
-    if qu.device.type != "cuda":
-        raise ValueError(f"flash_relpos_attention: unsupported device {qu.device}")
-    b, t, h, dh = qu.shape
-    dtype = qu.dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_relpos_attention: unsupported dtype {dtype}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_relpos_attention: head_dim {dh} not in {HEAD_DIMS}")
-    for name, x in (("qv", qv), ("k", k), ("v", v)):
-        if x.shape != qu.shape or x.dtype != dtype or x.device != qu.device:
-            raise ValueError(f"flash_relpos_attention: {name} does not match qu")
-    if p.shape != (2 * t - 1, h, dh) or p.dtype != dtype:
-        raise ValueError(f"flash_relpos_attention: p must be {(2 * t - 1, h, dh)} {dtype}")
-    if lengths.shape != (b,):
-        raise ValueError("flash_relpos_attention: lengths must be (B,)")
-    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
-
-    qu, qv, k, v, p = (x.contiguous() for x in (qu, qv, k, v, p))
-    lengths = lengths.to(device=qu.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(qu)
-    err = build.library().attention_relpos_fwd(
-        qu.data_ptr(), qv.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, t, h, dh, float(scale),
-        int(dtype == torch.bfloat16), build.stream_of(qu),
-    )
-    build.check(err, "attention_relpos")
+    out, _ = _launch_forward(qu, qv, k, v, p, lengths, scale, with_lse=False)
     flash_relpos_attention.launches += 1
     return out
 
 
 flash_relpos_attention.launches = 0
+flash_relpos_attention_forward_lse.launches = 0
+flash_relpos_attention_bwd_dq.launches = 0
+flash_relpos_attention_bwd_dkv.launches = 0
+flash_relpos_attention_bwd_dband.launches = 0

@@ -38,9 +38,16 @@ SIGNATURES = {
     # audio, window, dft_re, dft_im, mel_fb, out, batch, samples, n_fft,
     # hop, n_frames, n_bins, n_mels, log_floor, stream
     "stft_logmel_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # qu, qv, k, v, p, lengths, out, batch, t, heads, head_dim, scale,
-    # is_bf16, stream
-    "attention_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # qu, qv, k, v, p, lengths, out, lse | NULL, batch, t, heads, head_dim,
+    # scale, is_bf16, stream
+    "attention_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # qu, qv, k, v, p, lengths, g, lse, delta, two outputs (dq: dqu, dqv;
+    # dkv: dk, dv; dband: dp and the float32 partials), batch, t, heads,
+    # head_dim, scale, is_bf16, stream
+    **{
+        f"attention_relpos_bwd_{name}": (*(_P,) * 11, _I, _I, _I, _I, _F, _I, _P)
+        for name in ("dq", "dkv", "dband")
+    },
     # xw, w_hh, lengths, h_out, c_out | NULL, gates_out | NULL, batch, t,
     # hidden, reverse, stream
     "lstm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

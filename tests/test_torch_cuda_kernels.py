@@ -6,10 +6,14 @@ conftest:  python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.p
 
 Tolerances: float32 log-mel 1e-3 (log of sums of 512-term products taken
 in another order), float32 attention 1e-4 and bfloat16 attention 2e-2 (one
-bf16 rounding of the output and of the probabilities), LSTM forward, its
-saved c and gates, and the backward's dxw 1e-4 (235 float32 steps), dW_hh
+bf16 rounding of the output and of the probabilities), the attention lse
+and backward (dqu, dqv, dk, dv, dp) 5e-4 in float32, the bar the JAX
+package holds its Pallas backward to, and in bfloat16 one bf16 ulp at the
+reference's largest entry (2^-7 of it; measured: none to half an ulp, the
+sums being float32 and rounded once), LSTM forward, its
+saved c and gates, and the backward's dxw 1e-4 (235 or 938 float32 steps), dW_hh
 1e-4 of its largest entry (a sum over B·T rows); CTC: alpha within
-1e-5 of its magnitude plus 1e-3 (log-space sums of up to 235 frames),
+1e-5 of its magnitude plus 1e-3 (log-space sums of up to 938 frames),
 ll within 1e-5 relative, demit 5e-4 (posteriors exp(α + β − ll) formed
 from log-space values of ~1.5e3, where one float32 ulp is 1.2e-4), and
 against torch's own CTC the loss 1e-5 relative and the logit gradient
@@ -45,7 +49,7 @@ def _close(got, ref, atol):
 
 
 @pytest.mark.parametrize(
-    "kw, samples", [({}, 480000), ({}, 12345), (dict(n_fft=400, hop_length=160), 16001)]
+    "kw, samples", [({}, 480000), ({}, 12345), (dict(n_fft=400, hop_length=160), 16001), ({}, 1920000)]
 )
 def test_stft_logmel_kernel(cuda, kw, samples):
     cfg = FeatureConfig(**kw)
@@ -93,25 +97,82 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                     torch.tensor([1025], device="cuda"), torch.tensor([3], device="cuda"))
 
 
-def test_attention_wrapper_refuses_inputs_that_need_a_gradient(cuda):
-    x = torch.randn(2, 5, 2, 32, device="cuda", requires_grad=True)
-    p = torch.randn(9, 2, 32, device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
-        A.flash_relpos_attention(x, x, x, x, p, torch.tensor([5, 3], device="cuda"), 0.2)
+def _attention_case(gen, dtype, b, t, h, dh, lengths):
+    qu, qv, k, v, g = ((torch.randn(b, t, h, dh, generator=gen) * 0.5).cuda().to(dtype) for _ in range(5))
+    p = (torch.randn(2 * t - 1, h, dh, generator=gen) * 0.5).cuda().to(dtype)
+    return (qu, qv, k, v, p, torch.tensor(lengths, dtype=torch.int32).cuda(), dh ** -0.5), g
 
 
-def _lstm_case(gen, hidden, reverse):
-    b, t = 4, 235
+def test_attention_gradients_reach_every_input(cuda):
+    """The kernel path differentiates: gradients in qu, qv, k, v and p equal
+    autograd's through the plain attention, through one launch of each of
+    the four training kernels and none of the inference forward."""
+    args, r = _attention_case(cuda, torch.float32, 2, 70, 2, 32, [70, 41])
+    wrappers = (A.flash_relpos_attention, A.flash_relpos_attention_forward_lse, A.flash_relpos_attention_bwd_dq,
+                A.flash_relpos_attention_bwd_dkv, A.flash_relpos_attention_bwd_dband)
+    grads = []
+    for fn in (A.flash_relpos_attention, A.flash_relpos_attention_plain):
+        leaves = [x.clone().requires_grad_(True) for x in args[:5]]
+        before = [w.launches for w in wrappers]
+        (fn(*leaves, *args[5:]) * r).sum().backward()
+        grads.append(([x.grad for x in leaves], [w.launches - n for w, n in zip(wrappers, before)]))
+    (got, counts), (ref, _) = grads
+    assert counts == [0, 1, 1, 1, 1]
+    for g, r in zip(got, ref):
+        _close(g, r, 5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b, t, h, dh, lengths",
+    [(1, 1, 1, 64, [1]), (3, 33, 2, 32, [33, 16, 30]), (4, 235, 4, 64, [235, 117, 20, 234]),
+     (2, 70, 2, 128, [70, 5]), (3, 40, 2, 16, [40, 0, 37]), (2, 938, 4, 64, [938, 300])],
+)
+@pytest.mark.parametrize("kernel", ["lse", "dq", "dkv", "dband"])
+def test_attention_backward_kernels(cuda, kernel, b, t, h, dh, lengths, dtype):
+    """The lse forward and the three backward kernels against their plain
+    twins, from the twin's saved output and lse.  A bfloat16 gradient is
+    held to one bf16 ulp at its reference's largest entry (and no tighter
+    than the float32 bar, for a reference that is all but zero)."""
+    args, g = _attention_case(cuda, dtype, b, t, h, dh, lengths)
+    out, lse = A.flash_relpos_attention_plain(*args, return_lse=True)
+    if kernel == "lse":
+        before = A.flash_relpos_attention_forward_lse.launches
+        got_out, got_lse = A.flash_relpos_attention_forward_lse(*args)
+        assert A.flash_relpos_attention_forward_lse.launches == before + 1
+        assert got_lse.shape == (b, h, t) and got_lse.dtype == torch.float32 and got_out.dtype == dtype
+        _close(got_out, out, 2e-2 if dtype == torch.bfloat16 else 1e-4)
+        rows = torch.tensor(lengths).cuda() > 0  # a row without a valid key has lse ≈ -1e30 on both sides
+        _close(got_lse[rows], lse[rows], 5e-4)
+        return
+    ref = A.flash_relpos_attention_backward_plain(*args, out, lse, g)
+    call = (*args, lse, A.attention_delta(out, g), g)
+    if kernel == "dq":
+        got, want = A.flash_relpos_attention_bwd_dq(*call), ref[0:2]
+    elif kernel == "dkv":
+        got, want = A.flash_relpos_attention_bwd_dkv(*call), ref[2:4]
+    else:
+        got, want = (A.flash_relpos_attention_bwd_dband(*call),), ref[4:5]
+        again = A.flash_relpos_attention_bwd_dband(*call)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again)  # the batch sum is ordered: bit-equal from run to run
+    for x, r in zip(got, want):
+        assert x.dtype == dtype and x.shape == r.shape
+        _close(x, r, max(2.0 ** -7 * r.abs().max().item(), 5e-4) if dtype == torch.bfloat16 else 5e-4)
+
+
+def _lstm_case(gen, hidden, reverse, t=235):
+    b = 4
     xw = torch.randn(b, t, 4 * hidden, generator=gen).cuda()
     w_hh = (torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).cuda()
-    lengths = torch.tensor([t, 100, 1, 234], dtype=torch.int32).cuda()
+    lengths = torch.tensor([t, 100, 1, t - 1], dtype=torch.int32).cuda()
     return xw, w_hh, lengths
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("hidden", [320, 100])
-def test_lstm_training_forward_kernel(cuda, reverse, hidden):
-    xw, w_hh, lengths = _lstm_case(cuda, hidden, reverse)
+@pytest.mark.parametrize("hidden, t", [(320, 235), (100, 235), (320, 938)])
+def test_lstm_training_forward_kernel(cuda, reverse, hidden, t):
+    xw, w_hh, lengths = _lstm_case(cuda, hidden, reverse, t)
     got = L.lstm_forward(xw, w_hh, lengths, reverse=reverse, save=True)
     ref = L.lstm_forward_plain(xw, w_hh, lengths, reverse)
     for g, r in zip(got, ref):
@@ -120,9 +181,9 @@ def test_lstm_training_forward_kernel(cuda, reverse, hidden):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("hidden", [320, 100, 37])
-def test_lstm_backward_kernels(cuda, reverse, hidden):
-    xw, w_hh, lengths = _lstm_case(cuda, hidden, reverse)
+@pytest.mark.parametrize("hidden, t", [(320, 235), (100, 235), (37, 235), (320, 938)])
+def test_lstm_backward_kernels(cuda, reverse, hidden, t):
+    xw, w_hh, lengths = _lstm_case(cuda, hidden, reverse, t)
     h, c, gates = L.lstm_forward_plain(xw, w_hh, lengths, reverse)
     gout = torch.randn(h.shape, generator=cuda).cuda()
     dxw = L.lstm_backward(gout, gates, c, w_hh, lengths, reverse=reverse)
@@ -163,8 +224,9 @@ def _ctc_case(gen, b=16, t=235, length=100, vocab=1024):
     return [x.cuda() for x in (logits, labels, input_lengths, label_lengths)]
 
 
-def test_ctc_kernels(cuda):
-    logits, labels, in_len, lab_len = _ctc_case(cuda)
+@pytest.mark.parametrize("b, t, length", [(16, 235, 100), (4, 938, 400)])  # the 30 s and the 120 s train step
+def test_ctc_kernels(cuda, b, t, length):
+    logits, labels, in_len, lab_len = _ctc_case(cuda, b, t, length)
     ext, can_skip, _, ext_len = TC.extended_labels(labels, lab_len, 0)
     emit = TC.emit_log_probs(torch.log_softmax(logits, -1), ext)
     alpha = K.ctc_alpha(emit, can_skip, ext_len, in_len)
@@ -176,7 +238,7 @@ def test_ctc_kernels(cuda):
     ll, ll_ref = K.final_ll(alpha[:, -1], ext_len), K.final_ll(alpha_ref[:, -1], ext_len)
     assert ll_ref[3] == TC.LOG_EPS and torch.all(ll_ref[[0, 1, 2]] > TC.LOG_EPS / 2)
     torch.testing.assert_close(ll, ll_ref, rtol=1e-5, atol=0)
-    g = torch.randn(16, generator=cuda).cuda()
+    g = torch.randn(b, generator=cuda).cuda()
     demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
     _close(demit, K.ctc_beta_plain(emit, alpha, can_skip, ext_len, in_len, ll, g), 5e-4)
     assert torch.isfinite(demit).all()

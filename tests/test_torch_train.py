@@ -16,6 +16,11 @@ first step (±0.1·lr, the sign of the gradient) may take either sign, and
 the update is only bounded by 0.1·lr (plus the float32 rounding of the
 parameter it is added to).  The subsampling's second conv (512 × 128
 channels) is factored, so the factored update is held too.
+
+The same step is held with ``attention_impl='flash'`` (d_model 32): the JAX
+side then trains through its flash forward and its three backward kernels
+in interpret mode, the port through `RelPosFlashAttention` over the plain
+twins, under the same tolerances.
 """
 
 import dataclasses
@@ -54,8 +59,8 @@ from nn_conformer_for_speech_recognition_tpu_torch.utils import flops as TF
 LR, VOCAB = 1e-3, 12
 
 
-def _tiny(lib, **kw):
-    enc = lib.ConformerConfig(num_blocks=2, d_model=16, num_heads=2, ffn_dim=32, conv_kernel_size=5, dropout=0.0)
+def _tiny(lib, d_model=16, **kw):
+    enc = lib.ConformerConfig(num_blocks=2, d_model=d_model, num_heads=2, ffn_dim=32, conv_kernel_size=5, dropout=0.0)
     dec = lib.DecoderConfig(projection_dim=8, lstm_hidden=8, dropout=0.0)
     return lib.ModelConfig(encoder=enc, decoder=dec, use_pallas=True, compute_dtype="float32", **kw)
 
@@ -69,8 +74,8 @@ def _batch(rng):
     return audio, lengths, targets, tlen
 
 
-def _jax_model(rng, audio, lengths):
-    model = ConformerCTC(_tiny(C), vocab_size=VOCAB)
+def _jax_model(rng, audio, lengths, **cfg):
+    model = ConformerCTC(_tiny(C, **cfg), vocab_size=VOCAB)
     feats, flens = log_mel_spectrogram(jnp.asarray(audio), C.FeatureConfig(), jnp.asarray(lengths))
     vs = model.init({"params": jax.random.key(0), "dropout": jax.random.key(1)}, feats, flens)
     vs = jax.tree.map(lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32), vs)
@@ -78,15 +83,32 @@ def _jax_model(rng, audio, lengths):
     return model, vs, feats, flens
 
 
-def _port(vs):
-    tm = TorchCTC(_tiny(TC), VOCAB)
-    tm.load_state_dict(flax_to_state_dict(vs, _tiny(TC)), strict=True)
+def _port(vs, **cfg):
+    tm = TorchCTC(_tiny(TC, **cfg), VOCAB)
+    tm.load_state_dict(flax_to_state_dict(vs, _tiny(TC, **cfg)), strict=True)
     return tm
 
 
 def test_train_step_matches_jax(rng):
+    _check_train_step_matches_jax(rng)
+
+
+def test_flash_train_step_matches_jax(rng, monkeypatch):
+    """The long-form route at a tiny size: ``attention_impl='flash'`` trains
+    through the flash forward (with lse) and the dq, dkv and dband backward
+    on both sides, and the step agrees as the einsum-route step does."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as TA
+
+    calls = []
+    backward = TA.flash_relpos_attention_backward_plain
+    monkeypatch.setattr(TA, "flash_relpos_attention_backward_plain", lambda *a: calls.append(1) or backward(*a))
+    _check_train_step_matches_jax(rng, d_model=32, attention_impl="flash")
+    assert len(calls) == 2  # one attention backward per block
+
+
+def _check_train_step_matches_jax(rng, **cfg):
     audio, lengths, targets, tlen = _batch(rng)
-    model, vs, feats, flens = _jax_model(rng, audio, lengths)
+    model, vs, feats, flens = _jax_model(rng, audio, lengths, **cfg)
     jargs = [jnp.asarray(a) for a in (audio, lengths, targets, tlen)]
     state = JaxTrainState.create(vs["params"], vs["batch_stats"], jax_make_optimizer(C.OptimizerConfig(learning_rate=LR)),
                                  jax.random.key(0))
@@ -101,10 +123,10 @@ def test_train_step_matches_jax(rng):
         w = (jargs[3] > 0).astype(jnp.float32)
         return jnp.sum(per_seq / jnp.maximum(jargs[3], 1) * w) / jnp.maximum(jnp.sum(w), 1.0)
 
-    ref_grads = flax_to_state_dict({"params": jax.jit(jax.grad(loss_fn))(vs["params"])}, _tiny(TC))
-    ref_after = flax_to_state_dict({"params": new_state.params, "batch_stats": new_state.batch_stats}, _tiny(TC))
+    ref_grads = flax_to_state_dict({"params": jax.jit(jax.grad(loss_fn))(vs["params"])}, _tiny(TC, **cfg))
+    ref_after = flax_to_state_dict({"params": new_state.params, "batch_stats": new_state.batch_stats}, _tiny(TC, **cfg))
 
-    tm = _port(vs)
+    tm = _port(vs, **cfg)
     before = {k: v.clone() for k, v in tm.state_dict().items()}
     tstate = TrainState.create(tm, make_optimizer(TC.OptimizerConfig(learning_rate=LR), tm.named_parameters()), seed=0)
     tstep = TL.make_train_step(tm, TC.FeatureConfig(), TC.SpecAugmentConfig(), 0, use_specaugment=False)
@@ -169,29 +191,67 @@ def test_masked_batchnorm_update_matches_jax(rng):
 
 
 def test_attention_route():
-    """Fault 1: training goes through the differentiable einsum route; the
-    kernel route (forward only) serves eval mode; 'flash' cannot train."""
+    """Fault 1 and its long-form sequel: eval goes through the kernel at
+    every length; training with 'flash' does too; training with 'auto'
+    switches to the kernel at 768 subsampled frames, where the JAX package
+    switches (below it the einsum route, which drops probabilities); 'xla'
+    and ``use_pallas=False`` never take the kernel."""
     cfg = TC.conformer_m(use_pallas=True)
-    assert TC.attention_route(cfg, training=False) == "kernel"
-    assert TC.attention_route(cfg, training=True) == "einsum"
-    xla = dataclasses.replace(cfg, attention_impl="xla")
-    assert TC.attention_route(xla, False) == TC.attention_route(xla, True) == "einsum"
-    assert TC.attention_route(TC.conformer_m(), True) == "einsum"
-    with pytest.raises(NotImplementedError, match="long-form slice"):
-        TC.attention_route(dataclasses.replace(cfg, attention_impl="flash"), training=True)
+    assert TC.ATTENTION_KERNEL_MIN_T_TRAINING == C.FLASH_ATTENTION_MIN_T == 768
+    for t in (1, 235, 767, 768, 938):
+        assert TC.attention_route(cfg, training=False, t=t) == "kernel"
+        assert TC.attention_route(cfg, training=True, t=t) == ("kernel" if t >= 768 else "einsum")
+        flash = dataclasses.replace(cfg, attention_impl="flash")
+        assert TC.attention_route(flash, False, t) == TC.attention_route(flash, True, t) == "kernel"
+        xla = dataclasses.replace(cfg, attention_impl="xla")
+        assert TC.attention_route(xla, False, t) == TC.attention_route(xla, True, t) == "einsum"
+        assert TC.attention_route(TC.conformer_m(), True, t) == TC.attention_route(TC.conformer_m(), False, t) == "einsum"
+        assert TC.attention_route(TC.conformer_m(attention_impl="flash"), True, t) == "einsum"
 
 
-def test_attention_wrapper_refuses_inputs_that_need_a_gradient(rng):
-    """Fault 1: the forward-only wrapper raises instead of returning a
-    tensor cut off from the graph (on every device)."""
-    qu, qv, k, v = (torch.from_numpy(rng.standard_normal((2, 5, 2, 8)).astype(np.float32)) for _ in range(4))
-    p = torch.from_numpy(rng.standard_normal((9, 2, 8)).astype(np.float32))
-    args = [qu, qv, k, v, p, torch.tensor([5, 3]), 0.35]
-    torch.testing.assert_close(flash_relpos_attention(*args), flash_relpos_attention_plain(*args))
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_relpos_attention(qu.requires_grad_(True), *args[1:])
+def test_attention_route_in_the_model_follows_the_length(rng, monkeypatch):
+    """'auto' in training: the encoder gets the kernel route from 768
+    frames on and the einsum route below; the switch is passed the
+    subsampled length."""
+    from nn_conformer_for_speech_recognition_tpu_torch.models import asr as TA
+
+    seen = []
+    route = TC.attention_route
+    monkeypatch.setattr(TA, "attention_route", lambda c, tr, t: seen.append((tr, t)) or route(c, tr, t))
+    tm = init_params(TorchCTC(_tiny(TC), VOCAB), torch.Generator().manual_seed(0))
+    kernel = []
+    tm.encoder.register_forward_pre_hook(lambda _, args: kernel.append(args[2]))
+    feats = torch.from_numpy(rng.standard_normal((1, 3069, 40)).astype(np.float32))
     with torch.no_grad():
-        flash_relpos_attention(*args)
+        tm.train()(feats, torch.tensor([3069]))  # 3069 frames → 768
+        tm.train()(feats[:, :3064], torch.tensor([3064]))  # → 766
+        tm.eval()(feats[:, :64], torch.tensor([64]))
+    assert seen == [(True, 768), (True, 766), (False, 16)]
+    assert kernel == [True, False, True]
+
+
+def test_attention_gradients_reach_every_input(rng):
+    """The wrapper differentiates (it once refused inputs that need a
+    gradient): through `RelPosFlashAttention` the gradients of qu, qv, k,
+    v and p equal autograd's through the plain attention (atol 1e-5), and
+    without a gradient or under ``no_grad`` it returns a plain tensor."""
+    arrays = [rng.standard_normal((2, 5, 2, 8)).astype(np.float32) for _ in range(4)]
+    arrays.append(rng.standard_normal((9, 2, 8)).astype(np.float32))
+    lens, r = torch.tensor([5, 3]), torch.from_numpy(rng.standard_normal((2, 5, 2, 8)).astype(np.float32))
+    grads = []
+    for fn in (flash_relpos_attention, flash_relpos_attention_plain):
+        leaves = [torch.from_numpy(a).clone().requires_grad_(True) for a in arrays]
+        out = fn(*leaves, lens, 0.35)
+        assert out.requires_grad
+        (out * r).sum().backward()
+        grads.append([x.grad for x in leaves])
+    for name, got, ref in zip(("qu", "qv", "k", "v", "p"), *grads):
+        assert got is not None and got.abs().max() > 0, name
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5, msg=name)
+    plain = [torch.from_numpy(a) for a in arrays]
+    assert not flash_relpos_attention(*plain, lens, 0.35).requires_grad
+    with torch.no_grad():
+        assert not flash_relpos_attention(plain[0].clone().requires_grad_(True), *plain[1:], lens, 0.35).requires_grad
 
 
 def test_train_step_gives_every_parameter_a_gradient(rng):
@@ -290,3 +350,38 @@ def test_flops_copy_equal_and_peak_by_card_name():
     assert TF.peak_bf16_flops("NVIDIA H100 PCIe") == 756e12
     with pytest.raises(ValueError):
         TF.peak_bf16_flops("TPU v5 lite")
+
+
+@pytest.mark.parametrize(
+    "kernel, group",
+    [
+        ("void attention_relpos_kernel<__nv_bfloat16, 64, true>(AttnArgs)", "attention forward + lse"),
+        ("void bwd_dband_kernel<float, 64>(BwdArgs)", "attention bwd dband (+ reduce)"),
+        ("void dband_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int)", "attention bwd dband (+ reduce)"),
+        ("void lstm_fwd_kernel<true>(LstmArgs)", "lstm_fwd"),
+        ("nvjet_tst_128x64_64x8_2x1_v_bz_TNN", "GEMMs (cuBLAS)"),
+        ("sm90_xmma_wgrad_implicit_gemm_bf16", "convolutions (cuDNN)"),
+        ("void at::native::vectorized_elementwise_kernel<4, MulFunctor>", "elementwise, reductions, copies"),
+    ],
+)
+def test_profile_step_groups_kernels_by_name(kernel, group):
+    """`utils.profile_step` sums device time by the first group whose words
+    the kernel's name holds: a convolution's implicit GEMM is cuDNN's, and
+    cuBLAS's `nvjet` kernels are GEMMs."""
+    from nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step import group_of
+
+    assert group_of(kernel) == group
+
+
+def test_package_data_ships_every_kernel_source():
+    """What `ops/cuda/build.py` compiles and hashes (`csrc/*.cu`, `*.cuh`) is
+    what an installed package holds."""
+    import pathlib
+    import tomllib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    patterns = tomllib.loads((root / "pyproject.toml").read_text())["tool"]["setuptools"]["package-data"][
+        "nn_conformer_for_speech_recognition_tpu_torch"]
+    package = root / "nn_conformer_for_speech_recognition_tpu_torch"
+    shipped = {p.name for pattern in patterns for p in package.glob(pattern)}
+    assert shipped == {p.name for p in (package / "csrc").iterdir() if p.is_file()} and "attention_relpos.cuh" in shipped
