@@ -8,8 +8,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    compiler's ``-Xptxas -v`` report is printed).
 2. Holds each kernel against its plain PyTorch twin on the card at the
    shapes of the main paths (Conformer-M; B=16, 30 s clips, targets of
-   100 tokens; and B=4, 120 s clips, targets of 400 tokens), with mixed
-   lengths, and times both with CUDA events after warm-up.  The CTC
+   100 tokens; B=4, 120 s clips, targets of 400 tokens; and the two
+   buckets of the Noisy Student phase, B=16 clips of 1.8 s and 3.6 s,
+   T'=14 and 28, targets of 8 tokens), with mixed lengths, and times both
+   with CUDA events after warm-up.  The CTC
    kernels are also read against the same recursions in float64.  Beside each
    time it works out the least time the card could take for the same work
    (bytes over the memory rate against operations over the peak rate) and,
@@ -36,7 +38,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
    under ``remat`` (the attention forward then runs twice per block), and
    the peak memory of the einsum route at the same shape beside the kernel
    route's.
-6. Prints one JSON line with each kernel's numbers, then, as the last line,
+6. The configuration whose depthwise conv is the hand-written kernel
+   (``conformer_m(use_pallas=True, conv_impl='pallas')``): the kernel
+   against its twin (forward and the gradient with respect to x, float32
+   and bfloat16, K = 33 and an even K, at both train shapes and at the
+   Noisy Student phase's) beside one ``conv1d(groups=C)`` call; then the
+   pseudo-label pass and the 30 s train step of phases 3 and 4 again under
+   that configuration, each against the plain path from the same weights,
+   timed and counted beside the 'auto' ones, one step under ``remat``, and
+   the float32 step against the plain path at the Noisy Student phase's
+   longer bucket.
+7. One Noisy Student generation through ``Trainer`` and ``run_nst`` under
+   that configuration at Conformer-M's full width and depth in bfloat16: a
+   synthetic corpus written to a temporary directory, manifests,
+   vocabulary, four bucketed datasets, supervised training until the
+   decodes are words, then ``run_nst``: a supervised epoch with SpecAugment
+   and validation, pseudo-labels for the unlabelled split, the filter, the
+   mix manifest (which must hold kept clips under the teacher's labels),
+   the retrain on it, checkpoints with cursors.  Then the trained weights
+   in float32 through ``Trainer.evaluate`` and ``generate_labels``, kernel
+   path against plain path; the generation's checkpoint restored into a
+   fresh trainer; and a mid-epoch kill resumed.  Stage times are taken
+   from outside the trainer, each between two waits for the card.
+8. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
@@ -45,8 +69,10 @@ CUDA device the script exits non-zero before printing any result.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -60,6 +86,15 @@ N_TRAIN_STEPS = 5  # bf16 train steps timed and counted, after two warm-up steps
 LOSS_STEPS, LOSS_LR = 10, 1e-3  # the loss must fall over 10 steps at this lr
 LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN = 4, 120.0, 400  # the long-form step: T'=938, S=801
 T_SUB, LONG_T_SUB = 235, 938  # frames after subsampling; check_train holds them to the model's own count
+# The Noisy Student phase: a synthetic corpus of ten words, up to 8 an utterance (0.4 s a word, gaps of 0.05 s),
+# two length buckets; its batches are (16, 28400) and (16, 56800) samples, T' = 14 and 28, at most 8 targets
+NST_WORDS = ["yes", "no", "go", "stop", "left", "right", "up", "down", "on", "off"]
+NST_TRAIN, NST_VAL, NST_UNLABELED, NST_BATCH, NST_MAX_WORDS, NST_LR = 128, 32, 128, 16, 8, 1e-3
+NST_LONGEST = int(16000 * (0.4 * NST_MAX_WORDS + 0.05 * (NST_MAX_WORDS - 1)))
+NST_BUCKETS = ((NST_LONGEST // 2, 14), (NST_LONGEST, 28))  # (samples, frames after subsampling)
+NST_PRETRAIN_EPOCHS = 20  # supervised epochs before the generation, so that the teacher's decodes are words
+NST_EVAL_LOSS_TOL = 1e-4  # float32 validation loss, kernel path vs plain path, relative
+KERNEL_SHAPES_CHECKED = set()  # (rows, frames after subsampling) at which the kernel phases ran
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): device memory 3.35 TB/s,
 # 989 TFLOP/s in bf16 on the tensor cores, 67 TFLOP/s in float32 outside them
 HBM_BYTES_PER_S = 3.35e12
@@ -80,7 +115,11 @@ TOL = {
     # by T': a posterior is exp(α + β − ll) of float32 sums that grow with T' and round at every frame.
     # About three times the H100's readings: 9.5e-4 at 235 frames and 6.1e-3 at 938, where torch's own
     # float32 CTC reads 9.7e-4 and 6.3e-3 and autograd through the plain recursion 3.4e-4 and 3.8e-4
-    "ctc_float64": {235: 3e-3, 938: 2e-2},
+    # at the Noisy Student phase's 14 and 28 frames the bar of 235 frames holds a fortiori
+    "ctc_float64": {14: 3e-3, 28: 3e-3, 235: 3e-3, 938: 2e-2},
+    # unit-variance inputs, taps of variance 1/K: at most 33 float32 multiply-adds in the twin's order
+    # (fused in the kernel); in bfloat16 both sum in float32 and round once, so `bf16_bar` with this floor
+    "depthwise_conv_f32": 1e-5,
 }
 SLICE_LOGPROB_TOL, SLICE_ID_AGREEMENT = 2e-3, 0.999
 # float32 train step, kernel path vs plain path
@@ -122,11 +161,11 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def bf16_bar(ref: torch.Tensor) -> float:
-    """The bar for a bf16 gradient whose sums are float32 and which is
+def bf16_bar(ref: torch.Tensor, floor: float = TOL["attention_bwd_f32"]) -> float:
+    """The bar for a bf16 result whose sums are float32 and which is
     rounded once at the end: one bf16 ulp at the reference's largest entry
-    (2^-7 of it), and never below the float32 bar."""
-    return max(2.0 ** -7 * ref.abs().max().item(), TOL["attention_bwd_f32"])
+    (2^-7 of it), and never below the float32 bar ``floor``."""
+    return max(2.0 ** -7 * ref.abs().max().item(), floor)
 
 
 def check(cond: bool, what: str) -> None:
@@ -152,6 +191,7 @@ def counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` it bumps per launch."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import depthwise_conv as D
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import stft_logmel as S
 
@@ -163,6 +203,7 @@ def counters() -> dict:
         "attention_relpos_bwd_dq": A.flash_relpos_attention_bwd_dq,
         "attention_relpos_bwd_dkv": A.flash_relpos_attention_bwd_dkv,
         "attention_relpos_bwd_dband": A.flash_relpos_attention_bwd_dband,
+        "depthwise_conv": D.depthwise_conv1d_forward,
     }
 
 
@@ -197,7 +238,7 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
 
     # -- stft_logmel: (16, 480000) f32 → (16, 938, 40); (4, 1920000) → (4, 3751, 40)
     cfg = FeatureConfig()
-    n_samples = int(seconds * cfg.sample_rate)
+    n_samples = round(seconds * cfg.sample_rate)
     audio = (torch.randn(b, n_samples, generator=gen) * 0.1).to(dev)
     got, ref = S.stft_logmel(audio, cfg), S.stft_logmel_plain(audio, cfg)
     torch.cuda.synchronize()
@@ -232,7 +273,7 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
         plain_ms32 = cuda_ms(lambda: A.flash_relpos_attention_plain(*args32))
         ms = cuda_ms(lambda: A.flash_relpos_attention(*args16))
         plain_ms = cuda_ms(lambda: A.flash_relpos_attention_plain(*args16))
-        print(f"attention_relpos (16, 235, 4, 64): f32 max|Δ| {err32:.3e} (tol {TOL['attention_f32']}), "
+        print(f"attention_relpos ({b}, {t}, {h}, {dh}): f32 max|Δ| {err32:.3e} (tol {TOL['attention_f32']}), "
               f"kernel {ms32:.4f} ms, plain {plain_ms32:.4f} ms; bf16 max|Δ| {err16:.3e} "
               f"(tol {TOL['attention_bf16']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
         check(err32 <= TOL["attention_f32"], "attention (f32) disagrees with its plain twin")
@@ -276,6 +317,7 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 2)
     results = {}
+    KERNEL_SHAPES_CHECKED.add((b, t))
 
     # -- LSTM backward + dW_hh: H=320, both directions
     hidden = 320
@@ -326,8 +368,11 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     labels[1] = labels[1, : target_len // 2].repeat_interleave(2)
     label_lengths = torch.full((b,), target_len)
     label_lengths[2] = 0
-    input_lengths = torch.randint(2 * target_len + 20, t + 1, (b,), generator=gen)
-    input_lengths[0], input_lengths[3] = t, 60
+    # ragged rows that leave room for the targets and their repeats (row 1 needs a blank between each of its
+    # target_len // 2 pairs); row 3 is shorter than its targets
+    low, need = 2 * target_len + 20, target_len + target_len // 2
+    input_lengths = torch.randint(low if low <= t else (need + t) // 2, t + 1, (b,), generator=gen)
+    input_lengths[0], input_lengths[3] = t, 60 if target_len > 60 else target_len // 2
     logits = (torch.randn(b, t, VOCAB, generator=gen) * 2).to(dev)
     labels, label_lengths, input_lengths = labels.to(dev), label_lengths.to(dev), input_lengths.to(dev)
     ext, can_skip, _, ext_len = TC.extended_labels(labels, label_lengths, 0)
@@ -490,6 +535,79 @@ def check_attention_backward_kernels(card: str) -> dict:
     return results
 
 
+def check_depthwise_conv_kernel(card: str) -> dict:
+    """The depthwise conv against its twin at the conv module's shapes in
+    both train steps and in the Noisy Student phase's two buckets, where a
+    row is shorter than the kernel's 64-row tile and than its 33 taps
+    (C = 2 · d_model = 512): forward and dx (the same
+    kernel on the gradient, taps reversed, pads swapped), float32 and bf16,
+    K = 33 and an even K.  The bf16 numbers at (16, 235, 512), K = 33, go
+    into the result, beside ``conv1d(groups=C)`` with its pad and two
+    transposes, as the 'auto' route runs it."""
+    import torch.nn.functional as F
+
+    from nn_conformer_for_speech_recognition_tpu_torch.models.layers import same_padding
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import depthwise_conv as D
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 5)
+    c, result = 512, None
+    for b, t in ((BATCH, T_SUB), (LONG_BATCH, LONG_T_SUB), *((NST_BATCH, frames) for _, frames in NST_BUCKETS)):
+        for k in (33, 32):
+            x32, g32 = (torch.randn(b, t, c, generator=gen).to(dev) for _ in range(2))
+            w32 = (torch.randn(k, c, generator=gen) * k ** -0.5).to(dev)
+            pad_hi = k - 1 - (k - 1) // 2
+            for dtype in (torch.float32, torch.bfloat16):
+                x, g, w = x32.to(dtype), g32.to(dtype), w32.to(dtype)
+                out, ref = D.depthwise_conv1d(x, w), D.depthwise_conv1d_plain(x, w)
+                dx = D.depthwise_conv1d_forward(g, w, pad_lo=pad_hi, reverse_taps=True)
+                leaf = x.clone().requires_grad_(True)
+                (dx_ref,) = torch.autograd.grad(D.depthwise_conv1d_plain(leaf, w), leaf, g)
+                torch.cuda.synchronize()
+                check(out.shape == x.shape and out.dtype == dtype, "depthwise_conv output shape or type")
+                floor = TOL["depthwise_conv_f32"]
+                tols = (bf16_bar(ref, floor), bf16_bar(dx_ref, floor)) if dtype == torch.bfloat16 else (floor, floor)
+                errs = (max_abs(out, ref), max_abs(dx, dx_ref))
+                name = str(dtype).replace("torch.", "")
+                ms = cuda_ms(lambda: D.depthwise_conv1d_forward(x, w))
+                dx_ms = cuda_ms(lambda: D.depthwise_conv1d_forward(g, w, pad_lo=pad_hi, reverse_taps=True))
+                plain_ms = cuda_ms(lambda: D.depthwise_conv1d_plain(x, w), iters=5)
+                dw_ms = cuda_ms(lambda: D.depthwise_conv1d_weight_grad(x, g, k), iters=5)
+                weight = w.t().unsqueeze(1).contiguous()  # (C, 1, K), the library route's parameter
+
+                def library():
+                    h = F.pad(x.transpose(1, 2), same_padding(t, k, 1))
+                    return F.conv1d(h, weight, groups=c).transpose(1, 2)
+
+                lib_err = max_abs(library(), ref)
+                library_ms = cuda_ms(library)
+                print(f"depthwise_conv ({b}, {t}, {c}) K={k} {name}: max|Δ| out {errs[0]:.3e} (tol {tols[0]:.1e}), "
+                      f"dx {errs[1]:.3e} (tol {tols[1]:.1e}); kernel {ms:.4f} ms, dx by the same kernel {dx_ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, conv1d(groups={c}) with pad and transposes {library_ms:.4f} ms "
+                      f"(max|Δ| to the twin {lib_err:.3e}), dw by unfold + einsum {dw_ms:.4f} ms  [{card}]")
+                check(errs[0] <= tols[0], f"depthwise_conv ({name}, K={k}) disagrees with its plain twin")
+                check(errs[1] <= tols[1], f"depthwise_conv dx ({name}, K={k}) disagrees with autograd through the twin")
+                if (b, k, dtype) == (BATCH, 33, torch.bfloat16):
+                    # x read once, out written once, the taps; 2·K operations an element, done as float32
+                    # multiply-adds outside the tensor cores whatever the storage type
+                    result = numbers(max(errs), ms, plain_ms, nbytes(x, out, w), 2 * k * x.numel(), torch.float32,
+                                     library_ms=library_ms)
+    return {"depthwise_conv": result}
+
+
+def print_bias_attention_bound() -> None:
+    """The bound of the one TPU kernel without a counterpart yet, the flash
+    forward with an additive bias (``ops/pallas/attention.py::_flash_kernel``),
+    at the encoder's shape (16, 235, 4, 64) in bf16 with full lengths: qu, k,
+    v and the output once, the (B, H, T, T) bias once; 4·dh operations for
+    each (query, key) pair and head."""
+    b, t, h, dh, size = BATCH, T_SUB, 4, 64, 2
+    moved = 4 * b * t * h * dh * size + b * h * t * t * size
+    n = numbers(0.0, 0.0, 0.0, moved, 4 * dh * b * h * t * t, torch.bfloat16)
+    print(f"still to port, attention with a bias input ({b}, {t}, {h}, {dh}) bf16: {moved / 1e6:.2f} MB, "
+          f"bound {n['bound_ms']:.4f} ms ({n['bound_by']}); no time, there is no kernel yet")
+
+
 def make_batches(n_samples: int, batch: int = BATCH, count: int = N_BATCHES + 1):
     """``count`` padded batches of synthetic audio (tones + noise) with
     mixed lengths; batch 0 doubles as the warm-up."""
@@ -506,7 +624,22 @@ def make_batches(n_samples: int, batch: int = BATCH, count: int = N_BATCHES + 1)
     return batches
 
 
-def check_slice(card: str) -> dict:
+def weights_for(model, state: dict) -> dict:
+    """``state`` under the names of ``model``'s depthwise-conv route: the
+    kernel route's ``dw_kernel`` (K, C) and the library route's
+    ``depthwise.weight`` (C, 1, K) hold the same taps."""
+    want = model.state_dict().keys()
+    return dict(
+        (name, value) if name in want
+        else (name.replace("dw_kernel", "depthwise.weight"), value.t().unsqueeze(1).contiguous())
+        for name, value in state.items()
+    )
+
+
+def check_slice(card: str, conv_impl: str = "auto") -> dict:
+    """The pseudo-label pass.  ``conv_impl='pallas'``: the configuration
+    whose depthwise conv is the hand-written kernel; its plain path is the
+    ``use_pallas=False`` model (grouped conv1d) with the same taps."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, conformer_m
     from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
@@ -517,19 +650,20 @@ def check_slice(card: str) -> dict:
     vocab = build_vocab("word", [" ".join(f"w{i}" for i in range(VOCAB - 3))])
     check(len(vocab) == VOCAB, "vocabulary size")
     gen = torch.Generator().manual_seed(SEED)
-    base = init_params(ConformerCTC(conformer_m(use_pallas=True), VOCAB), gen)
+    base = init_params(ConformerCTC(conformer_m(use_pallas=True, conv_impl=conv_impl), VOCAB), gen)
     for name, buf in base.named_buffers():  # non-trivial running statistics
         buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
     state = base.state_dict()
+    tag = f"conv_impl={conv_impl!r}"
 
     def model(**cfg):
         m = ConformerCTC(conformer_m(**cfg), VOCAB)
-        m.load_state_dict(state)
+        m.load_state_dict(weights_for(m, state))
         return m.cuda().eval()
 
-    kernel32 = model(use_pallas=True, compute_dtype="float32")
+    kernel32 = model(use_pallas=True, conv_impl=conv_impl, compute_dtype="float32")
     plain32 = model(use_pallas=False, compute_dtype="float32")
-    kernel16 = model(use_pallas=True)  # 'auto': bfloat16 on CUDA
+    kernel16 = model(use_pallas=True, conv_impl=conv_impl)  # 'auto': bfloat16 on CUDA
     plain16 = model(use_pallas=False)
     feat_kernel = make_featurizer(FeatureConfig())
     feat_plain = make_featurizer(FeatureConfig(impl="xla"))
@@ -549,7 +683,7 @@ def check_slice(card: str) -> dict:
             worst = max(worst, max_abs(lk[valid], lp[valid]))
             agree += (lk.argmax(-1) == lp.argmax(-1))[valid].sum().item()
             total += valid.sum().item()
-    print(f"slice f32, kernel vs plain path over {N_BATCHES} batches: log-prob max|Δ| {worst:.3e} "
+    print(f"slice f32 ({tag}), kernel vs plain path over {N_BATCHES} batches: log-prob max|Δ| {worst:.3e} "
           f"(tol {SLICE_LOGPROB_TOL}), greedy ids equal on {agree}/{total} valid frames")
     check(worst <= SLICE_LOGPROB_TOL, "f32 log-probs of the kernel path disagree")
     check(agree >= SLICE_ID_AGREEMENT * total, "f32 greedy ids of the kernel path disagree")
@@ -564,7 +698,7 @@ def check_slice(card: str) -> dict:
         valid = torch.arange(lk.shape[1], device=ol.device)[None, :] < ol[:, None]
         ids_k, ids_p = greedy_decode(lk, ol), greedy_decode(lp, ol)
         share = (ids_k == ids_p)[valid].float().mean().item()
-    print(f"slice bf16, kernel vs plain path: greedy ids equal on {share:.4%} of valid frames")
+    print(f"slice bf16 ({tag}), kernel vs plain path: greedy ids equal on {share:.4%} of valid frames")
 
     # -- the main path, as a user runs it: bf16 predict step
     predict = make_predict_step(kernel16, FeatureConfig(), pad_id=vocab.pad_id)
@@ -586,10 +720,11 @@ def check_slice(card: str) -> dict:
         texts += [vocab.decode_ids(row.tolist()) for row in ids.cpu()]
     print(f"pseudo-labels: {len(texts)} strings, first: {texts[0][:80]!r}")
     print(f"launch counts over {N_BATCHES} pseudo-label batches: {launches}")
-    expected = {"stft_logmel": N_BATCHES, "attention_relpos": 16 * N_BATCHES, "lstm": 2 * N_BATCHES}
+    expected = {"stft_logmel": N_BATCHES, "attention_relpos": 16 * N_BATCHES, "lstm": 2 * N_BATCHES,
+                "depthwise_conv": 16 * N_BATCHES if conv_impl == "pallas" else 0}
     check(launches == {**dict.fromkeys(launches, 0), **expected}, f"pseudo-label launch counts, want {expected}")
     per_batch = dt / N_BATCHES
-    print(f"bf16 pseudo-label pass: {per_batch * 1e3:.2f} ms/batch (B={BATCH}, {SECONDS:.0f} s clips), "
+    print(f"bf16 pseudo-label pass ({tag}): {per_batch * 1e3:.2f} ms/batch (B={BATCH}, {SECONDS:.0f} s clips), "
           f"{BATCH * SECONDS / per_batch:.1f} audio-s/s, peak memory {peak / 2**20:.1f} MiB  [{card}]")
     return launches
 
@@ -598,12 +733,15 @@ def relative_error(got: torch.Tensor, ref: torch.Tensor) -> float:
     return max_abs(got, ref) / max(ref.abs().max().item(), 1e-30)
 
 
-def check_train(card: str, batch: int, seconds: float, target_len: int, long_form: bool) -> dict:
+def check_train(card: str, batch: int, seconds: float, target_len: int, long_form: bool,
+                conv_impl: str = "auto") -> dict:
     """The supervised train step: float32 kernel path vs plain path, then
     the bf16 step as a user runs it.  ``long_form``: the subsampled length
     is at least 768, so 'auto' trains the attention through the flash
     kernels; the einsum route's peak memory and one step under remat are
-    measured too."""
+    measured too.  ``conv_impl='pallas'``: the depthwise conv is the
+    hand-written kernel (its plain path the grouped conv1d with the same
+    taps), and one step under remat is counted at this shape too."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import (
         ATTENTION_KERNEL_MIN_T_TRAINING, FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
     )
@@ -613,23 +751,23 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
     from nn_conformer_for_speech_recognition_tpu_torch.utils.flops import peak_bf16_flops, train_step_flops
 
-    n_samples = int(seconds * 16000)
+    n_samples = round(seconds * 16000)
     frames = FeatureConfig().num_frames(n_samples)
     t_sub = conformer_m().subsampled_length(frames)
     check((t_sub >= ATTENTION_KERNEL_MIN_T_TRAINING) == long_form, f"T'={t_sub} is on the wrong side of the switch")
-    check(t_sub == (LONG_T_SUB if long_form else T_SUB), f"T'={t_sub}: the kernel phase ran at another length")
-    what = f"B={batch}, {seconds:.0f} s clips, T'={t_sub}, {target_len} targets"
+    check((batch, t_sub) in KERNEL_SHAPES_CHECKED, f"B={batch}, T'={t_sub}: the kernel phase ran at no such shape")
+    what = f"B={batch}, {seconds:g} s clips, T'={t_sub}, {target_len} targets, conv_impl={conv_impl!r}"
     blocks = conformer_m().encoder.num_blocks
 
     gen = torch.Generator().manual_seed(SEED + 3)
-    base = init_params(ConformerCTC(conformer_m(use_pallas=True), VOCAB), gen)
+    base = init_params(ConformerCTC(conformer_m(use_pallas=True, conv_impl=conv_impl), VOCAB), gen)
     for name, buf in base.named_buffers():  # non-trivial running statistics
         buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
     weights = base.state_dict()
 
     def trainer(cfg, lr: float, ctc_impl: str = "auto"):
         m = ConformerCTC(cfg, VOCAB)
-        m.load_state_dict(weights)
+        m.load_state_dict(weights_for(m, weights))
         m.cuda()
         state = TrainState.create(m, make_optimizer(OptimizerConfig(learning_rate=lr), m.named_parameters()), SEED)
         return state, make_feature_train_step(m, blank_id=0, ctc_impl=ctc_impl)
@@ -640,7 +778,7 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     # -- float32, kernel path vs plain path: one step from the same weights
     #    and the same (augmented) features, dropout 0
     def f32(use_pallas: bool):
-        cfg = conformer_m(use_pallas=use_pallas, compute_dtype="float32")
+        cfg = conformer_m(use_pallas=use_pallas, conv_impl=conv_impl if use_pallas else "auto", compute_dtype="float32")
         return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0),
                                    decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
 
@@ -665,6 +803,15 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
         loss_err = abs(met_k["loss"].item() - met_p["loss"].item()) / abs(met_p["loss"].item())
         norm_err = abs(met_k["grad_norm"].item() - met_p["grad_norm"].item()) / met_p["grad_norm"].item()
         params_p = dict(mp.named_parameters())
+
+        def plain(name):
+            """The plain path's parameter and gradient under the kernel path's name and layout: the library
+            route keeps the taps as ``depthwise.weight`` (C, 1, K), the kernel route as ``dw_kernel`` (K, C)."""
+            if name in params_p:
+                return params_p[name].detach(), params_p[name].grad
+            p = params_p[name.replace("dw_kernel", "depthwise.weight")]
+            return p.detach()[:, 0].t(), p.grad[:, 0].t()
+
         # updates: Adafactor normalises each row and column of a gradient (and
         # moves an unfactored entry by ±0.1·lr on the first step), so an entry
         # whose gradient is at noise level takes a full-size step of
@@ -673,12 +820,12 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
         grad_err, worst, step_err = 0.0, "", 0.0
         noisy = total = 0
         for name, pk in mk.named_parameters():
-            pp = params_p[name]
-            err = relative_error(pk.grad, pp.grad)
+            pp, pp_grad = plain(name)
+            err = relative_error(pk.grad, pp_grad)
             if err > grad_err:
                 grad_err, worst = err, name
-            dk, dp = pk.detach() - before[name], pp.detach() - before[name]
-            clear = pp.grad.abs() > 1e-3 * pp.grad.abs().max()
+            dk, dp = pk.detach() - before[name], pp - before[name]
+            clear = pp_grad.abs() > 1e-3 * pp_grad.abs().max()
             step_err = max(step_err, max_abs(dk[clear], dp[clear]) / dp.abs().max().item())
             noisy += (~clear).sum().item()
             total += clear.numel()
@@ -699,12 +846,14 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     kernel_run, plain_run = one_step(True, "auto"), one_step(False, "xla")
     check(not any(plain_run[3].values()), f"the plain path launched a kernel: {plain_run[3]}")
     check((kernel_run[3]["attention_relpos_bwd_dq"] == blocks) == long_form, f"f32 kernel path launches: {kernel_run[3]}")
+    check(kernel_run[3]["depthwise_conv"] == (2 * blocks if conv_impl == "pallas" else 0),
+          f"f32 kernel path launches: {kernel_run[3]}")
     compare(kernel_run, plain_run)
     del kernel_run, plain_run
 
     # -- bf16, as a user runs it: augment, then the train step; full-length
     #    clips, the same count of targets in every row
-    cfg16 = conformer_m(use_pallas=True)  # compute 'auto': bfloat16 on CUDA
+    cfg16 = conformer_m(use_pallas=True, conv_impl=conv_impl)  # compute 'auto': bfloat16 on CUDA
     audio = make_batches(n_samples, batch, 2)[1][0]
     alen = torch.full((batch,), n_samples, device="cuda")
     tlen = torch.full((batch,), target_len, device="cuda")
@@ -738,9 +887,11 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
           f"({flops / 1e12:.3f} model TFLOP/step), peak memory {peak / 2**20:.1f} MiB  [{card}]")
     print(f"launch counts over {N_TRAIN_STEPS} bf16 train steps: {launches}")
     n, attn = N_TRAIN_STEPS, blocks * N_TRAIN_STEPS if long_form else 0
+    conv = 2 * blocks * N_TRAIN_STEPS if conv_impl == "pallas" else 0  # forward and dx in every block
     expected = {"stft_logmel": n, "attention_relpos": 0, "lstm": 2 * n, "lstm_backward": 2 * n,
                 "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
-                "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn}
+                "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn,
+                "depthwise_conv": conv}
     check(launches == expected, f"train-step launch counts, want {expected}")
     del state
 
@@ -748,22 +899,302 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     _, _, _, _, losses = run_steps(cfg16, LOSS_LR, 0, LOSS_STEPS + 1)
     print(f"bf16 loss on a repeated batch at lr {LOSS_LR}: " + " ".join(f"{x:.3f}" for x in losses))
     check(losses[-1] < losses[0], f"the loss did not fall in {LOSS_STEPS} steps")
-    if not long_form:
+    if not long_form and conv_impl != "pallas":
         return launches
 
     # -- under remat each block's forward runs again in the backward: the
-    #    attention forward is launched twice per block, each backward once
+    #    attention forward and the conv forward are launched twice per
+    #    block, each backward once (conv: 2 forwards + dx = 48 a step)
     _, dt_remat, count, peak_remat, _ = run_steps(dataclasses.replace(cfg16, remat=True), lr32, 1, 2)
     print(f"bf16 train step under remat ({what}): {dt_remat * 1e3:.2f} ms/step, peak memory "
           f"{peak_remat / 2**20:.1f} MiB, launches over 2 steps {count}  [{card}]")
-    check(count == {k: (2 * v if k == "attention_relpos_lse" else v) * 2 // n for k, v in expected.items()},
-          "launch counts under remat")
+    again = {"attention_relpos_lse": 2.0, "depthwise_conv": 1.5}  # forwards repeated; the conv's dx is not
+    check(count == {k: int(again.get(k, 1.0) * v) * 2 // n for k, v in expected.items()}, "launch counts under remat")
+    if not long_form:
+        return launches
     # -- the einsum route at the same shape (attention_impl='xla'): its T² tensors in memory
     _, dt_einsum, count, peak_einsum, _ = run_steps(dataclasses.replace(cfg16, attention_impl="xla"), lr32, 1, 2)
     check(not any(v for k, v in count.items() if k.startswith("attention")), "the einsum route launched attention")
     print(f"bf16 train step on the einsum route ({what}, attention_impl='xla', probability dropout): "
           f"{dt_einsum * 1e3:.2f} ms/step, peak memory {peak_einsum / 2**20:.1f} MiB against "
           f"{peak / 2**20:.1f} MiB on the kernel route  [{card}]")
+    return launches
+
+
+class KilledAfter:
+    """Dataset proxy whose epoch raises after ``n`` batches: a kill mid-epoch."""
+
+    def __init__(self, dataset, n: int):
+        self._dataset, self._n = dataset, n
+
+    def epoch(self, seed):
+        for i, batch in enumerate(self._dataset.epoch(seed=seed)):
+            if i >= self._n:
+                raise KeyboardInterrupt("killed mid-epoch")
+            yield batch
+
+    def __getattr__(self, name):
+        return getattr(self._dataset, name)
+
+
+class StageClock:
+    """Wall seconds by stage of a trainer, taken from outside it: `wrap`
+    puts a timer around one method of one object, which waits for the card
+    before it starts and before it stops, so that no stage is charged the
+    work another left queued.  A stage inside another (the validation and
+    the checkpoints inside ``train``) counts once, under its own name."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._inner = []
+
+    def wrap(self, obj, method: str, stage: str) -> None:
+        fn = getattr(obj, method)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._inner.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                dt, inner = time.perf_counter() - t0, self._inner.pop()
+                self.seconds[stage] = self.seconds.get(stage, 0.0) + dt - inner
+                if self._inner:
+                    self._inner[-1] += dt
+
+        setattr(obj, method, timed)
+
+
+def check_nst(card: str) -> dict:
+    """One Noisy Student generation as a user drives it: synthetic corpus →
+    manifests → vocabulary → bucketed datasets → `Trainer.init_state` →
+    supervised training (`Trainer.train`, until the decodes are words) →
+    `run_nst` (supervised epoch with SpecAugment and validation →
+    pseudo-labels for the unlabelled split → filter → mix manifest →
+    retrain → ``ckpt_gen0``), Conformer-M at full width and depth under
+    ``use_pallas=True, conv_impl='pallas'`` in bfloat16.  Then the trained
+    weights in float32 through `Trainer.evaluate` and `generate_labels` on
+    the kernel path and on the plain path, which must agree.  Returns the
+    launch counts of the `run_nst` call."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import (
+        FeatureConfig, NSTConfig, OptimizerConfig, TrainConfig, conformer_m,
+    )
+    from nn_conformer_for_speech_recognition_tpu_torch.data.audio import make_synthetic_corpus
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset, load_manifest
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+    from nn_conformer_for_speech_recognition_tpu_torch.nst.driver import run_nst
+    from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import CheckpointManager
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+
+    model_cfg = conformer_m(use_pallas=True, conv_impl="pallas")
+    blocks = model_cfg.encoder.num_blocks
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        manifests = make_synthetic_corpus(os.path.join(root, "corpus"), NST_WORDS, NST_TRAIN, NST_VAL, 0, NST_UNLABELED,
+                                          max_words_per_utt=NST_MAX_WORDS, seed=SEED)
+        utts = {split: load_manifest(path) for split, path in manifests.items()}
+        vocab = build_vocab("word", [u.transcript for u in utts["train"]])
+        data = {split: BucketedDataset(u, vocab, NST_BATCH, bucket_boundaries=[n for n, _ in NST_BUCKETS],
+                                       max_target_len=NST_MAX_WORDS) for split, u in utts.items()}
+        corpus_s = time.perf_counter() - t0
+        seconds = {split: float(ds._lengths.sum()) / 16000 for split, ds in data.items()}
+        print(f"NST corpus: {len(vocab)} tokens, clips (audio-s) " + ", ".join(
+            f"{split} {len(ds)} ({seconds[split]:.1f})" for split, ds in data.items())
+            + f", buckets {data['train'].bucket_boundaries} samples, written and indexed in {corpus_s:.2f} s")
+        for split, ds in data.items():  # the kernel phases ran at these batches' shapes
+            check(int(ds._lengths.max()) <= NST_LONGEST, f"a clip of the {split} split is longer than the last bucket")
+        for n, frames in NST_BUCKETS:
+            check(model_cfg.subsampled_length(FeatureConfig().num_frames(n)) == frames
+                  and (NST_BATCH, frames) in KERNEL_SHAPES_CHECKED, f"the kernel phases did not run at the bucket of {n} samples")
+
+        def trainer(ckpt_dir, every: int = 0, cfg=model_cfg, feat_cfg=FeatureConfig(), ctc_impl: str = "auto"):
+            train_cfg = TrainConfig(batch_size=NST_BATCH, optimizer=OptimizerConfig(learning_rate=NST_LR), log_every=0,
+                                    checkpoint_dir=ckpt_dir, checkpoint_every_steps=every, ctc_impl=ctc_impl)
+            return Trainer(ConformerCTC(cfg, len(vocab)), vocab, feat_cfg, train_cfg, log_fn=print)
+
+        tr = trainer(None)
+        tr.init_state(seed=SEED)
+        check(next(tr.model.parameters()).device.type == "cuda", "the trainer did not put the model on the card")
+
+        # -- supervised training until the model says words: a teacher that decodes nothing gives no pseudo-label
+        #    to keep, and the generation would then retrain on the supervised lines alone
+        per_epoch = data["train"].num_batches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.log = lambda msg: None
+        tr.train(data["train"], epochs=NST_PRETRAIN_EPOCHS)
+        tr.log = print
+        torch.cuda.synchronize()
+        pretrain_s = time.perf_counter() - t0
+        pretrain = list(tr.history["train_loss"])
+        print(f"supervised training before the generation: {NST_PRETRAIN_EPOCHS} epochs of {per_epoch} steps in "
+              f"{pretrain_s:.2f} s ({pretrain_s / (NST_PRETRAIN_EPOCHS * per_epoch) * 1e3:.1f} ms/step), epoch loss "
+              + " ".join(f"{x:.3f}" for x in pretrain[:: max(1, NST_PRETRAIN_EPOCHS // 10)]) + f" … {pretrain[-1]:.3f}  [{card}]")
+        check(bool(np.isfinite(pretrain).all()) and pretrain[-1] < pretrain[0], "the supervised loss did not fall")
+        check(tr.state.step == NST_PRETRAIN_EPOCHS * per_epoch, f"the state counts {tr.state.step} steps")
+
+        forwards = {True: 0, False: 0}  # conv-module forwards of block 0, by training mode
+        tr.model.encoder.blocks[0].conv.register_forward_hook(
+            lambda m, *_: forwards.__setitem__(m.training, forwards[m.training] + 1))
+        manager = CheckpointManager(os.path.join(root, "ckpt"), keep=3)
+        teacher = {}  # what the teacher said of each unlabelled clip, as run_nst received it
+        label = tr.generate_labels
+
+        def teacher_labels(*args, **kwargs):
+            teacher["labels"] = label(*args, **kwargs)
+            return teacher["labels"]
+
+        tr.generate_labels = teacher_labels
+        clock = StageClock()
+        for obj, method, stage in ((tr, "train", "train"), (tr, "evaluate", "evaluate"), (tr, "generate_labels", "label"),
+                                   (tr, "save", "checkpoint"), (manager, "save", "checkpoint")):
+            clock.wrap(obj, method, stage)
+        work = os.path.join(root, "nst")
+        torch.cuda.synchronize()
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = run_nst(tr, data["train"], data["unlabeled"], NSTConfig(generations=1, train_epochs_per_generation=1,
+                                                                         max_target_len=NST_MAX_WORDS),
+                          val_dataset=data["validation"], work_dir=work, checkpoint_manager=manager)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated()
+
+        (res,) = results
+        epoch_losses = tr.history["train_loss"][NST_PRETRAIN_EPOCHS:]
+        check(len(epoch_losses) == 2 and bool(np.isfinite(epoch_losses).all()),
+              "run_nst did not train twice, or a train loss of the generation is not finite")
+        labels = teacher["labels"]
+        check(res.num_pseudo_labels == len(labels) == len(data["unlabeled"]) == NST_UNLABELED,
+              "a clip of the unlabelled split got no label")
+        # the mix: the supervised lines, then every clip whose label passed the filter, under that label
+        mix = load_manifest(os.path.join(work, "mix_gen0.tsv"))
+        kept = mix[NST_TRAIN:]
+        index_of = {u.audio_path: i for i, u in enumerate(data["unlabeled"].utterances)}
+        check([(u.audio_path, u.transcript) for u in mix[:NST_TRAIN]] == [(u.audio_path, u.transcript) for u in utts["train"]],
+              "mix_gen0.tsv does not start with the supervised lines")
+        check(res.num_kept == len(kept) > 0, f"the filter kept {res.num_kept} pseudo-labels, the mix holds {len(kept)}")
+        check(all(u.transcript and u.transcript == labels[index_of[u.audio_path]] for u in kept)
+              and len({u.audio_path for u in kept}) == len(kept),
+              "a kept line of mix_gen0.tsv is not an unlabelled clip under the teacher's label")
+        mixed = BucketedDataset(mix, vocab, NST_BATCH, bucket_boundaries=data["train"].bucket_boundaries,
+                                max_target_len=NST_MAX_WORDS)
+        steps = per_epoch + mixed.num_batches()
+        check(tr.state.step == NST_PRETRAIN_EPOCHS * per_epoch + steps,
+              f"the state counts {tr.state.step} steps, the generation's epochs {steps}")
+        check(res.is_best and res.val_loss is not None and np.isfinite(res.val_loss), "the generation has no validation score")
+        evals, label_batches = 2 * data["validation"].num_batches(), data["unlabeled"].num_batches()
+        check(forwards == {True: steps, False: evals + label_batches}, f"forwards counted {forwards}")
+        # every forward runs the conv kernel once per block, every train step once more for dx
+        expected = {"stft_logmel": steps + evals + label_batches, "attention_relpos": blocks * (evals + label_batches),
+                    "lstm": 2 * (steps + evals + label_batches), "lstm_backward": 2 * steps, "lstm_weight_grad": 2 * steps,
+                    "ctc_alpha": steps + evals, "ctc_beta": steps,
+                    "depthwise_conv": blocks * (forwards[True] + forwards[False]) + blocks * steps}
+        print(f"launch counts over the NST generation ({steps} train steps, {evals} validation and {label_batches} "
+              f"labelling batches): {launches}")
+        check(launches == {**dict.fromkeys(launches, 0), **expected}, f"NST launch counts, want {expected}")
+
+        stage = clock.seconds
+        train_audio = seconds["train"] + float(mixed._lengths.sum()) / 16000
+        print(f"NST generation, Conformer-M bf16 conv_impl='pallas', B={NST_BATCH}, lr {NST_LR}: wall {wall:.2f} s; by stage "
+              "(each between two waits for the card) " + ", ".join(f"{k} {v:.2f} s" for k, v in stage.items())
+              + f"; train {train_audio / stage['train']:.1f} audio-s/s over {steps} steps "
+              f"({stage['train'] / steps * 1e3:.1f} ms/step), labelling {seconds['unlabeled'] / stage['label']:.1f} audio-s/s "
+              f"over {label_batches} batches ({stage['label'] / label_batches * 1e3:.1f} ms/batch), evaluate "
+              f"{stage['evaluate'] / evals * 1e3:.1f} ms/batch; peak memory {peak / 2**20:.1f} MiB  [{card}]")
+        print(f"NST losses: supervised epoch {epoch_losses[0]:.4f}, retrain on the mix {epoch_losses[1]:.4f}; validation loss "
+              + " → ".join(f"{x:.4f}" for x in tr.history["val_loss"]) + ", WER "
+              + " → ".join(f"{100 * x:.2f}" for x in tr.history["val_wer"])
+              + f"; pseudo-labels {res.num_pseudo_labels}, of them not empty {sum(bool(x) for x in labels.values())}, "
+              f"kept {res.num_kept} ({len({u.transcript for u in kept})} distinct strings, e.g. {kept[0].transcript!r}), "
+              f"mix {len(mix)} lines")
+
+        # -- the trained weights in float32 through the same entry points, kernel path against plain path
+        #    (grouped conv1d, einsum attention, scanned LSTM and CTC, framed-matmul log-mel)
+        trained = tr.model.state_dict()
+
+        def float32_run(use_pallas: bool):
+            cfg = conformer_m(use_pallas=use_pallas, conv_impl="pallas" if use_pallas else "auto", compute_dtype="float32")
+            t = trainer(None, cfg=cfg, feat_cfg=FeatureConfig() if use_pallas else FeatureConfig(impl="xla"),
+                        ctc_impl="auto" if use_pallas else "xla")
+            t.init_state(seed=SEED)
+            t.model.load_state_dict(weights_for(t.model, trained))
+            reset_counters()
+            loss, wer, _, hyps = t.evaluate(data["validation"], return_texts=True)
+            return loss, wer, hyps, t.generate_labels(data["unlabeled"]), read_counters()
+
+        loss_k, wer_k, hyps_k, labels_k, count_k = float32_run(True)
+        loss_p, wer_p, hyps_p, labels_p, count_p = float32_run(False)
+        check(not any(count_p.values()), f"the plain path launched a kernel: {count_p}")
+        n_eval = data["validation"].num_batches() + label_batches
+        check(count_k == {**dict.fromkeys(count_k, 0), "stft_logmel": n_eval, "attention_relpos": blocks * n_eval,
+                          "lstm": 2 * n_eval, "ctc_alpha": data["validation"].num_batches(),
+                          "depthwise_conv": blocks * n_eval}, f"float32 kernel path launches: {count_k}")
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        frames = sum(model_cfg.subsampled_length(FeatureConfig().num_frames(int(n)))
+                     for split in ("validation", "unlabeled") for n in data[split]._lengths)
+        differ = sum(a != b for a, b in zip(hyps_k, hyps_p)) + sum(labels_k[i] != labels_p[i] for i in labels_p)
+        allowed = int((1 - SLICE_ID_AGREEMENT) * frames)  # one frame's id may differ in a thousand, as in check_slice
+        same16 = sum(labels_k[i] == x for i, x in label(data["unlabeled"]).items())
+        print(f"NST f32, kernel vs plain path from the trained weights: validation loss {loss_k:.6f} vs {loss_p:.6f} "
+              f"(rel {loss_err:.3e}, tol {NST_EVAL_LOSS_TOL}), WER {100 * wer_k:.2f} vs {100 * wer_p:.2f}; decodes differ on "
+              f"{differ} of {len(hyps_p) + len(labels_p)} clips ({frames} frames; at most {allowed} may); "
+              f"{sum(bool(x) for x in labels_p.values())} of the plain path's labels are not empty; the bf16 kernel "
+              f"path gives the float32 label on {same16}/{len(labels_k)} clips")
+        check(loss_err <= NST_EVAL_LOSS_TOL, "f32 validation loss of the kernel path disagrees at the NST shapes")
+        check(labels_k.keys() == labels_p.keys() and differ <= allowed, "f32 decodes of the kernel path disagree at the NST shapes")
+        check(any(labels_p.values()), "the comparison ran on empty decodes only")
+
+        # -- the generation's checkpoint restores into a fresh trainer bit for bit
+        ref_loss, ref_wer = tr.evaluate(data["validation"])
+        fresh = trainer(None)
+        fresh.init_state(seed=SEED + 1)
+        fresh.load(os.path.join(work, "ckpt_gen0"))
+        mine, theirs = tr.state, fresh.state
+
+        def tensors(st) -> dict:
+            slots = {f"{name}.{k}": v for name, slot in st.optimizer.state.items() for k, v in slot.items()}
+            return {**st.model.state_dict(), **slots, "generator": st.generator.get_state()}
+
+        a, b = tensors(mine), tensors(theirs)
+        check(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), "ckpt_gen0 does not restore bit-equal")
+        check((mine.step, mine.seed, mine.optimizer.count) == (theirs.step, theirs.seed, theirs.optimizer.count),
+              "ckpt_gen0 restores another step, seed or optimizer count")
+        loss, wer = fresh.evaluate(data["validation"])
+        print(f"ckpt_gen0 restored into a fresh trainer: {len(a)} tensors bit-equal, step {theirs.step}; validation loss "
+              f"{loss:.6f} vs {ref_loss:.6f}, WER {100 * wer:.2f} vs {100 * ref_wer:.2f}")
+        check(loss == ref_loss and wer == ref_wer, "the restored trainer evaluates differently")
+        latest, cursor = manager.restore_latest_with_iterator(fresh.state)
+        check(latest is fresh.state and cursor == {"epoch": 101, "step": 0} and fresh.state.step == mine.step,
+              f"the newest checkpoint's cursor is {cursor}")
+        del fresh
+
+        # -- a kill in the middle of an epoch, resumed by a fresh trainer from the cursor
+        ckpt_dir = os.path.join(root, "resume")
+        killed = trainer(ckpt_dir, every=3)
+        killed.init_state(seed=SEED)
+        try:
+            killed.train(KilledAfter(data["train"], 5), epochs=1)
+            check(False, "the kill did not interrupt the epoch")
+        except KeyboardInterrupt:
+            pass
+        del killed
+        resumed = trainer(ckpt_dir, every=3)
+        resumed.init_state(seed=SEED + 2)
+        state, cursor = CheckpointManager(ckpt_dir).restore_latest_with_iterator(resumed.state)
+        check(cursor == {"epoch": 0, "step": 3} and state.step == 3, f"mid-epoch cursor {cursor}")
+        history = resumed.resume(data["train"], epochs=1)
+        print(f"killed after 5 of {per_epoch} steps with a cursor every 3; resumed from {cursor} to step "
+              f"{resumed.state.step}, the epoch's loss over the {resumed.state.step - 3} steps after the resume "
+              f"{history['train_loss'][-1]:.4f}")
+        check(resumed.state.step == per_epoch and len(history["train_loss"]) == 1,
+              "the resumed run did not reach the epoch's end")
+        check(bool(np.isfinite(history["train_loss"]).all()), "the loss after the resume is not finite")
     return launches
 
 
@@ -783,12 +1214,27 @@ def main() -> None:
     # every kernel at the shapes of both train steps; the 30 s numbers go into the kernels line
     results = check_kernels(card, BATCH, SECONDS, T_SUB, inference_attention=True)
     results.update(check_train_kernels(card, BATCH, T_SUB, TARGET_LEN))
-    check_kernels(card, LONG_BATCH, LONG_SECONDS, LONG_T_SUB, inference_attention=False)
-    check_train_kernels(card, LONG_BATCH, LONG_T_SUB, LONG_TARGET_LEN)
+    long_results = check_kernels(card, LONG_BATCH, LONG_SECONDS, LONG_T_SUB, inference_attention=False)
+    long_results.update(check_train_kernels(card, LONG_BATCH, LONG_T_SUB, LONG_TARGET_LEN))
+    print("at the long-form shapes, kernel ms against bound ms: " + ", ".join(
+        f"{name} {r['ms']:.4f} / {r['bound_ms']:.4f} ({r['bound_by']})" for name, r in long_results.items()))
+    # and at the Noisy Student phase's two buckets, where a row is shorter than the conv kernel's 64-row tile and
+    # the attention kernel's 32-row tile: every block is one partial tile with halo on both sides
+    for n_samples, frames in NST_BUCKETS:
+        check_kernels(card, NST_BATCH, n_samples / 16000, frames, inference_attention=True)
+        check_train_kernels(card, NST_BATCH, frames, NST_MAX_WORDS)
+    print_bias_attention_bound()
     results.update(check_attention_backward_kernels(card))
+    results.update(check_depthwise_conv_kernel(card))
     serve = check_slice(card)
     train = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False)
     long_train = check_train(card, LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN, long_form=True)
+    # the same pass and the same 30 s step where the depthwise conv is the hand-written kernel, then the NST generation
+    serve_conv = check_slice(card, conv_impl="pallas")
+    train_conv = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False, conv_impl="pallas")
+    # the float32 step, kernel path against plain path, once more at the NST phase's longer bucket
+    check_train(card, NST_BATCH, NST_LONGEST / 16000, NST_MAX_WORDS, long_form=False, conv_impl="pallas")
+    nst = check_nst(card)
     pallas = "ops/pallas"
     sources = {
         "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),
@@ -802,10 +1248,11 @@ def main() -> None:
         "attention_relpos_bwd_dq": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:530"),
         "attention_relpos_bwd_dkv": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:559"),
         "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:590"),
+        "depthwise_conv": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
     }
-    paths = (serve, train, long_train)
-    print("launches, pseudo-label pass + 30 s train steps + long-form train steps: "
-          f"{ {k: tuple(path[k] for path in paths) for k in sources} }")
+    paths = (serve, train, long_train, serve_conv, train_conv, nst)
+    print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
+          f"pass + the 30 s steps + the NST generation: { {k: tuple(path[k] for path in paths) for k in sources} }")
     for name in sources:
         check(sum(path[name] for path in paths) > 0, f"no main path launched {name}")
     kernels = [

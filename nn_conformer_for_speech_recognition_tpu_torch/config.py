@@ -8,7 +8,7 @@ holds every field and default equal to the original
 Dropped from the copy: ``ModelConfig.resolved_*`` (they key off
 ``jax.default_backend()``).  The port resolves by tensor device instead
 (`resolve_compute_dtype`, `uses_attention_kernel`, `attention_route`,
-`uses_lstm_kernel`): on CUDA the compute dtype is bfloat16 and the
+`conv_route`, `uses_lstm_kernel`): on CUDA the compute dtype is bfloat16 and the
 hand-written kernels run; on the CPU the compute dtype is float32 and every
 kernel wrapper runs its plain PyTorch twin.  In eval mode the attention
 kernel runs at every sequence length; in training `attention_route` keeps
@@ -149,7 +149,9 @@ class ModelConfig:
     use_pallas: bool = False
     # 'auto' | 'flash' | 'xla'
     attention_impl: str = "auto"
-    # 'auto' | 'pallas' | 'xla'; the depthwise kernel is not ported yet
+    # 'auto' | 'pallas' | 'xla' for the depthwise conv of the conv module:
+    # 'pallas' is the hand-written kernel with its own parameter
+    # (``dw_kernel``), 'auto' and 'xla' the grouped conv1d; see `conv_route`
     conv_impl: str = "auto"
     # 'auto' | 'pallas' | 'xla'
     lstm_impl: str = "auto"
@@ -173,6 +175,69 @@ class OptimizerConfig:
     clip_threshold: float = 1.0
     warmup_steps: int = 0  # 0 = constant lr (reference semantics)
     schedule: str = "constant"  # or 'transformer' (inverse-sqrt w/ warmup)
+
+
+@_frozen
+class MeshConfig:
+    """Logical device mesh of the JAX package.  The port runs on one device:
+    it keeps the fields so that configurations carry over, and refuses
+    model parallelism, kernel sharding and sequence parallelism."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1  # 1 = pure DP
+    shard_map_kernels: bool = False
+    seq_parallel: bool = False
+
+
+@_frozen
+class TrainConfig:
+    batch_size: int = 32  # global batch
+    epochs: int = 15
+    optimizer: OptimizerConfig = OptimizerConfig()
+    specaugment: SpecAugmentConfig = SpecAugmentConfig()
+    use_specaugment: bool = True
+    seed: int = 0
+    log_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    keep_checkpoints: int = 3
+    # also checkpoint every N steps with the data-iterator cursor (epoch,
+    # step), so a mid-epoch kill resumes at the exact step (0 = per epoch)
+    checkpoint_every_steps: int = 0
+    # a JAX buffer-donation switch; nothing to do here, where a step updates
+    # the state in place
+    donate_state: bool = True
+    # length bucketing; bucket boundaries in frames
+    bucket_boundaries: Tuple[int, ...] = ()
+    max_frames: Optional[int] = None
+    # waveform gaussian-noise augmentation
+    add_noise: bool = False
+    noise_std: float = 0.01
+    # CTC loss: 'auto' and 'pallas' are the alpha/beta kernels (their plain
+    # twins on the CPU), 'xla' the plain recursion differentiated by autograd
+    ctc_impl: str = "auto"
+    # log per-epoch WER of the training forward's greedy decodes
+    train_wer: bool = False
+    # CTC prefix beam search knobs (the beam search is not ported yet)
+    beam: int = 8
+    prune: int = 16
+    max_label_len: int = 64
+
+
+@_frozen
+class NSTConfig:
+    """Noisy Student Training loop: ft_lr 3e-6, 3 generations, 1 train
+    epoch per generation, an initial supervised finetune."""
+
+    ft_lr: float = 3e-6
+    generations: int = 3
+    train_epochs_per_generation: int = 1
+    initial_supervised_finetune: bool = True
+    # pseudo-label filtering
+    unk_tolerance: float = 0.3
+    max_target_len: Optional[int] = None
+    add_noise: bool = False  # gaussian-noise augmentation of the retrain
+    noise_std: float = 0.01
 
 
 def resolve_compute_dtype(config: ModelConfig, device: torch.device) -> torch.dtype:
@@ -221,6 +286,18 @@ def attention_route(config: ModelConfig, training: bool, t: int) -> str:
     if training and config.attention_impl == "auto" and t < ATTENTION_KERNEL_MIN_T_TRAINING:
         return "einsum"
     return "kernel"
+
+
+def conv_route(config: ModelConfig) -> str:
+    """'kernel' (the hand-written depthwise conv, parameter ``dw_kernel``
+    (K, C)) or 'library' (the grouped ``conv1d``, parameter
+    ``depthwise.weight``).  The JAX package's rule: the kernel only for
+    ``use_pallas=True`` with ``conv_impl='pallas'``; 'auto' is the library
+    route.  It does not depend on shapes: the two routes own different
+    parameters, so the choice fixes a checkpoint's names."""
+    if config.conv_impl not in ("auto", "pallas", "xla"):
+        raise ValueError(f"conv_impl must be 'auto', 'pallas' or 'xla', got {config.conv_impl!r}")
+    return "kernel" if config.use_pallas and config.conv_impl == "pallas" else "library"
 
 
 def uses_lstm_kernel(config: ModelConfig) -> bool:

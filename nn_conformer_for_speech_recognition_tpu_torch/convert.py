@@ -6,7 +6,8 @@ keyed by the port's parameter and buffer names.  Layout rules:
 
 * Dense kernel (in, out) → Linear weight (out, in);
 * NHWC Conv kernel (kh, kw, in, out) → (out, in, kh, kw);
-* depthwise Conv kernel (K, 1, C) → (C, 1, K);
+* depthwise Conv kernel (K, 1, C) → (C, 1, K); the kernel route's
+  ``dw_kernel`` (K, C) (``conv_impl='pallas'``) keeps its name and layout;
 * LayerNorm / MaskedBatchNorm ``scale`` → ``weight``; batch_stats
   ``mean``/``var`` → ``running_mean``/``running_var``;
 * the packed (Pallas) LSTM leaves ``lstm_{fwd,bwd}_{i}_{w_ih,w_hh,bias}``
@@ -84,7 +85,8 @@ def flax_axes(name: str, ndim: int) -> Tuple[int, ...]:
     package's layout (``param.permute(axes)``), the inverse of
     `_to_torch_layout`: Linear (out, in) → (in, out), depthwise (C, 1, K) →
     (K, 1, C), Conv2d (out, in, kh, kw) → (kh, kw, in, out).  The packed
-    LSTM weights, the rel-pos biases and every vector keep their layout."""
+    LSTM weights, ``dw_kernel``, the rel-pos biases and every vector keep
+    their layout."""
     if name.endswith("weight") and ndim in _FLAX_AXES:
         return _FLAX_AXES[ndim]
     return tuple(range(ndim))

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from nn_conformer_for_speech_recognition_tpu_torch.config import (
     ModelConfig,
     attention_route,
+    conv_route,
     resolve_compute_dtype,
     uses_lstm_kernel,
 )
@@ -77,12 +78,10 @@ class ConformerCTC(nn.Module):
 
     def __init__(self, config: ModelConfig, vocab_size: int):
         super().__init__()
-        if config.use_pallas and config.conv_impl == "pallas":
-            raise NotImplementedError("the depthwise-conv kernel is not ported yet")
         self.config = config
         enc, dec = config.encoder, config.decoder
         self.subsampling = ConvSubsampling(config.subsampling, enc.d_model, config.n_mels)
-        self.encoder = ConformerEncoder(enc, remat=config.remat)
+        self.encoder = ConformerEncoder(enc, remat=config.remat, conv_kernel=conv_route(config) == "kernel")
         self.projection = Linear(enc.d_model, dec.projection_dim)
         self.projection_norm = MaskedBatchNorm(dec.projection_dim)
         self.decoder_lstm = BiLSTM(
@@ -123,7 +122,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif name.endswith(("u_bias", "v_bias")):
                 p.zero_()
             else:
-                # LSTM matrices are (in, 4H); Linear/conv weights are (out, in, ...)
-                fan_in = p.shape[0] if name.endswith(("_w_ih", "_w_hh")) else p[0].numel()
+                # LSTM matrices are (in, 4H) and the depthwise taps (K, C);
+                # Linear/conv weights are (out, in, ...)
+                fan_in = p.shape[0] if name.endswith(("_w_ih", "_w_hh", "dw_kernel")) else p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)
     return model

@@ -7,8 +7,10 @@ the dtype of its input (bfloat16 on CUDA, float32 on the CPU, see
 `config.resolve_compute_dtype`).  The caller picks the attention route per
 forward (`config.attention_route`): the rel-pos flash kernels
 (`ops/cuda/attention.py`, forward and backward) or the plain einsum
-attention, which also drops attention probabilities in training.  With ``remat`` each
-block is recomputed in the backward pass (`torch.utils.checkpoint`).
+attention, which also drops attention probabilities in training.  The
+conv module's depthwise conv is the hand-written kernel
+(`ops/cuda/depthwise_conv.py`) or a grouped conv1d, by `config.conv_route`.
+With ``remat`` each block is recomputed in the backward pass (`torch.utils.checkpoint`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.attention import (
     flash_relpos_attention,
     flash_relpos_attention_plain,
 )
+from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.depthwise_conv import depthwise_conv1d
 
 
 def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -135,16 +138,24 @@ class RelPositionMHSA(nn.Module):
 
 class ConvModule(nn.Module):
     """LN → pointwise (2× expansion) → GLU → depthwise conv → masked BN →
-    SiLU → pointwise → dropout.  The depthwise conv is a grouped conv1d
-    without bias (BatchNorm follows), as the JAX package's XLA path."""
+    SiLU → pointwise → dropout.  The depthwise conv has no bias (BatchNorm
+    follows) and one of two routes, fixed at construction because each owns
+    its parameter, as in the JAX package: ``use_kernel`` registers
+    ``dw_kernel`` (K, C) and runs `ops.cuda.depthwise_conv.depthwise_conv1d`
+    (the hand-written kernel on CUDA, channels-last, no transposes);
+    otherwise ``depthwise`` is a grouped conv1d (the JAX package's XLA
+    path)."""
 
-    def __init__(self, d_model: int, kernel_size: int, expansion: int, dropout: float):
+    def __init__(self, d_model: int, kernel_size: int, expansion: int, dropout: float, use_kernel: bool = False):
         super().__init__()
         channels = expansion * d_model
         self.kernel_size, self.dropout = kernel_size, dropout
         self.norm = LayerNorm(d_model)
         self.pointwise_in = Linear(d_model, 2 * channels)
-        self.depthwise = nn.Conv1d(channels, channels, kernel_size, groups=channels, bias=False)
+        if use_kernel:
+            self.dw_kernel = nn.Parameter(torch.empty(kernel_size, channels))
+        else:
+            self.depthwise = nn.Conv1d(channels, channels, kernel_size, groups=channels, bias=False)
         self.batch_norm = MaskedBatchNorm(channels)
         self.pointwise_out = Linear(channels, d_model)
 
@@ -153,14 +164,17 @@ class ConvModule(nn.Module):
         h = a * torch.sigmoid(g)  # GLU
         # zero padded frames so the depthwise window never reads garbage
         h = h * mask[..., None].to(h.dtype)
-        h = F.pad(h.transpose(1, 2), same_padding(h.shape[1], self.kernel_size, 1))
-        h = F.conv1d(h, self.depthwise.weight.to(h.dtype), groups=h.shape[1]).transpose(1, 2)
+        if hasattr(self, "dw_kernel"):
+            h = depthwise_conv1d(h, self.dw_kernel.to(h.dtype))
+        else:
+            h = F.pad(h.transpose(1, 2), same_padding(h.shape[1], self.kernel_size, 1))
+            h = F.conv1d(h, self.depthwise.weight.to(h.dtype), groups=h.shape[1]).transpose(1, 2)
         h = F.silu(self.batch_norm(h, mask))
         return F.dropout(self.pointwise_out(h), self.dropout, self.training)
 
 
 class ConformerBlock(nn.Module):
-    def __init__(self, config: ConformerConfig):
+    def __init__(self, config: ConformerConfig, conv_kernel: bool = False):
         super().__init__()
         if not config.use_relative_attention:
             raise NotImplementedError("only relative-position attention is ported")
@@ -169,7 +183,7 @@ class ConformerBlock(nn.Module):
         self.ffn1 = FeedForwardModule(config.d_model, config.ffn_dim, config.dropout)
         self.mhsa = RelPositionMHSA(config.d_model, config.num_heads, config.attention_dropout)
         self.conv = ConvModule(
-            config.d_model, config.conv_kernel_size, config.conv_expansion, config.dropout
+            config.d_model, config.conv_kernel_size, config.conv_expansion, config.dropout, use_kernel=conv_kernel
         )
         self.ffn2 = FeedForwardModule(config.d_model, config.ffn_dim, config.dropout)
         self.norm = LayerNorm(config.d_model)
@@ -209,10 +223,10 @@ class ConformerEncoder(nn.Module):
     replays the same masks, and the recompute leaves the batch statistics
     alone."""
 
-    def __init__(self, config: ConformerConfig, remat: bool = False):
+    def __init__(self, config: ConformerConfig, remat: bool = False, conv_kernel: bool = False):
         super().__init__()
         self.d_model, self.remat = config.d_model, remat
-        self.blocks = nn.ModuleList(ConformerBlock(config) for _ in range(config.num_blocks))
+        self.blocks = nn.ModuleList(ConformerBlock(config, conv_kernel) for _ in range(config.num_blocks))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, attention_kernel: bool = False) -> torch.Tensor:
         t = x.shape[1]

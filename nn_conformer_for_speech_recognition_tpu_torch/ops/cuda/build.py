@@ -60,6 +60,8 @@ SIGNATURES = {
     # emit, alpha, can_skip, ext_len, input_len, ll, g, demit, batch, t,
     # states, stream
     "ctc_beta": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, w, out, batch, t, channels, k, pad_lo, reverse_taps, is_bf16, stream
+    "depthwise_conv_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

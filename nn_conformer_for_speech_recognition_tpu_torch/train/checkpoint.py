@@ -1,0 +1,142 @@
+"""Checkpointing, port of
+`nn_conformer_for_speech_recognition_tpu/train/checkpoint.py` on
+``torch.save`` / ``torch.load`` (the JAX package uses orbax).
+
+A checkpoint is a directory holding ``state.pt``: the model's
+``state_dict`` (parameters and batch statistics), the Adafactor state and
+its count, the step, the seed, the state of the ``torch.Generator`` that
+SpecAugment and the waveform noise draw from, and the data-iterator cursor
+``{"epoch", "step"}``.  The epoch stream is a function of (seed, epoch), so
+the cursor is complete: a resumed run skips ``step`` batches of epoch
+``epoch`` and continues bit for bit.  The layout of a checkpoint directory
+tree (``step_%08d``, ``best``) is the JAX package's.
+
+Restoring copies into the template state's own tensors, so the step
+functions bound to its model keep working, and returns that state.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Dict, Optional
+
+import torch
+
+from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
+
+STATE_FILE = "state.pt"
+
+
+def _payload(state: TrainState, iterator: Optional[dict] = None) -> dict:
+    return {
+        "step": state.step,
+        "seed": state.seed,
+        "model": state.model.state_dict(),
+        "optimizer": {"count": state.optimizer.count, "state": state.optimizer.state},
+        "generator": state.generator.get_state(),
+        # (epoch, step) of the next batch; epoch -1: no cursor was given
+        "iterator": {
+            "epoch": (iterator or {}).get("epoch", -1),
+            "step": (iterator or {}).get("step", 0),
+        },
+    }
+
+
+def save_state(path: str, state: TrainState, iterator: Optional[dict] = None) -> None:
+    """Writes ``path/state.pt``; the file appears under its name only once
+    it is complete."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, f"{STATE_FILE}.{os.getpid()}.tmp")
+    torch.save(_payload(state, iterator), tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+
+
+def _load(path: str, device) -> dict:
+    return torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location=device, weights_only=True)
+
+
+def restore_state(path: str, template: TrainState, with_iterator: bool = False):
+    """Fills ``template`` (model, optimizer, generator, step, seed) from the
+    checkpoint and returns it; with ``with_iterator`` also the cursor, or
+    None where the checkpoint was saved without one."""
+    device = next(template.model.parameters()).device
+    saved = _load(path, device)
+    template.model.load_state_dict(saved["model"], strict=True)
+    opt = template.optimizer
+    if set(saved["optimizer"]["state"]) != set(opt.state):
+        raise ValueError("checkpoint and optimizer hold different parameters")
+    for name, slots in saved["optimizer"]["state"].items():
+        if set(slots) != set(opt.state[name]):
+            raise ValueError(f"checkpoint and optimizer disagree on the state of {name}")
+        opt.state[name] = {k: v.to(device) for k, v in slots.items()}
+    opt.count = int(saved["optimizer"]["count"])
+    template.generator.set_state(saved["generator"].cpu())
+    template.step, template.seed = int(saved["step"]), int(saved["seed"])
+    if with_iterator:
+        it = {"epoch": int(saved["iterator"]["epoch"]), "step": int(saved["iterator"]["step"])}
+        return template, (it if it["epoch"] >= 0 else None)
+    return template
+
+
+def restore_encoder_params(path: str, model: torch.nn.Module) -> None:
+    """Copies only the encoder's and the subsampling's parameters from the
+    checkpoint into ``model`` (the 'load a pretrained conformer' path): the
+    head, every batch statistic and whatever the checkpoint lacks stay."""
+    saved: Dict[str, torch.Tensor] = _load(path, "cpu")["model"]
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith(("encoder.", "subsampling.")) and name in saved:
+                p.copy_(saved[name])
+
+
+class CheckpointManager:
+    """Rotating checkpoint manager: keeps the newest ``keep`` checkpoints
+    (``step_%08d``), plus ``best`` by the lowest metric given."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.keep = keep
+        os.makedirs(self.directory, exist_ok=True)
+        self.best_metric: Optional[float] = None
+
+    def _step_dirs(self):
+        out = []
+        for name in os.listdir(self.directory):
+            if name.startswith("step_"):
+                try:
+                    out.append((int(name.split("_")[1]), name))
+                except ValueError:
+                    pass
+        return sorted(out)
+
+    def save(self, state: TrainState, metric: Optional[float] = None, iterator: Optional[dict] = None) -> str:
+        path = os.path.join(self.directory, f"step_{int(state.step):08d}")
+        save_state(path, state, iterator=iterator)
+        if metric is not None and (self.best_metric is None or metric < self.best_metric):
+            self.best_metric = metric
+            best = os.path.join(self.directory, "best")
+            shutil.rmtree(best, ignore_errors=True)
+            shutil.copytree(path, best)
+        dirs = self._step_dirs()
+        while len(dirs) > self.keep:
+            _, name = dirs.pop(0)
+            shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        return path
+
+    def latest(self) -> Optional[str]:
+        dirs = self._step_dirs()
+        return os.path.join(self.directory, dirs[-1][1]) if dirs else None
+
+    def restore_latest(self, template: TrainState) -> Optional[TrainState]:
+        path = self.latest()
+        return restore_state(path, template) if path else None
+
+    def restore_latest_with_iterator(self, template: TrainState):
+        """(state, iterator|None) of the newest checkpoint, or (None, None).
+        ``iterator`` = {"epoch", "step"}: where the next batch comes from."""
+        path = self.latest()
+        if not path:
+            return None, None
+        return restore_state(path, template, with_iterator=True)

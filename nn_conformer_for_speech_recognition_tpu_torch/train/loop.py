@@ -1,7 +1,7 @@
-"""Train, eval and predict steps, port of
+"""Train, eval and predict steps and the `Trainer` that drives them, port of
 `nn_conformer_for_speech_recognition_tpu/train/loop.py` (``make_augment_step``,
 ``make_feature_train_step``, ``make_train_step``, ``make_eval_step``,
-``make_predict_step``, ``optax_global_norm``).
+``make_predict_step``, ``optax_global_norm``, ``Trainer``).
 
 The JAX steps are pure functions of a state pytree.  Here the model module
 holds its parameters and batch statistics and the optimizer its state, so
@@ -10,24 +10,53 @@ predict step takes the audio only.  Each step puts the model in the mode
 it needs: train mode (dropout, batch-statistics update, the differentiable
 attention route) for the train step, eval mode for the others.
 
+`Trainer` is the host-side epoch loop around them: shuffled bucketed
+batches, per-epoch validation, WER on decoded strings, checkpoints with
+resume cursors, and the Noisy Student pseudo-label pass.  It runs on the
+first CUDA device unless the caller asks for ``device="cpu"``.
+
 Not ported, as TPU scheduler workarounds: the ``optimization_barrier``
-fence between the augment and train halves, the hardware-RNG dropout key
-and the scan-over-steps protocols.
+fence between the augment and train halves and the hardware-RNG dropout
+key.  Not ported yet, and refused with ``NotImplementedError``: beam-search
+evaluation, shallow LM fusion, a device mesh or sequence parallelism, and
+device-resident datasets with the whole-epoch scan.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+import dataclasses
+import itertools
+import os
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, SpecAugmentConfig
-from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+from nn_conformer_for_speech_recognition_tpu_torch.config import (
+    FeatureConfig,
+    MeshConfig,
+    SpecAugmentConfig,
+    TrainConfig,
+)
+from nn_conformer_for_speech_recognition_tpu_torch.convert import flax_to_state_dict
+from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import Batch, BucketedDataset
+from nn_conformer_for_speech_recognition_tpu_torch.data.native_loader import PrefetchIterator
+from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import MaskedBatchNorm
 from nn_conformer_for_speech_recognition_tpu_torch.ops.ctc import ctc_loss
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.ctc import ctc_loss_kernel
 from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import greedy_decode
 from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
 from nn_conformer_for_speech_recognition_tpu_torch.ops.specaugment import add_gaussian_noise, specaugment
+from nn_conformer_for_speech_recognition_tpu_torch.train import metrics as M
+from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    restore_encoder_params,
+    restore_state,
+    save_state,
+)
+from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
 from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
 
 
@@ -178,3 +207,368 @@ def make_predict_step(
         return greedy_decode(log_probs, out_lengths, pad_id=pad_id), out_lengths
 
     return predict_step
+
+
+def resolve_device(device=None) -> torch.device:
+    """The first CUDA device, unless the caller names another; with no CUDA
+    device and no explicit choice this raises rather than run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+class Trainer:
+    """Host-side orchestration: epochs, metrics, checkpoints, NST labelling.
+
+    ``model`` is moved to ``device`` (the first CUDA device by default;
+    ``device="cpu"`` for the CPU).  The train state lives in the model (its
+    parameters and batch statistics), the optimizer and `TrainState`;
+    assigning a state that holds another model (a deep copy kept by
+    `run_nst`) makes that model the trainer's.
+    """
+
+    def __init__(
+        self,
+        model: ConformerCTC,
+        vocab,
+        feat_cfg: FeatureConfig,
+        train_cfg: TrainConfig,
+        mesh_cfg: MeshConfig = MeshConfig(),
+        learning_rate: Optional[float] = None,
+        mesh=None,
+        log_fn: Callable[[str], None] = print,
+        lm_apply=None,
+        lm_weight: float = 0.3,
+        device=None,
+    ):
+        if lm_apply is not None:
+            raise NotImplementedError("shallow LM fusion (lm_apply) is not ported yet: LM and pretraining")
+        if mesh is not None or mesh_cfg.model_parallel_size != 1 or mesh_cfg.seq_parallel or mesh_cfg.shard_map_kernels:
+            raise NotImplementedError("a device mesh or seq_parallel is not ported yet: Multi-GPU")
+        self.device = resolve_device(device)
+        self.vocab = vocab
+        self.feat_cfg = feat_cfg
+        self.train_cfg = train_cfg
+        self.mesh_cfg = mesh_cfg
+        self.log = log_fn
+        self.opt_cfg = train_cfg.optimizer
+        if learning_rate is not None:
+            self.opt_cfg = dataclasses.replace(self.opt_cfg, learning_rate=learning_rate)
+        self._state: Optional[TrainState] = None
+        self._auto_ckpt: Optional[CheckpointManager] = None
+        self.history: Dict[str, List[float]] = {"train_loss": [], "train_wer": [], "val_loss": [], "val_wer": []}
+        self._bind(model.to(self.device))
+
+    def _bind(self, model: ConformerCTC) -> None:
+        """Makes ``model`` the trainer's and builds the steps over it."""
+        self.model = model
+        blank, pad = self.vocab.blank_id, self.vocab.pad_id
+        cfg = self.train_cfg
+        self._train_core = make_feature_train_step(
+            model, blank, ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=pad)
+        # composed (augment ∘ core) steps, keyed by (use_specaugment,
+        # noise_std), so that a caller (the NST retrain) can override the
+        # augmentation per train() call
+        self._step_cache: Dict[Tuple[bool, float], Callable] = {}
+        self._eval_step = make_eval_step(model, self.feat_cfg, blank, pad, ctc_impl=cfg.ctc_impl)
+        self._predict_step = make_predict_step(model, self.feat_cfg, pad)
+
+    @property
+    def state(self) -> Optional[TrainState]:
+        return self._state
+
+    @state.setter
+    def state(self, state: Optional[TrainState]) -> None:
+        if state is not None and state.model is not self.model:
+            self._bind(state.model)
+        self._state = state
+
+    def _require_state(self) -> TrainState:
+        if self._state is None:
+            raise RuntimeError("call init_state() first")
+        return self._state
+
+    # ------------------------------------------------------------------ init
+
+    def init_state(self, seed: int = 0, example: Optional[Batch] = None, variables=None) -> TrainState:
+        """A fresh train state: parameters drawn from ``seed`` (or taken from
+        ``variables``, the ``{"params", "batch_stats"}`` of the JAX package's
+        model, converted), batch statistics at their start values, a new
+        optimizer.  ``example`` is accepted for the JAX package's signature;
+        no shape needs tracing here."""
+        del example
+        if variables is not None:
+            self.model.load_state_dict(flax_to_state_dict(variables, self.model.config), strict=True)
+        else:
+            init_params(self.model, torch.Generator().manual_seed(seed))
+            with torch.no_grad():
+                for m in self.model.modules():
+                    if isinstance(m, MaskedBatchNorm):
+                        m.running_mean.zero_()
+                        m.running_var.fill_(1.0)
+        optimizer = make_optimizer(self.opt_cfg, self.model.named_parameters())
+        self._state = TrainState.create(self.model, optimizer, seed)
+        return self._state
+
+    def _put(self, batch: Batch):
+        return tuple(
+            torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            for x in (batch.audio, batch.audio_lengths.astype(np.int32), batch.targets,
+                      batch.target_lengths.astype(np.int32))
+        )
+
+    def _composed_step(self, sa: bool, noise_std: float):
+        """(augment ∘ core) step for the given augmentation settings, cached
+        per (sa, noise_std)."""
+        key = (bool(sa), float(noise_std))
+        if key not in self._step_cache:
+            augment = make_augment_step(self.feat_cfg, self.train_cfg.specaugment,
+                                        use_specaugment=key[0], noise_std=key[1])
+            core = self._train_core
+
+            def step(state, audio, audio_lengths, targets, target_lengths):
+                feats, frame_lengths = augment(state.generator, audio, audio_lengths)
+                return core(state, feats, frame_lengths, targets, target_lengths)
+
+            self._step_cache[key] = step
+        return self._step_cache[key]
+
+    def _resolve_noise(self, add_noise: Optional[bool], noise_std: Optional[float]) -> float:
+        on = self.train_cfg.add_noise if add_noise is None else add_noise
+        if not on:
+            return 0.0
+        return self.train_cfg.noise_std if noise_std is None else noise_std
+
+    # ----------------------------------------------------------------- train
+
+    def train(
+        self,
+        dataset: BucketedDataset,
+        epochs: int,
+        val_dataset: Optional[BucketedDataset] = None,
+        use_specaugment: Optional[bool] = None,
+        epoch_offset: int = 0,
+        checkpoint_manager=None,
+        add_noise: Optional[bool] = None,
+        noise_std: Optional[float] = None,
+        start_step: int = 0,
+    ) -> Dict[str, List[float]]:
+        """Epoch loop; with ``checkpoint_manager`` a rotated checkpoint is
+        written per epoch, keyed best-by-val-loss.  If
+        ``TrainConfig.checkpoint_dir`` is set and no manager is passed, one
+        is created there (rotation = ``keep_checkpoints``).
+        ``add_noise``/``noise_std`` override the config's waveform-noise
+        augmentation per call (`run_nst`'s noisy-student knob).
+
+        Epoch ``e`` draws its batches from ``dataset.epoch(seed =
+        train_cfg.seed + epoch_offset + e)``.  ``start_step`` skips that
+        many batches of the FIRST epoch: the resume cursor written by
+        ``TrainConfig.checkpoint_every_steps`` checkpoints (the stream is a
+        function of the seed, so skip-and-continue reproduces an
+        uninterrupted run exactly; see `resume`).
+
+        Per-step losses stay on the device and are pulled once per epoch: a
+        ``.item()`` per step would serialise the host against the device."""
+        self._require_state()
+        if hasattr(dataset, "device_arrays"):
+            raise NotImplementedError(
+                "device-resident datasets are not ported yet: Trainer, checkpoints, device-resident data")
+        sa = self.train_cfg.use_specaugment if use_specaugment is None else use_specaugment
+        noise = self._resolve_noise(add_noise, noise_std)
+        checkpoint_manager = self._auto_ckpt_manager(checkpoint_manager)
+        step_fn = self._composed_step(sa, noise)
+        want_wer = self.train_cfg.train_wer
+        log_every = self.train_cfg.log_every
+        num_batches = dataset.num_batches() if hasattr(dataset, "num_batches") else None
+        ckpt_every = self.train_cfg.checkpoint_every_steps
+
+        for epoch in range(epochs):
+            t0 = time.time()
+            losses = M.Mean()
+            nan_steps = 0
+            audio_seconds = 0.0
+            stream = dataset.epoch(seed=self.train_cfg.seed + epoch_offset + epoch)
+            skip = start_step if epoch == 0 else 0
+            if skip:
+                stream = itertools.islice(stream, skip, None)
+            step_losses, step_sizes = [], []
+            step_ids = []  # (ids on the device, indices) when train_wer is on
+            step_i = skip
+            for batch in PrefetchIterator(stream):
+                audio, alen, tgt, tlen = self._put(batch)
+                self.state, metrics = step_fn(self.state, audio, alen, tgt, tlen)
+                step_losses.append(metrics["loss"])
+                step_sizes.append(batch.size)
+                if want_wer:
+                    step_ids.append((metrics["ids"], batch.indices.copy()))
+                audio_seconds += float(batch.audio_lengths.sum()) / self.feat_cfg.sample_rate
+                step_i += 1
+                if ckpt_every and checkpoint_manager is not None and step_i % ckpt_every == 0:
+                    checkpoint_manager.save(
+                        self.state, iterator={"epoch": epoch_offset + epoch, "step": step_i})
+                if log_every and step_i % log_every == 0:
+                    # progress note without a device sync (no loss pull)
+                    total = f"/{num_batches}" if num_batches else ""
+                    self.log(f"  epoch {epoch_offset + epoch} step {step_i}{total} "
+                             f"({audio_seconds / max(time.time() - t0, 1e-9):.1f} audio-s/s)")
+            pulled = torch.stack(step_losses).cpu().numpy() if step_losses else np.zeros((0,), np.float32)
+            for loss, size in zip(pulled, step_sizes):
+                if np.isnan(loss):
+                    nan_steps += 1
+                else:
+                    losses.update(float(loss), size)
+            dt = time.time() - t0
+            self.history["train_loss"].append(losses.result())
+            msg = (f"epoch {epoch_offset + epoch}: loss={losses.result():.4f} "
+                   f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s)")
+            if want_wer:
+                twer = self._train_wer_from_steps(dataset, step_ids)
+                self.history["train_wer"].append(twer)
+                msg += f" train_wer={100 * twer:.2f}"
+            if nan_steps:
+                msg += f" [{nan_steps} NaN steps]"
+            if val_dataset is not None:
+                vloss, vwer = self.evaluate(val_dataset)
+                self.history["val_loss"].append(vloss)
+                self.history["val_wer"].append(vwer)
+                msg += f" val_loss={vloss:.4f} val_wer={100 * vwer:.2f}"
+            self.log(msg)
+            if checkpoint_manager is not None:
+                metric = self.history["val_loss"][-1] if val_dataset is not None else None
+                checkpoint_manager.save(
+                    self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
+        return self.history
+
+    def resume(
+        self,
+        dataset: BucketedDataset,
+        epochs: int,
+        val_dataset: Optional[BucketedDataset] = None,
+        checkpoint_manager=None,
+        **train_kwargs,
+    ) -> Dict[str, List[float]]:
+        """Resume an interrupted `train(dataset, epochs, ...)` run from the
+        newest checkpoint, including a MID-EPOCH cursor written by
+        ``TrainConfig.checkpoint_every_steps``: restores the full train
+        state and skips the already-consumed batches of the interrupted
+        epoch, so the completed run's parameters equal an uninterrupted
+        run's.  After a mid-epoch resume ``history["train_loss"][0]``
+        averages only the steps after the cursor."""
+        manager = self._auto_ckpt_manager(checkpoint_manager)
+        if manager is None:
+            raise ValueError("resume needs a checkpoint manager or TrainConfig.checkpoint_dir")
+        state, it = manager.restore_latest_with_iterator(self._require_state())
+        if state is None:
+            return self.train(dataset, epochs, val_dataset=val_dataset, checkpoint_manager=manager, **train_kwargs)
+        self.state = state
+        start_epoch = it["epoch"] if it else 0
+        start_step = it["step"] if it else 0
+        if start_epoch >= epochs and start_step == 0:
+            return self.history
+        return self.train(
+            dataset, epochs - start_epoch, val_dataset=val_dataset, epoch_offset=start_epoch,
+            checkpoint_manager=manager, start_step=start_step, **train_kwargs,
+        )
+
+    def _auto_ckpt_manager(self, checkpoint_manager):
+        if checkpoint_manager is None and self.train_cfg.checkpoint_dir:
+            if self._auto_ckpt is None:
+                self._auto_ckpt = CheckpointManager(
+                    self.train_cfg.checkpoint_dir, keep=self.train_cfg.keep_checkpoints)
+            return self._auto_ckpt
+        return checkpoint_manager
+
+    def _train_wer_from_steps(self, dataset, step_ids) -> float:
+        """Corpus WER of the training forward's greedy decodes, pulled at
+        epoch end."""
+        refs: List[str] = []
+        hyps: List[str] = []
+        for ids_dev, indices in step_ids:
+            ids = ids_dev.cpu().numpy()
+            for row, idx in enumerate(indices):
+                if idx < 0:
+                    continue
+                refs.append(dataset.utterances[int(idx)].transcript)
+                hyps.append(self.vocab.decode_ids(ids[row]))
+        return M.wer(refs, hyps) if refs else float("nan")
+
+    def train_device_epochs(self, *args, **kwargs):
+        """The whole-epoch scan over a device-resident dataset."""
+        raise NotImplementedError(
+            "train_device_epochs is not ported yet: Trainer, checkpoints, device-resident data")
+
+    # ------------------------------------------------------------------ eval
+
+    def evaluate(
+        self,
+        dataset: BucketedDataset,
+        dump_path: Optional[str] = None,
+        decode: str = "greedy",
+        wer_protocol: str = "standard",
+        return_texts: bool = False,
+    ):
+        """Mean loss and corpus WER over a split, greedy decode.
+        ``wer_protocol='padded'`` scores with the '_'-padded alignment
+        (`train/metrics.padded_wer`).  ``return_texts=True`` returns (loss,
+        wer, refs, hyps).  ``dump_path`` receives the first prediction and
+        its target."""
+        self._require_state()
+        if decode != "greedy":
+            raise NotImplementedError(f"decode={decode!r} is not ported yet: Decoding and NST (beam search)")
+        losses = M.Mean()
+        refs: List[str] = []
+        hyps: List[str] = []
+        for batch in dataset.epoch(shuffle=False):
+            loss, ids, _ = self._eval_step(*self._put(batch))
+            losses.update(float(loss), batch.size)
+            ids = ids.cpu().numpy()
+            for row, idx in enumerate(batch.indices):
+                if idx < 0:
+                    continue
+                refs.append(dataset.utterances[int(idx)].transcript)
+                hyps.append(self.vocab.decode_ids(ids[row]))
+        if dump_path and refs:
+            os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
+            with open(dump_path, "w", encoding="utf-8") as f:
+                f.write(f"pred: {hyps[0]}\ntgt:  {refs[0]}\n")
+        wer_fn = M.padded_wer if wer_protocol == "padded" else M.wer
+        loss, wer = losses.result(), wer_fn(refs, hyps)
+        if return_texts:
+            return loss, wer, refs, hyps
+        return loss, wer
+
+    # ------------------------------------------------------------- NST labels
+
+    def generate_labels(self, dataset: BucketedDataset, index_map=None) -> Dict[int, str]:
+        """Greedy-decode pseudo-labels for every utterance (the NST U-split
+        pass).  ``index_map`` (local→global index array) keys the returned
+        dict by GLOBAL utterance index, for a ``dataset`` that is one
+        host's shard of a larger corpus
+        (`data/datasets.shard_utterances_with_indices`)."""
+        self._require_state()
+        labels: Dict[int, str] = {}
+        for batch in dataset.epoch(shuffle=False):
+            audio, alen, _, _ = self._put(batch)
+            ids, _ = self._predict_step(audio, alen)
+            ids = ids.cpu().numpy()
+            for row, idx in enumerate(batch.indices):
+                if idx < 0:
+                    continue
+                key = int(idx) if index_map is None else int(index_map[int(idx)])
+                labels[key] = self.vocab.decode_ids(ids[row])
+        return labels
+
+    # ------------------------------------------------------------ checkpoints
+
+    def save(self, path: str) -> None:
+        save_state(path, self._require_state())
+
+    def load(self, path: str) -> None:
+        self.state = restore_state(path, self._require_state())
+
+    def load_encoder_only(self, path: str) -> None:
+        """Selective restore of the encoder's and the subsampling's
+        parameters only."""
+        restore_encoder_params(path, self._require_state().model)

@@ -10,6 +10,7 @@ the waveform noise.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
@@ -31,6 +32,17 @@ class TrainState:
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
         return cls(model=model, optimizer=optimizer, generator=generator, seed=seed)
+
+    def __deepcopy__(self, memo) -> "TrainState":
+        """An independent copy on the same device: the optimizer's copy
+        refers to the model's copy, and the generator's copy continues the
+        same stream."""
+        generator = torch.Generator(device=self.generator.device)
+        generator.set_state(self.generator.get_state())
+        return TrainState(
+            model=copy.deepcopy(self.model, memo), optimizer=copy.deepcopy(self.optimizer, memo),
+            generator=generator, seed=self.seed, step=self.step,
+        )
 
     def dropout_seed(self) -> int:
         """Seed of the device generator for this step's dropout masks: a

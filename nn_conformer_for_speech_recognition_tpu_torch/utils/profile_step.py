@@ -2,8 +2,11 @@
 
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step long    # B=4 × 120 s, 400 targets
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short   # B=16 × 30 s, 100 targets
+    python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short pallas   # conv_impl='pallas'
 
-Builds the hand-written kernels, warms Conformer-M's train step
+A second word ``pallas`` profiles the configuration whose depthwise conv is
+the hand-written kernel (``conv_impl='pallas'``) instead of the grouped
+conv1d.  Builds the hand-written kernels, warms Conformer-M's train step
 (`train.loop.make_train_step`: log-mel, SpecAugment, forward, CTC,
 backward, Adafactor; weights and audio from a seed) up over two steps,
 times five steps unprofiled, then runs three under ``torch.profiler`` and
@@ -34,6 +37,7 @@ GROUPS = (
     ("lstm_dwhh", ("lstm_dwhh_kernel",)),
     ("ctc alpha + beta", ("ctc_alpha_kernel", "ctc_beta_kernel")),
     ("stft_logmel", ("stft_logmel_kernel",)),
+    ("depthwise_conv", ("depthwise_conv_kernel",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad")),
     ("GEMMs (cuBLAS)", ("gemm", "cutlass", "cublas", "xmma", "nvjet")),
 )
@@ -44,7 +48,7 @@ def group_of(kernel_name: str) -> str:
     return next((group for group, words in GROUPS if any(w in key for w in words)), REST)
 
 
-def profile_train_step(batch: int, seconds: float, target_len: int) -> None:
+def profile_train_step(batch: int, seconds: float, target_len: int, conv_impl: str = "auto") -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -61,7 +65,7 @@ def profile_train_step(batch: int, seconds: float, target_len: int) -> None:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build.build()
     gen = torch.Generator().manual_seed(SEED)
-    model = init_params(ConformerCTC(conformer_m(use_pallas=True), VOCAB), gen).cuda()
+    model = init_params(ConformerCTC(conformer_m(use_pallas=True, conv_impl=conv_impl), VOCAB), gen).cuda()
     state = TrainState.create(model, make_optimizer(OptimizerConfig(), model.named_parameters()), SEED)
     step = make_train_step(model, FeatureConfig(), SpecAugmentConfig(), blank_id=0)
     n_samples = int(seconds * FeatureConfig().sample_rate)
@@ -95,7 +99,7 @@ def profile_train_step(batch: int, seconds: float, target_len: int) -> None:
     device_ms, launches = sum(g[0] for g in groups.values()), sum(g[1] for g in groups.values())
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    print(f"bf16 train step, B={batch}, {seconds:.0f} s clips, {target_len} targets: {plain_ms:.2f} ms/step unprofiled "
+    print(f"bf16 train step (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips, {target_len} targets: {plain_ms:.2f} ms/step unprofiled "
           f"over 5 steps, {profiled_ms:.2f} ms/step under the profiler over {PROFILED_STEPS}; kernel device time "
           f"{device_ms:.2f} ms/step in {launches:.0f} launches/step; busy share {device_ms / plain_ms:.3f} of the "
           f"unprofiled step, {device_ms / profiled_ms:.3f} under the profiler  [{card}]")
@@ -104,8 +108,8 @@ def profile_train_step(batch: int, seconds: float, target_len: int) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] not in (["long"], ["short"]):
+    if sys.argv[1:2] not in (["long"], ["short"]) or sys.argv[2:] not in ([], ["pallas"]):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
-    profile_train_step(*SHAPES[sys.argv[1]])
+    profile_train_step(*SHAPES[sys.argv[1]], conv_impl="pallas" if sys.argv[2:] else "auto")

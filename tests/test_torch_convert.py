@@ -23,8 +23,8 @@ DEC = dict(projection_dim=8, lstm_hidden=8)
 VOCAB = 7
 
 
-def _configs(use_pallas):
-    kw = dict(n_mels=8, use_pallas=use_pallas, attention_impl="flash", compute_dtype="float32")
+def _configs(use_pallas, **extra):
+    kw = dict(n_mels=8, use_pallas=use_pallas, attention_impl="flash", compute_dtype="float32", **extra)
     jcfg = C.ModelConfig(encoder=C.ConformerConfig(**ENC), decoder=C.DecoderConfig(**DEC), **kw)
     # the port's BiLSTM always has the packed layout
     tcfg = TCfg.ModelConfig(
@@ -99,3 +99,50 @@ def test_optimized_lstm_checkpoint_matches_jax(rng):
     ref = np.asarray(ref)
     for row, n in enumerate(np.asarray(ref_len)):
         np.testing.assert_allclose(got[row, :n].numpy(), ref[row, :n], atol=1e-4)
+
+
+def test_dw_kernel_checkpoint_maps_once_loads_strict_and_matches_jax(rng):
+    """A ``use_pallas=True, conv_impl='pallas'`` checkpoint: its ``dw_kernel``
+    (K, C) leaves keep their name and layout, every leaf maps once, the
+    port's model for that configuration owns ``dw_kernel`` and no
+    ``depthwise``, loads with ``strict=True`` and gives the JAX model's
+    log-probs (atol 1e-4) and greedy ids."""
+    jcfg, tcfg = _configs(True, conv_impl="pallas")
+    feats = rng.standard_normal((3, 24, 8)).astype(np.float32)
+    lens = np.asarray([24, 17, 9], np.int32)
+    model = ConformerCTC(jcfg, VOCAB)
+    vs = _variables(model, rng, jnp.asarray(feats), jnp.asarray(lens))
+    sd = flax_to_state_dict(vs, tcfg)
+    assert len(sd) == len(jax.tree.leaves(vs))
+    tm = TorchCTC(tcfg, VOCAB)
+    tm.load_state_dict(sd, strict=True)
+    assert set(sd) == set(tm.state_dict())
+    assert not any("depthwise" in k for k in sd)
+    taps = vs["params"]["encoder"]["block_1"]["conv"]["dw_kernel"]
+    assert taps.shape == (ENC["conv_kernel_size"], 2 * ENC["d_model"])
+    np.testing.assert_array_equal(sd["encoder.blocks.1.conv.dw_kernel"].numpy(), taps)
+    # the other route's model refuses this checkpoint, and this model the other's
+    with pytest.raises(RuntimeError, match="dw_kernel"):
+        TorchCTC(_configs(True)[1], VOCAB).load_state_dict(sd, strict=True)
+    ref, ref_len = model.apply(vs, jnp.asarray(feats), jnp.asarray(lens), deterministic=True)
+    with torch.no_grad():
+        got, got_len = tm.eval()(torch.from_numpy(feats), torch.from_numpy(lens))
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(ref_len))
+    ref = np.asarray(ref)
+    for row, n in enumerate(np.asarray(ref_len)):
+        np.testing.assert_allclose(got[row, :n].numpy(), ref[row, :n], atol=1e-4)
+        np.testing.assert_array_equal(got[row, :n].argmax(-1).numpy(), ref[row, :n].argmax(-1))
+
+
+def test_adafactor_sees_dw_kernel_in_the_flax_layout():
+    """``dw_kernel`` is (K, C) on both sides: no permutation, and with K <
+    128 optax does not factor it, nor does the port."""
+    from nn_conformer_for_speech_recognition_tpu_torch.convert import flax_axes
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+
+    assert flax_axes("encoder.blocks.0.conv.dw_kernel", 2) == (0, 1)
+    assert flax_axes("encoder.blocks.0.conv.depthwise.weight", 3) == (2, 1, 0)
+    tm = TorchCTC(TCfg.conformer_s(use_pallas=True, conv_impl="pallas"), VOCAB)
+    opt = make_optimizer(TCfg.OptimizerConfig(), tm.named_parameters())
+    slots = opt.state["encoder.blocks.0.conv.dw_kernel"]
+    assert set(slots) == {"v", "ema"} and slots["v"].shape == (33, 512)

@@ -17,7 +17,11 @@ saved c and gates, and the backward's dxw 1e-4 (235 or 938 float32 steps), dW_hh
 ll within 1e-5 relative, demit 5e-4 (posteriors exp(α + β − ll) formed
 from log-space values of ~1.5e3, where one float32 ulp is 1.2e-4), and
 against torch's own CTC the loss 1e-5 relative and the logit gradient
-1e-3.
+1e-3.  The depthwise conv: float32 1e-5 on unit-variance inputs and taps
+of variance 1/K (33 float32 multiply-adds in the twin's order, fused here),
+bfloat16 one bf16 ulp at the reference's largest entry (both sum in float32
+and round once); dw through the Function 1e-4 of its largest entry (a
+float32 sum over B·T rows).
 """
 
 import pytest
@@ -27,6 +31,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig
 from nn_conformer_for_speech_recognition_tpu_torch.ops import ctc as TC
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
+from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import depthwise_conv as D
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import stft_logmel as S
 
@@ -257,3 +262,66 @@ def test_ctc_loss_kernel_matches_torch_ctc(cuda):
     assert ours[3] == 0 and torch.all(x.grad[3] == 0)
     torch.testing.assert_close(ours, ref, rtol=1e-5, atol=1e-5)
     _close(x.grad, w.grad, 1e-3)
+
+
+def _conv_case(gen, dtype, b, t, c, k):
+    x = torch.randn(b, t, c, generator=gen).cuda().to(dtype)
+    w = (torch.randn(k, c, generator=gen) * k ** -0.5).cuda().to(dtype)
+    return x, w
+
+
+def _conv_bar(ref, dtype):
+    return max(2.0 ** -7 * ref.abs().max().item(), 1e-5) if dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b, t, c, k",
+    [(16, 235, 512, 33), (4, 938, 512, 33), (2, 100, 1024, 33), (2, 8, 32, 33), (3, 37, 130, 7), (2, 235, 130, 4),
+     (1, 1, 1, 1), (2, 65, 129, 2), (16, 28, 512, 33), (16, 14, 512, 33), (2, 70, 130, D.MAX_KERNEL_SIZE)],
+)
+def test_depthwise_conv_kernel(cuda, dtype, b, t, c, k):
+    """Forward and dx (the same kernel, taps reversed, pads swapped) against
+    the plain twin; one launch each."""
+    x, w = _conv_case(cuda, dtype, b, t, c, k)
+    before = D.depthwise_conv1d_forward.launches
+    got = D.depthwise_conv1d(x, w)
+    assert D.depthwise_conv1d_forward.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    ref = D.depthwise_conv1d_plain(x, w)
+    _close(got, ref, _conv_bar(ref, dtype))
+    pad_hi = k - 1 - (k - 1) // 2
+    dx = D.depthwise_conv1d_forward(x, w, pad_lo=pad_hi, reverse_taps=True)
+    dx_ref = D.depthwise_conv1d_plain(x, w.flip(0), pad_hi)
+    _close(dx, dx_ref, _conv_bar(dx_ref, dtype))
+
+
+@pytest.mark.parametrize("k", [33, 4])
+def test_depthwise_conv_gradients_reach_x_and_w(cuda, k):
+    """The kernel path differentiates: dx and dw equal autograd's through
+    the plain twin, through two launches (forward, dx) of the one kernel."""
+    x, w = _conv_case(cuda, torch.float32, 4, 235, 512, k)
+    r = torch.randn(x.shape, generator=cuda).cuda()
+    grads = []
+    for fn in (D.depthwise_conv1d, D.depthwise_conv1d_plain):
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        before = D.depthwise_conv1d_forward.launches
+        (fn(xl, wl) * r).sum().backward()
+        grads.append((xl.grad, wl.grad, D.depthwise_conv1d_forward.launches - before))
+    (dx, dw, count), (dx_ref, dw_ref, plain_count) = grads
+    assert (count, plain_count) == (2, 0)
+    _close(dx, dx_ref, 1e-5)
+    _close(dw, dw_ref, 1e-4 * dw_ref.abs().max().item())
+
+
+def test_depthwise_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(2, 5, 8, device="cuda")
+    with pytest.raises(ValueError):
+        D.depthwise_conv1d(x, torch.zeros(3, 4, device="cuda"))
+    with pytest.raises(ValueError):
+        D.depthwise_conv1d(x, torch.zeros(3, 8, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        D.depthwise_conv1d(x.double(), torch.zeros(3, 8, device="cuda", dtype=torch.float64))
+    with pytest.raises(ValueError, match="above"):  # one tap more than a block's shared memory holds
+        D.depthwise_conv1d(x, torch.zeros(D.MAX_KERNEL_SIZE + 1, 8, device="cuda"))
+    assert D.depthwise_conv1d(x[:0], torch.zeros(3, 8, device="cuda")).shape == (0, 5, 8)

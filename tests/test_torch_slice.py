@@ -40,12 +40,32 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_config_copies_equal():
     for name in ("FeatureConfig", "SpecAugmentConfig", "SubsamplingConfig", "ConformerConfig", "DecoderConfig",
-                 "ModelConfig", "OptimizerConfig"):
+                 "ModelConfig", "OptimizerConfig", "MeshConfig", "TrainConfig", "NSTConfig"):
         assert repr(getattr(TC, name)()) == repr(getattr(C, name)()), name
     for preset in ("conformer_s", "conformer_m", "conformer_l"):
         assert repr(getattr(TC, preset)()) == repr(getattr(C, preset)()), preset
     assert TC.SubsamplingConfig().subsampled_length(938) == C.SubsamplingConfig().subsampled_length(938) == 235
     assert TC.FeatureConfig().num_frames(480000) == C.FeatureConfig().num_frames(480000) == 938
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+@pytest.mark.parametrize("conv_impl", ["auto", "pallas", "xla"])
+def test_conv_route_follows_the_jax_rule(use_pallas, conv_impl):
+    """The kernel route only for ``use_pallas=True, conv_impl='pallas'``, as
+    ``ModelConfig.resolved_conv_impl`` of the JAX package; the model owns
+    the route's parameter and not the other's."""
+    ref = C.conformer_m(use_pallas=use_pallas, conv_impl=conv_impl).resolved_conv_impl()
+    cfg = TC.conformer_s(use_pallas=use_pallas, conv_impl=conv_impl)
+    assert TC.conv_route(cfg) == {"pallas": "kernel", "xla": "library"}[ref]
+    names = [n for n, _ in TorchCTC(dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, num_blocks=1)),
+                                    8).named_parameters() if ".conv." in n]
+    assert ("encoder.blocks.0.conv.dw_kernel" in names) == (ref == "pallas")
+    assert ("encoder.blocks.0.conv.depthwise.weight" in names) == (ref == "xla")
+
+
+def test_conv_route_rejects_unknown_values():
+    with pytest.raises(ValueError, match="conv_impl"):
+        TC.conv_route(TC.conformer_m(use_pallas=True, conv_impl="cudnn"))
 
 
 def test_resolution_by_device():
@@ -84,10 +104,15 @@ def test_decode_matches_jax(rng):
     np.testing.assert_array_equal(n.numpy(), np.asarray(ref_n))
 
 
-def _tiny(lib):
+def _tiny(lib, **kw):
     enc = lib.ConformerConfig(num_blocks=2, d_model=16, num_heads=2, ffn_dim=32, conv_kernel_size=5, dropout=0.0)
     dec = lib.DecoderConfig(projection_dim=8, lstm_hidden=8)
-    return lib.ModelConfig(encoder=enc, decoder=dec, use_pallas=True, attention_impl="flash", compute_dtype="float32")
+    return lib.ModelConfig(encoder=enc, decoder=dec, use_pallas=True, attention_impl="flash", compute_dtype="float32",
+                           **kw)
+
+
+def _tiny_pallas_conv(lib):
+    return _tiny(lib, conv_impl="pallas")
 
 
 def _m_two_blocks(lib):
@@ -97,8 +122,9 @@ def _m_two_blocks(lib):
 
 @pytest.mark.parametrize(
     "make_cfg, vocab_size, seconds, lengths",
-    [(_tiny, 12, 0.5, [8000, 5000, 1200]), (_m_two_blocks, 1024, 2.0, [32000, 21000])],
-    ids=["tiny", "conformer_m_widths_2_blocks"],
+    [(_tiny, 12, 0.5, [8000, 5000, 1200]), (_m_two_blocks, 1024, 2.0, [32000, 21000]),
+     (_tiny_pallas_conv, 12, 0.5, [8000, 5000, 1200])],
+    ids=["tiny", "conformer_m_widths_2_blocks", "tiny_conv_impl_pallas"],
 )
 def test_predict_step_matches_jax(rng, make_cfg, vocab_size, seconds, lengths):
     jcfg, tcfg = make_cfg(C), make_cfg(TC)
@@ -137,7 +163,10 @@ def test_predict_step_matches_jax(rng, make_cfg, vocab_size, seconds, lengths):
 
 def test_port_never_imports_jax():
     """With jax, flax and optax unimportable, every module of the port
-    imports, and a CPU predict step and one CPU train step run."""
+    imports (``train.loop``, ``train.checkpoint``, ``nst.driver`` and
+    ``data.*`` among them), and on the CPU a predict step, one train step, a
+    two-step `Trainer.train` with a checkpoint and one `run_nst` generation
+    run."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -165,7 +194,27 @@ state = TrainState.create(model, make_optimizer(C.OptimizerConfig(), model.named
 step = make_train_step(model, C.FeatureConfig(), C.SpecAugmentConfig(), vocab.blank_id)
 state, metrics = step(state, audio, alen, torch.tensor([[3, 4], [5, 0]]), torch.tensor([2, 1]))
 assert state.step == 1 and torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"]), metrics
+import tempfile
+from nn_conformer_for_speech_recognition_tpu_torch.data.audio import make_synthetic_corpus
+from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset, load_manifest
+from nn_conformer_for_speech_recognition_tpu_torch.nst.driver import run_nst
+from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import CheckpointManager
+from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+with tempfile.TemporaryDirectory() as root:
+    man = make_synthetic_corpus(root, ["yes", "no"], 4, 2, 0, 2)
+    vocab = build_vocab("word", ["yes no"])
+    data = {k: BucketedDataset(load_manifest(v), vocab, batch_size=2, max_target_len=2) for k, v in man.items()}
+    cfg = C.ModelConfig(encoder=enc, decoder=C.DecoderConfig(projection_dim=8, lstm_hidden=8), use_pallas=True,
+                        conv_impl="pallas")
+    trainer = Trainer(ConformerCTC(cfg, len(vocab)), vocab, C.FeatureConfig(), C.TrainConfig(batch_size=2),
+                      device="cpu", log_fn=lambda _: None)
+    trainer.init_state(seed=0)
+    trainer.train(data["train"], epochs=1, checkpoint_manager=CheckpointManager(root + "/ck"))
+    assert trainer.state.step == 2 and len(trainer.history["train_loss"]) == 1
+    nst = C.NSTConfig(generations=1, initial_supervised_finetune=False)
+    results = run_nst(trainer, data["train"], data["unlabeled"], nst, val_dataset=data["validation"], work_dir=root + "/nst")
+    assert len(results) == 1 and results[0].num_pseudo_labels == 2
 """
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=240)
     assert proc.returncode == 0, proc.stderr

@@ -17,7 +17,9 @@ the update is only bounded by 0.1·lr (plus the float32 rounding of the
 parameter it is added to).  The subsampling's second conv (512 × 128
 channels) is factored, so the factored update is held too.
 
-The same step is held with ``attention_impl='flash'`` (d_model 32): the JAX
+The same step is held with ``conv_impl='pallas'`` at K = 4 (the JAX side
+through its Pallas depthwise conv in interpret mode, the port through
+`DepthwiseConv1d` over the plain twin), and with ``attention_impl='flash'`` (d_model 32): the JAX
 side then trains through its flash forward and its three backward kernels
 in interpret mode, the port through `RelPosFlashAttention` over the plain
 twins, under the same tolerances.
@@ -59,8 +61,9 @@ from nn_conformer_for_speech_recognition_tpu_torch.utils import flops as TF
 LR, VOCAB = 1e-3, 12
 
 
-def _tiny(lib, d_model=16, **kw):
-    enc = lib.ConformerConfig(num_blocks=2, d_model=d_model, num_heads=2, ffn_dim=32, conv_kernel_size=5, dropout=0.0)
+def _tiny(lib, d_model=16, conv_kernel_size=5, **kw):
+    enc = lib.ConformerConfig(num_blocks=2, d_model=d_model, num_heads=2, ffn_dim=32, conv_kernel_size=conv_kernel_size,
+                              dropout=0.0)
     dec = lib.DecoderConfig(projection_dim=8, lstm_hidden=8, dropout=0.0)
     return lib.ModelConfig(encoder=enc, decoder=dec, use_pallas=True, compute_dtype="float32", **kw)
 
@@ -104,6 +107,24 @@ def test_flash_train_step_matches_jax(rng, monkeypatch):
     monkeypatch.setattr(TA, "flash_relpos_attention_backward_plain", lambda *a: calls.append(1) or backward(*a))
     _check_train_step_matches_jax(rng, d_model=32, attention_impl="flash")
     assert len(calls) == 2  # one attention backward per block
+
+
+def test_pallas_conv_train_step_matches_jax(rng, monkeypatch):
+    """``conv_impl='pallas'`` at an even kernel size (K = 4, where the pad
+    split matters): the JAX side trains through its Pallas depthwise conv
+    in interpret mode and its jnp backward, the port through
+    `DepthwiseConv1d` over the plain twin; loss, gradient norm, every
+    gradient (``dw_kernel``'s included) and every update agree as in the
+    'auto' step, and each block's conv ran forward and dx once."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import depthwise_conv as TD
+
+    calls = []
+    forward = TD.depthwise_conv1d_forward
+    monkeypatch.setattr(TD, "depthwise_conv1d_forward",
+                        lambda x, w, pad_lo=None, reverse_taps=False: calls.append((pad_lo, reverse_taps))
+                        or forward(x, w, pad_lo, reverse_taps))
+    _check_train_step_matches_jax(rng, conv_kernel_size=4, conv_impl="pallas")
+    assert sorted(calls, key=str) == sorted([(None, False)] * 2 + [(2, True)] * 2, key=str)
 
 
 def _check_train_step_matches_jax(rng, **cfg):
@@ -359,6 +380,7 @@ def test_flops_copy_equal_and_peak_by_card_name():
         ("void bwd_dband_kernel<float, 64>(BwdArgs)", "attention bwd dband (+ reduce)"),
         ("void dband_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int)", "attention bwd dband (+ reduce)"),
         ("void lstm_fwd_kernel<true>(LstmArgs)", "lstm_fwd"),
+        ("void (anonymous namespace)::depthwise_conv_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "depthwise_conv"),
         ("nvjet_tst_128x64_64x8_2x1_v_bz_TNN", "GEMMs (cuBLAS)"),
         ("sm90_xmma_wgrad_implicit_gemm_bf16", "convolutions (cuDNN)"),
         ("void at::native::vectorized_elementwise_kernel<4, MulFunctor>", "elementwise, reductions, copies"),
@@ -384,4 +406,5 @@ def test_package_data_ships_every_kernel_source():
         "nn_conformer_for_speech_recognition_tpu_torch"]
     package = root / "nn_conformer_for_speech_recognition_tpu_torch"
     shipped = {p.name for pattern in patterns for p in package.glob(pattern)}
-    assert shipped == {p.name for p in (package / "csrc").iterdir() if p.is_file()} and "attention_relpos.cuh" in shipped
+    assert shipped == {p.name for p in (package / "csrc").iterdir() if p.is_file()}
+    assert {"attention_relpos.cuh", "depthwise_conv.cu"} <= shipped
