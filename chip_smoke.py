@@ -60,14 +60,36 @@ Run from the root of a checkout:  python3 chip_smoke.py
    path against plain path; the generation's checkpoint restored into a
    fresh trainer; and a mid-epoch kill resumed.  Stage times are taken
    from outside the trainer, each between two waits for the card.
-8. Prints one JSON line with each kernel's numbers, then, as the last line,
+8. The bias-input flash attention (``ops/cuda/attention.flash_attention``,
+   the one kernel no model routes through, in the port as in the JAX
+   package): the kernel against its twin at the encoder's shapes
+   (16,235,4,64) and (4,938,4,64) and at the Noisy Student buckets' T'=14
+   and 28, float32 and bfloat16 (bias bfloat16 and float32), beside one
+   ``F.scaled_dot_product_attention`` call with the bias as its mask; then
+   its own path, the public op on a Conformer-M block's tensors with
+   ``bias = rel_shift(qv·pᵀ)``, forward in bfloat16 and forward + backward
+   in float32, counted, held to the rel-pos kernel on the same tensors and
+   to autograd through the twin, with both routes' times and bytes.
+9. Beam-search evaluation at full width: ``make_eval_beam_step`` on
+   Conformer-M (bfloat16, vocabulary 1024, B=16 × 30 s, beam 8, prune 16,
+   64 labels) beside the greedy ``make_eval_step``; the card's hypotheses
+   against the same search on the CPU from the same float32 log-probs, and
+   each 1-best score against the greedy path's.
+10. The command line, in process, on a synthetic corpus in a temporary
+   directory: ``train`` at Conformer-M width, ``train --resume``, ``eval``
+   greedy and beam from the saved checkpoint (held to `Trainer.evaluate`
+   on the same weights), ``nst --generations 1``, and ``parity --tiny`` in
+   both protocols.
+11. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
 CUDA device the script exits non-zero before printing any result.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -122,6 +144,17 @@ TOL = {
     "depthwise_conv_f32": 1e-5,
 }
 SLICE_LOGPROB_TOL, SLICE_ID_AGREEMENT = 2e-3, 0.999
+# Beam-search evaluation: width, candidates a frame, label room.  The head of the seeded model is calibrated to speak
+# as a trained CTC model does (log-probs spread by BEAM_LOGIT_STD over the vocabulary, the blank lifted by
+# BEAM_BLANK_BIAS so that it wins most frames): on a flat distribution no hypothesis stands out and a row's greedy
+# path alone would need more labels than there is room for
+BEAM, PRUNE, MAX_LABEL_LEN, BEAM_LOGIT_STD, BEAM_BLANK_BIAS = 8, 16, 64, 4.0, 20.0
+# card vs CPU from the same float32 log-probs: a score is a chain of 235 float32 logaddexp steps in two libraries'
+# exp and log1p.  Held to 1e-3 absolute; where a score's magnitude passes 1e2 (one float32 ulp there is 8e-6 and
+# grows with it) to 1e-5 of the score, as the CPU tests hold it to JAX's: the larger of the two
+BEAM_SCORE_ATOL, BEAM_SCORE_RTOL, BEAM_ROWS_MAY_DIFFER = 1e-3, 1e-5, 0.01
+# the command-line phase: epochs of the first `train`, and of the resumed one
+CLI_EPOCHS, CLI_RESUME_EPOCHS = 2, 3
 # float32 train step, kernel path vs plain path
 TRAIN_TOL = {
     # the gradients of the two CTC implementations differ by ~1e-4 relative
@@ -204,6 +237,7 @@ def counters() -> dict:
         "attention_relpos_bwd_dkv": A.flash_relpos_attention_bwd_dkv,
         "attention_relpos_bwd_dband": A.flash_relpos_attention_bwd_dband,
         "depthwise_conv": D.depthwise_conv1d_forward,
+        "attention_bias": A.flash_attention_forward,
     }
 
 
@@ -587,7 +621,7 @@ def check_depthwise_conv_kernel(card: str) -> dict:
                       f"(max|Δ| to the twin {lib_err:.3e}), dw by unfold + einsum {dw_ms:.4f} ms  [{card}]")
                 check(errs[0] <= tols[0], f"depthwise_conv ({name}, K={k}) disagrees with its plain twin")
                 check(errs[1] <= tols[1], f"depthwise_conv dx ({name}, K={k}) disagrees with autograd through the twin")
-                if (b, k, dtype) == (BATCH, 33, torch.bfloat16):
+                if (b, t, k, dtype) == (BATCH, T_SUB, 33, torch.bfloat16):
                     # x read once, out written once, the taps; 2·K operations an element, done as float32
                     # multiply-adds outside the tensor cores whatever the storage type
                     result = numbers(max(errs), ms, plain_ms, nbytes(x, out, w), 2 * k * x.numel(), torch.float32,
@@ -595,17 +629,156 @@ def check_depthwise_conv_kernel(card: str) -> dict:
     return {"depthwise_conv": result}
 
 
-def print_bias_attention_bound() -> None:
-    """The bound of the one TPU kernel without a counterpart yet, the flash
-    forward with an additive bias (``ops/pallas/attention.py::_flash_kernel``),
-    at the encoder's shape (16, 235, 4, 64) in bf16 with full lengths: qu, k,
-    v and the output once, the (B, H, T, T) bias once; 4·dh operations for
-    each (query, key) pair and head."""
-    b, t, h, dh, size = BATCH, T_SUB, 4, 64, 2
-    moved = 4 * b * t * h * dh * size + b * h * t * t * size
-    n = numbers(0.0, 0.0, 0.0, moved, 4 * dh * b * h * t * t, torch.bfloat16)
-    print(f"still to port, attention with a bias input ({b}, {t}, {h}, {dh}) bf16: {moved / 1e6:.2f} MB, "
-          f"bound {n['bound_ms']:.4f} ms ({n['bound_by']}); no time, there is no kernel yet")
+def key_padding(lengths: torch.Tensor, t: int, dtype: torch.dtype) -> torch.Tensor:
+    """(B, 1, 1, T) additive key mask: 0 on valid keys, −1e30 beyond the length."""
+    valid = torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
+    return torch.where(valid, 0.0, -1e30).to(dtype)[:, None, None, :]
+
+
+def check_bias_attention_kernel(card: str) -> dict:
+    """The bias-input flash attention against its twin on every query row, at
+    the encoder's two shapes and the Noisy Student buckets', float32 and
+    bfloat16 with a bias of either type, and beside one
+    ``scaled_dot_product_attention`` call whose mask is ``bias·scale`` plus
+    the key padding (a yardstick: the port never calls it).  The bias is
+    drawn wide (its share of a score has spread 4·dh^-0.5 = 0.5, the qu·k
+    share about 0.25) so that the softmax follows it, and bfloat16 is held
+    to one bf16 ulp at the twin's largest entry: a kernel that read the bias
+    wrongly, in one instantiation alone, would miss that bar, and the same
+    kernel on a zeroed bias must miss it fourfold.  The bf16 numbers with a
+    bf16 bias at (16, 235, 4, 64) go into the result."""
+    import torch.nn.functional as F
+
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    h, dh, result = 4, 64, None
+    scale = dh ** -0.5
+    shapes = [(BATCH, T_SUB, mixed_lengths(gen, BATCH, T_SUB, T_SUB // 3)),
+              (LONG_BATCH, LONG_T_SUB, torch.tensor([938, 500, 20, 811], dtype=torch.int32)),
+              *((NST_BATCH, frames, mixed_lengths(gen, NST_BATCH, frames, max(1, frames // 3))) for _, frames in NST_BUCKETS)]
+    for b, t, lengths in shapes:
+        qu, k, v = (torch.randn(b, t, h, dh, generator=gen) * 0.5 for _ in range(3))
+        bias = torch.randn(b, h, t, t, generator=gen) * 4.0
+        lengths = lengths.to(dev)
+        valid = int(lengths.sum())
+        for dtype, bias_dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                  (torch.bfloat16, torch.float32)):
+            args = [x.to(dev, dtype) for x in (qu, k, v)] + [bias.to(dev, bias_dtype), lengths, scale]
+            got, ref = A.flash_attention(*args), A.flash_attention_plain(*args)
+            torch.cuda.synchronize()
+            check(got.shape == ref.shape == (b, t, h, dh) and got.dtype == dtype, "attention_bias output shape or type")
+            check(bool(torch.isfinite(got).all()), "attention_bias gives non-finite values")
+            err = max_abs(got, ref)
+            tol = TOL["attention_f32"] if dtype == torch.float32 else bf16_bar(ref, floor=TOL["attention_f32"])
+            blind = max_abs(A.flash_attention(*args[:3], torch.zeros_like(args[3]), lengths, scale), ref)
+            mask = (args[3].float() * scale + key_padding(lengths, t, torch.float32)).to(dtype)
+            q_, k_, v_ = (x.transpose(1, 2) for x in args[:3])
+
+            def library():
+                return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask, scale=scale).transpose(1, 2)
+
+            lib_err = max_abs(library(), ref)
+            ms = cuda_ms(lambda: A.flash_attention(*args))
+            plain_ms = cuda_ms(lambda: A.flash_attention_plain(*args), iters=5)
+            library_ms = cuda_ms(library)
+            # bytes this run's lengths need: qu read and out written whole, k and v up to each row's length,
+            # the bias columns up to it; 4·dh operations for each (query, valid key) pair and head
+            size, bias_size = args[0].element_size(), args[3].element_size()
+            moved = 2 * nbytes(args[0]) + 2 * valid * h * dh * size + h * t * valid * bias_size
+            n = numbers(err, ms, plain_ms, moved, 4 * h * dh * t * valid, dtype, library_ms=library_ms)
+            name = f"{str(dtype).replace('torch.', '')} with a {str(bias_dtype).replace('torch.', '')} bias"
+            print(f"attention_bias ({b}, {t}, {h}, {dh}) {name}, lengths {lengths.tolist()[:4]}…: max|Δ| {err:.3e} "
+                  f"(tol {tol:.3e}; {blind:.3e} with the bias zeroed), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {n['bound_ms']:.4f} ms "
+                  f"({n['bound_by']}, {moved / 1e6:.2f} MB), scaled_dot_product_attention with the bias and the key "
+                  f"padding as its mask {library_ms:.4f} ms (max|Δ| to the twin {lib_err:.3e})  [{card}]")
+            check(err <= tol, f"attention_bias ({name}) disagrees with its plain twin")
+            check(blind > 4 * tol, f"attention_bias ({name}): the bar does not see the bias")
+            if (b, t, dtype, bias_dtype) == (BATCH, T_SUB, torch.bfloat16, torch.bfloat16):
+                result = n
+    return {"attention_bias": result}
+
+
+def check_bias_attention_op(card: str) -> dict:
+    """The bias-input op's own path, which is the only one it has: the public
+    ``flash_attention`` on the tensors of a Conformer-M block's attention at
+    (16, 235, 4, 64), with ``bias = rel_shift(qv·pᵀ)``.  Driven once in
+    bfloat16 (forward) and once in float32 (forward and backward through
+    `BiasFlashAttention`) with the counters at 0 before and read after; then
+    held to the rel-pos kernel on the same tensors, and its gradients to
+    autograd through the twin.  Returns the launch counts of the drive."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import sinusoidal_rel_positions
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.relshift import rel_shift
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cfg = conformer_m(use_pallas=True)
+    mhsa = init_params(ConformerCTC(cfg, VOCAB), gen).encoder.blocks[0].mhsa.cuda()
+    b, t, d, h = BATCH, T_SUB, cfg.encoder.d_model, cfg.encoder.num_heads
+    dh = d // h
+    scale = dh ** -0.5
+    with torch.no_grad():
+        mhsa.u_bias.copy_(torch.randn(h, dh, generator=gen) * 0.1)
+        mhsa.v_bias.copy_(torch.randn(h, dh, generator=gen) * 0.1)
+        x = torch.randn(b, t, d, generator=gen).cuda()
+        q, k, v = mhsa.qkv(mhsa.norm(x)).reshape(b, t, 3, h, dh).unbind(dim=2)
+        p = mhsa.pos_proj(torch.from_numpy(sinusoidal_rel_positions(t, d)).cuda()).reshape(2 * t - 1, h, dh)
+        qu, qv = q + mhsa.u_bias, q + mhsa.v_bias
+    lengths = mixed_lengths(gen, b, t, t // 3).cuda()
+    g = (torch.randn(b, t, h, dh, generator=gen) * 0.5).cuda()
+
+    def make_bias(qv_, p_):
+        """The rel-pos term as the op's additive input: float32, as the einsum accumulates it."""
+        return rel_shift(torch.einsum("bihd,lhd->bhil", qv_.float(), p_.float()))
+
+    qu16, qv16, k16, v16, p16 = (x_.to(torch.bfloat16).contiguous() for x_ in (qu, qv, k, v, p))
+    qu32, k32, v32 = (x_.contiguous() for x_ in (qu, k, v))
+    bias16, bias32 = make_bias(qv16, p16), make_bias(qv, p)
+    leaves = [x_.clone().requires_grad_(True) for x_ in (qu32, k32, v32, bias32)]
+
+    # -- the drive: counted
+    torch.cuda.synchronize()
+    reset_counters()
+    out16 = A.flash_attention(qu16, k16, v16, bias16, lengths, scale)
+    out32 = A.flash_attention(*leaves, lengths, scale)
+    out32.backward(g)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    check(launches == {**dict.fromkeys(launches, 0), "attention_bias": 2}, f"the op's launch counts: {launches}")
+    check(out16.shape == (b, t, h, dh) and out16.dtype == torch.bfloat16 and bool(torch.isfinite(out16).all()),
+          "the op's bf16 output")
+
+    # -- against the rel-pos kernel on the same tensors, and the twin
+    rel16 = A.flash_relpos_attention(qu16, qv16, k16, v16, p16, lengths, scale)
+    rel32 = A.flash_relpos_attention(qu32, qv.contiguous(), k32, v32, p.contiguous(), lengths, scale)
+    err32, err16 = max_abs(out32, rel32), max_abs(out16, rel16)
+    twins = [x_.clone().requires_grad_(True) for x_ in (qu32, k32, v32, bias32)]
+    A.flash_attention_plain(*twins, lengths, scale).backward(g)
+    grad_errs = {n: max_abs(a.grad, r.grad) for n, a, r in zip(("dqu", "dk", "dv", "dbias"), leaves, twins)}
+    check(not bool(leaves[3].grad[1, :, :, int(lengths[1]):].any()), "a masked key column of the bias got a gradient")
+    ms11 = cuda_ms(lambda: A.flash_attention(qu16, k16, v16, bias16, lengths, scale))
+    ms2 = cuda_ms(lambda: A.flash_relpos_attention(qu16, qv16, k16, v16, p16, lengths, scale))
+    bias_ms = cuda_ms(lambda: make_bias(qv16, p16))
+    bwd_ms = cuda_ms(lambda: A.flash_attention_backward_plain(qu32, k32, v32, bias32, lengths, scale, g), iters=5)
+    read2 = nbytes(qu16, qv16, k16, v16, p16)
+    read11 = nbytes(qu16, k16, v16, bias16)
+    wide = b * h * t * (2 * t - 1) * 4  # the (B, H, T, 2T−1) float32 product, written, then read by the shift
+    print(f"attention_bias as rel-pos attention ({b}, {t}, {h}, {dh}), bias = rel_shift(qv·pᵀ) in float32: against the "
+          f"rel-pos kernel max|Δ| f32 {err32:.3e} (tol {TOL['attention_f32']}), bf16 {err16:.3e} (tol "
+          f"{TOL['attention_bf16']}); bf16 times: rel-pos kernel {ms2:.4f} ms reading {read2 / 1e6:.2f} MB; bias-input "
+          f"kernel {ms11:.4f} ms reading {read11 / 1e6:.2f} MB, after {bias_ms:.4f} ms to form the bias (einsum + "
+          f"rel_shift: {nbytes(qv16, p16) / 1e6:.2f} MB read, {wide / 1e6:.2f} MB written and read again, "
+          f"{nbytes(bias16) / 1e6:.2f} MB written): {ms11 + bias_ms:.4f} ms in all  [{card}]")
+    print(f"BiasFlashAttention f32 gradients against autograd through the twin: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in grad_errs.items())
+          + f" (tol {TOL['attention_bwd_f32']}); the plain backward {bwd_ms:.4f} ms  [{card}]")
+    check(err32 <= TOL["attention_f32"], "the bias-input op (f32) disagrees with the rel-pos kernel")
+    check(err16 <= TOL["attention_bf16"], "the bias-input op (bf16) disagrees with the rel-pos kernel")
+    check(max(grad_errs.values()) <= TOL["attention_bwd_f32"], "BiasFlashAttention's gradients disagree with autograd")
+    return launches
 
 
 def make_batches(n_samples: int, batch: int = BATCH, count: int = N_BATCHES + 1):
@@ -891,7 +1064,7 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     expected = {"stft_logmel": n, "attention_relpos": 0, "lstm": 2 * n, "lstm_backward": 2 * n,
                 "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
                 "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn,
-                "depthwise_conv": conv}
+                "depthwise_conv": conv, "attention_bias": 0}
     check(launches == expected, f"train-step launch counts, want {expected}")
     del state
 
@@ -1198,6 +1371,236 @@ def check_nst(card: str) -> dict:
     return launches
 
 
+def check_beam(card: str) -> dict:
+    """Beam-search evaluation at full width: `make_eval_beam_step` on
+    Conformer-M (``use_pallas=True``, bfloat16, vocabulary 1024) over B=16
+    clips of 30 s beside the greedy `make_eval_step`; the card's hypotheses
+    against the same search on the CPU from the same float32 log-probs; each
+    1-best score against the log-prob of the row's greedy path.  Returns the
+    kernel launch counts of the timed beam batches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import collapse_repeats, ctc_beam_search, greedy_decode
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_eval_beam_step, make_eval_step
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    cfg = conformer_m(use_pallas=True)
+    blocks = cfg.encoder.num_blocks
+    model = init_params(ConformerCTC(cfg, VOCAB), gen)
+    for name, buf in model.named_buffers():  # non-trivial running statistics
+        buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
+    model.cuda().eval()
+    batches = make_batches(int(SECONDS * 16000))
+    featurize = make_featurizer(FeatureConfig())
+
+    def log_probs(audio, alen):
+        with torch.inference_mode():
+            lp, out_lengths = model(*featurize(audio, alen))
+        return lp.float(), out_lengths
+
+    # the head calibrated to speak as a trained CTC model does (see BEAM_LOGIT_STD)
+    spread = log_probs(*batches[0])[0].std(dim=-1).mean().item()
+    with torch.no_grad():
+        model.final_fc.weight.mul_(BEAM_LOGIT_STD / spread)
+        model.final_fc.bias.zero_()
+        model.final_fc.bias[0] = BEAM_BLANK_BIAS
+    lp, out_lengths = log_probs(*batches[1])
+    check(lp.shape == (BATCH, T_SUB, VOCAB), f"log-probs shape {tuple(lp.shape)}")
+    valid = torch.arange(T_SUB, device="cuda")[None, :] < out_lengths[:, None]
+    blank_share = ((lp.argmax(-1) == 0) & valid).sum().item() / valid.sum().item()
+
+    # -- the card's hypotheses against the CPU's, from the same float32 log-probs
+    kw = dict(blank_id=0, beam=BEAM, prune=PRUNE, max_label_len=MAX_LABEL_LEN)
+    toks, lens, scores = (x.cpu() for x in ctc_beam_search(lp, out_lengths, **kw))
+    t0 = time.perf_counter()
+    rtoks, rlens, rscores = ctc_beam_search(lp.cpu(), out_lengths.cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    check(toks.shape == (BATCH, BEAM, MAX_LABEL_LEN) and toks.dtype == torch.int32 and lens.shape == scores.shape == (BATCH, BEAM),
+          "beam search output shapes")
+    differ = [r for r in range(BATCH) if not (torch.equal(toks[r, 0], rtoks[r, 0]) and lens[r, 0] == rlens[r, 0])]
+    all_beams = sum(torch.equal(toks[r], rtoks[r]) for r in range(BATCH))
+    score_diff = (scores[:, 0] - rscores[:, 0]).abs()
+    score_err = score_diff.max().item()
+    score_ok = bool((score_diff <= (BEAM_SCORE_RTOL * rscores[:, 0].abs()).clamp(min=BEAM_SCORE_ATOL)).all())
+    greedy = torch.where(valid, lp.max(dim=-1).values, 0.0).sum(dim=1).cpu()
+    packed, n_greedy = collapse_repeats(greedy_decode(lp, out_lengths, pad_id=1), blank_id=0, pad_id=1)
+    fits = n_greedy.cpu() <= MAX_LABEL_LEN  # a longer greedy path has no room in the beam's prefixes
+    margin = (scores[:, 0] - greedy)[fits]
+    same_as_greedy = sum(toks[r, 0, : lens[r, 0]].tolist() == packed[r, : n_greedy[r]].tolist() for r in range(BATCH))
+    print(f"beam search (B={BATCH}, T'={T_SUB}, V={VOCAB}, beam {BEAM}, prune {PRUNE}, {MAX_LABEL_LEN} labels), card vs CPU "
+          f"from the same float32 log-probs: 1-best equal on {BATCH - len(differ)}/{BATCH} rows (rows that differ: {differ}), "
+          f"all {BEAM} beams equal on {all_beams}/{BATCH} rows, 1-best score max|Δ| {score_err:.3e} at scores of "
+          f"{rscores[:, 0].min().item():.1f} to {rscores[:, 0].max().item():.1f} (tol max({BEAM_SCORE_ATOL}, {BEAM_SCORE_RTOL}·|score|)); "
+          f"the head says blank on {blank_share:.1%} of the frames, 1-best lengths {lens[:, 0].tolist()}, greedy collapse "
+          f"lengths {n_greedy.tolist()}, 1-best = greedy collapse on {same_as_greedy}/{BATCH} rows; 1-best score minus the "
+          f"greedy path's log-prob on the {int(fits.sum())} rows whose greedy path fits: min {margin.min().item():.4f}; "
+          f"the CPU search took {cpu_s:.2f} s")
+    check(len(differ) <= BEAM_ROWS_MAY_DIFFER * BATCH, "the card's 1-best hypotheses differ from the CPU's")
+    check(score_ok, "the card's 1-best scores differ from the CPU's")
+    check(bool(fits.any()) and bool((margin >= -(BEAM_SCORE_RTOL * greedy[fits].abs()).clamp(min=BEAM_SCORE_ATOL)).all()),
+          "a 1-best hypothesis scores below its row's greedy path")
+
+    # -- ms/batch beside the greedy eval step, as Trainer.evaluate calls them
+    targets = torch.randint(3, VOCAB, (BATCH, TARGET_LEN), generator=gen).cuda()
+    tlen = torch.full((BATCH,), TARGET_LEN, device="cuda")
+    greedy_step = make_eval_step(model, FeatureConfig(), blank_id=0, pad_id=1)
+    beam_step = make_eval_beam_step(model, FeatureConfig(), blank_id=0, beam=BEAM, prune=PRUNE, max_label_len=MAX_LABEL_LEN)
+
+    def run(step):
+        step(*batches[0], targets, tlen)  # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        outs = [step(audio, alen, targets, tlen) for audio, alen in batches[1:]]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / N_BATCHES * 1e3, read_counters(), outs
+
+    greedy_ms, _, greedy_outs = run(greedy_step)
+    beam_ms, launches, beam_outs = run(beam_step)
+    for (gl, _, _), (bl, btoks, blens) in zip(greedy_outs, beam_outs):
+        check(bool(torch.isfinite(bl)) and abs(gl.item() - bl.item()) <= 1e-6 * abs(gl.item()),
+              "the beam step's loss differs from the greedy step's")
+        check(btoks.shape == (BATCH, MAX_LABEL_LEN) and blens.shape == (BATCH,), "beam step output shapes")
+    check(torch.equal(beam_outs[0][1].cpu(), toks[:, 0]), "the beam step's 1-best differs from the search on its log-probs")
+    expected = {"stft_logmel": N_BATCHES, "attention_relpos": blocks * N_BATCHES, "lstm": 2 * N_BATCHES, "ctc_alpha": N_BATCHES}
+    check(launches == {**dict.fromkeys(launches, 0), **expected}, f"beam-step launch counts {launches}, want {expected}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beam_step(*batches[1], targets, tlen)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms, n_launches = sum(e.self_device_time_total for e in rows) / 1e3, sum(e.count for e in rows)
+    check(device_ms > 0, "the profiler recorded no device time")
+    print(f"bf16 eval step, Conformer-M, B={BATCH}, {SECONDS:.0f} s clips: beam search {beam_ms:.2f} ms/batch against greedy "
+          f"{greedy_ms:.2f} ms/batch over {N_BATCHES} batches ({BATCH * SECONDS / beam_ms * 1e3:.1f} against "
+          f"{BATCH * SECONDS / greedy_ms * 1e3:.1f} audio-s/s); one beam batch under the profiler: {profiled_ms:.2f} ms, "
+          f"{n_launches} device launches, device time {device_ms:.2f} ms, busy share {device_ms / beam_ms:.3f} of the "
+          f"unprofiled batch  [{card}]")
+    print(f"launch counts over {N_BATCHES} beam-search eval batches: {launches}")
+    return launches
+
+
+def check_cli(card: str) -> dict:
+    """The command line as a user types it, in process, on the Noisy Student
+    phase's synthetic corpus in a temporary directory: ``train`` (Conformer-M,
+    ``--use-pallas``, bfloat16, checkpoints), ``train --resume``, ``eval``
+    greedy and beam from the saved checkpoint, ``nst --generations 1``, and
+    ``parity --tiny`` in both protocols.  Returns the kernel launch counts
+    of the whole phase."""
+    from nn_conformer_for_speech_recognition_tpu_torch.cli import main as cli
+    from nn_conformer_for_speech_recognition_tpu_torch.data.audio import make_synthetic_corpus
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import load_manifest
+    from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import restore_state
+
+    def run(argv):
+        """(exit code, printed lines, seconds); what the command prints is passed on."""
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lines = out.getvalue().strip().splitlines()
+        print(f"$ cli.main {' '.join(argv[:1] + [a for a in argv[1:] if not a.startswith('/')][:14])} …  → exit {rc}, {dt:.2f} s")
+        for line in lines:
+            print("    " + line[:400])
+        check(rc == 0, f"`{argv[0]}` exited with {rc}")
+        return lines, dt
+
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        make_synthetic_corpus(corpus, NST_WORDS, NST_TRAIN, NST_VAL, NST_VAL, NST_UNLABELED,
+                              max_words_per_utt=NST_MAX_WORDS, seed=SEED)
+        data = ["--manifest-dir", corpus, "--batch-size", str(NST_BATCH), "--max-target-len", str(NST_MAX_WORDS),
+                "--bucket-boundaries", *(str(n) for n, _ in NST_BUCKETS)]
+        model = ["--model", "conformer_m", "--use-pallas", "--compute-dtype", "bfloat16"]
+        ckdir, saved, resumed = (os.path.join(root, x) for x in ("ck", "saved", "resumed"))
+        torch.cuda.synchronize()
+        reset_counters()
+
+        lines, train_s = run(["train", *data, *model, "--epochs", str(CLI_EPOCHS), "--lr", str(NST_LR),
+                              "--checkpoint-dir", ckdir, "--save", saved])
+        epochs = [ln for ln in lines if ln.startswith("epoch ")]
+        check([ln.split(":")[0] for ln in epochs] == [f"epoch {e}" for e in range(CLI_EPOCHS)], f"train logged {epochs}")
+        lines, _ = run(["train", *data, *model, "--epochs", str(CLI_RESUME_EPOCHS), "--lr", str(NST_LR),
+                        "--checkpoint-dir", ckdir, "--resume", "--save", resumed])
+        epochs = [ln for ln in lines if ln.startswith("epoch ")]
+        check([ln.split(":")[0] for ln in epochs] == [f"epoch {e}" for e in range(CLI_EPOCHS, CLI_RESUME_EPOCHS)],
+              f"the resumed run did not continue from its cursor: it logged {epochs}")
+        losses = [float(ln.split("loss=")[1].split()[0]) for ln in epochs]
+        check(bool(np.isfinite(losses).all()), "a train loss of the resumed run is not finite")
+
+        # eval from the checkpoint, greedy and beam, and the same weights through Trainer.evaluate
+        evals = {}
+        eval_args = ["eval", *data, *model, "--checkpoint", resumed, "--split", "test"]
+        for decode in ("greedy", "beam"):
+            lines, dt = run([*eval_args, "--decode", decode, "--beam", str(BEAM), "--prune", str(PRUNE),
+                             "--max-label-len", str(MAX_LABEL_LEN)])
+            evals[decode] = json.loads(lines[-1])
+            evals[decode]["seconds"] = dt
+            check(set(evals[decode]) == {"split", "loss", "wer", "decode", "seconds"} and evals[decode]["decode"] == decode
+                  and evals[decode]["split"] == "test", f"eval printed {lines[-1]}")
+        check(np.isfinite(evals["greedy"]["loss"]) and evals["greedy"]["loss"] == evals["beam"]["loss"],
+              f"eval losses: {evals}")
+        args = cli.build_parser().parse_args([*eval_args, "--beam", str(BEAM), "--prune", str(PRUNE),
+                                              "--max-label-len", str(MAX_LABEL_LEN)])
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer, datasets, _ = cli._build(args)
+        per_epoch = datasets["train"].num_batches()
+        check(trainer.state.step == CLI_RESUME_EPOCHS * per_epoch == restore_state(resumed, trainer.state).step,
+              f"the checkpoint counts {trainer.state.step} steps, {CLI_RESUME_EPOCHS} epochs have {CLI_RESUME_EPOCHS * per_epoch}")
+        check(next(trainer.model.parameters()).device.type == "cuda", "the command line did not take the card")
+        for decode in ("greedy", "beam"):
+            loss, wer = trainer.evaluate(datasets["test"], decode=decode)
+            check(loss == evals[decode]["loss"] and 100 * wer == evals[decode]["wer"],
+                  f"eval --decode {decode} printed {evals[decode]}, Trainer.evaluate gives loss {loss}, WER {100 * wer}")
+        del trainer
+
+        lines, nst_s = run(["nst", *data, *model, "--checkpoint", resumed, "--generations", "1", "--ft-lr", str(NST_LR),
+                            "--work-dir", os.path.join(root, "nst"), "--checkpoint-dir", os.path.join(root, "nst_ck")])
+        (gen0,) = json.loads(lines[-1])
+        check(gen0["generation"] == 0 and gen0["num_pseudo_labels"] == NST_UNLABELED and np.isfinite(gen0["val_loss"])
+              and gen0["is_best"], f"nst printed {gen0}")
+        mix = load_manifest(os.path.join(root, "nst", "mix_gen0.tsv"))
+        check(len(mix) == NST_TRAIN + gen0["num_kept"], "mix_gen0.tsv does not hold the supervised lines and the kept clips")
+
+        tiny = ["--manifest-dir", corpus, "--epochs", "1", "--generations", "1", "--batch-size", str(NST_BATCH), "--tiny"]
+        lines, sc_s = run(["parity", *tiny, "--work-dir", os.path.join(root, "parity"), "--max-target-len", str(NST_MAX_WORDS)])
+        sc = json.loads(lines[-1])
+        check(sc["protocol"] == "reference-parity" and set(sc["wer"]) == {"base", "nst"}
+              and all(np.isfinite(v) for tab in sc["wer"].values() for v in tab.values())
+              and os.path.exists(os.path.join(root, "parity", "parity.md")), f"parity printed {lines[-1][:300]}")
+        lines, ls_s = run(["parity", *tiny, "--protocol", "librispeech", "--work-dir", os.path.join(root, "parity_ls"),
+                           "--max-target-len", "32", "--beam", "4", "--prune", "4"])
+        ls = json.loads(lines[-1])
+        check(ls["protocol"] == "librispeech" and ls["vocab"]["kind"] == "wordpiece"
+              and [r["generation"] for r in ls["wer_per_generation"]] == ["base", 0]
+              and all(np.isfinite(r["dev"]) and np.isfinite(r["test"]) for r in ls["wer_per_generation"])
+              and os.path.exists(os.path.join(root, "parity_ls", "librispeech_parity.md")), f"parity printed {lines[-1][:300]}")
+        torch.cuda.synchronize()
+        launches = read_counters()
+
+    steps = CLI_EPOCHS * per_epoch
+    print(f"command line, Conformer-M bf16 --use-pallas, B={NST_BATCH}: train {CLI_EPOCHS} epochs of {per_epoch} steps with "
+          f"validation and checkpoints {train_s:.2f} s ({train_s / steps * 1e3:.1f} ms a step, all included); eval of "
+          f"{NST_VAL} clips greedy {evals['greedy']['seconds']:.2f} s, WER {evals['greedy']['wer']:.2f}%, beam "
+          f"{evals['beam']['seconds']:.2f} s, WER {evals['beam']['wer']:.2f}%, loss {evals['greedy']['loss']:.4f} on both; "
+          f"nst generation {nst_s:.2f} s, kept {gen0['num_kept']} of {gen0['num_pseudo_labels']}, validation WER "
+          f"{100 * gen0['val_wer']:.2f}%; parity --tiny {sc_s:.2f} s (WER {sc['wer']}), librispeech protocol {ls_s:.2f} s "
+          f"(WER per generation {ls['wer_per_generation']})  [{card}]")
+    print(f"launch counts over the command-line phase: {launches}")
+    check(launches["attention_bias"] == 0 and all(launches[k] > 0 for k in ("stft_logmel", "attention_relpos", "lstm",
+          "lstm_backward", "lstm_weight_grad", "ctc_alpha", "ctc_beta")), "the command line missed a kernel of its path")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -1223,7 +1626,6 @@ def main() -> None:
     for n_samples, frames in NST_BUCKETS:
         check_kernels(card, NST_BATCH, n_samples / 16000, frames, inference_attention=True)
         check_train_kernels(card, NST_BATCH, frames, NST_MAX_WORDS)
-    print_bias_attention_bound()
     results.update(check_attention_backward_kernels(card))
     results.update(check_depthwise_conv_kernel(card))
     serve = check_slice(card)
@@ -1235,6 +1637,11 @@ def main() -> None:
     # the float32 step, kernel path against plain path, once more at the NST phase's longer bucket
     check_train(card, NST_BATCH, NST_LONGEST / 16000, NST_MAX_WORDS, long_form=False, conv_impl="pallas")
     nst = check_nst(card)
+    # the bias-input attention (the kernel, then its own op path), beam-search evaluation, the command line
+    results.update(check_bias_attention_kernel(card))
+    op = check_bias_attention_op(card)
+    beam = check_beam(card)
+    cli = check_cli(card)
     pallas = "ops/pallas"
     sources = {
         "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),
@@ -1249,19 +1656,26 @@ def main() -> None:
         "attention_relpos_bwd_dkv": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:559"),
         "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:590"),
         "depthwise_conv": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
+        "attention_bias": ("csrc/attention_bias.cu", f"{pallas}/attention.py:64"),
     }
-    paths = (serve, train, long_train, serve_conv, train_conv, nst)
+    model_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli)
+    paths = (*model_paths, op)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
-          f"pass + the 30 s steps + the NST generation: { {k: tuple(path[k] for path in paths) for k in sources} }")
+          "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line + the bias-input "
+          f"op: { {k: tuple(path.get(k, 0) for path in paths) for k in sources} }")
+    # no model routes through the bias-input attention, here as in the JAX package: its path is its own op
+    check(not any(path.get("attention_bias", 0) for path in model_paths), "a model path launched the bias-input attention")
+    check(op["attention_bias"] > 0, "the bias-input op's own path did not launch its kernel")
     for name in sources:
-        check(sum(path[name] for path in paths) > 0, f"no main path launched {name}")
+        if name != "attention_bias":
+            check(sum(path.get(name, 0) for path in model_paths) > 0, f"no model path launched {name}")
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": f"nn_conformer_for_speech_recognition_tpu_torch/{src}",
             "replaces": f"nn_conformer_for_speech_recognition_tpu/{tpu}",
-            "launches": sum(path[name] for path in paths),
+            "launches": sum(path.get(name, 0) for path in paths),
             **results[name],
         }
         for name, (src, tpu) in sources.items()

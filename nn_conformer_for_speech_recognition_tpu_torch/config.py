@@ -218,7 +218,7 @@ class TrainConfig:
     ctc_impl: str = "auto"
     # log per-epoch WER of the training forward's greedy decodes
     train_wer: bool = False
-    # CTC prefix beam search knobs (the beam search is not ported yet)
+    # CTC prefix beam search knobs of `Trainer.evaluate(decode='beam')`
     beam: int = 8
     prune: int = 16
     max_label_len: int = 64
@@ -332,3 +332,17 @@ def conformer_l(**overrides) -> ModelConfig:
     )
     dec = DecoderConfig(projection_dim=512, lstm_hidden=640, dropout=0.1)
     return ModelConfig(encoder=enc, decoder=dec, **overrides)
+
+
+def reference_parity(**overrides) -> ModelConfig:
+    """The reference's active config, which is the dataclasses' defaults:
+    1 block, d=512, 8 heads, k=33, dropout .5."""
+    return ModelConfig(**overrides)
+
+
+MODEL_PRESETS = {
+    "reference": reference_parity,
+    "conformer_s": conformer_s,
+    "conformer_m": conformer_m,
+    "conformer_l": conformer_l,
+}

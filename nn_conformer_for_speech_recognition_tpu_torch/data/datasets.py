@@ -185,6 +185,11 @@ class BucketedDataset:
         """Yield batches; within a bucket order is shuffled per epoch, and so
         is the order of the batches.  The stream is a function of ``seed``
         alone (numpy's ``default_rng``): a resumed run skips into it."""
+        for b, idxs in self._epoch_plan(seed, shuffle):
+            yield self.make_batch(idxs, self.bucket_boundaries[b])
+
+    def _epoch_plan(self, seed: Optional[int], shuffle: bool) -> List[Tuple[int, np.ndarray]]:
+        """The (bucket, utterance indices) of an epoch's batches, in order."""
         rng = np.random.default_rng(seed)
         order = []
         for b in range(len(self.bucket_boundaries)):
@@ -195,8 +200,7 @@ class BucketedDataset:
                 order.append((b, idxs[s : s + self.batch_size]))
         if shuffle:
             rng.shuffle(order)
-        for b, idxs in order:
-            yield self.make_batch(idxs, self.bucket_boundaries[b])
+        return order
 
     def make_batch(self, idxs: np.ndarray, pad_to: int) -> Batch:
         bsz = self.batch_size

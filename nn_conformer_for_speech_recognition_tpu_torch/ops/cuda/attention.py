@@ -1,5 +1,5 @@
-"""Rel-pos flash attention, forward and backward: kernel wrappers, plain
-twins and the autograd Function that joins them.
+"""Flash attention, rel-pos and bias-input: kernel wrappers, plain twins and
+the autograd Functions that join them.
 
 Replaces the TPU kernels of
 `nn_conformer_for_speech_recognition_tpu/ops/pallas/attention.py`:
@@ -35,6 +35,19 @@ What bounds them on the H100: float32 FMAs fed from shared memory (two to
 three dot products of length dh per score, two products per output); the
 tiles are L2-resident, so device-memory traffic is O(B·T·H·dh).  Tensor-core
 (wgmma) tiles and TMA loads are later work.
+
+The bias-input variant (`flash_attention`, `csrc/attention_bias.cu`) replaces
+``_flash_kernel`` of the same TPU module and its ``custom_vjp``
+(`BiasFlashAttention`): the rel-pos term arrives as an additive (B, H, T, T)
+bias instead of being formed in the kernel,
+
+    s[i, j] = (qu_i·k_j + bias[b, h, i, j]) · scale
+
+with the same key mask and guard.  Its forward is a kernel of the same tile
+shape, which reads the bias tile by index and walks a row's key tiles only
+up to its length; its backward is plain einsums that recompute the
+probabilities, as in the JAX package (a T² bias has a T² gradient anyway).
+No model routes through it, in either package: it is a public op of its own.
 """
 
 from __future__ import annotations
@@ -305,8 +318,137 @@ def flash_relpos_attention(
     return out
 
 
+# ---------------------------------------------------------------------------
+# The bias-input variant
+# ---------------------------------------------------------------------------
+
+
+def _masked_bias_scores(qu, k, bias, lengths, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """((B, H, T, T) scores with the masked keys at MASK_VALUE, the key
+    mask), in the accumulation dtype."""
+    acc = _acc_dtype(qu)
+    scores = (torch.einsum("bihd,bjhd->bhij", qu.to(acc), k.to(acc)) + bias.to(acc)) * scale
+    mask = _key_mask(lengths, qu.shape[1], qu.device)
+    return scores.masked_fill(~mask, MASK_VALUE), mask
+
+
+def flash_attention_plain(
+    qu: torch.Tensor,  # (B, T, H, dh): q + content bias u
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,  # (B, H, T, T) additive; the scale multiplies it too
+    lengths: torch.Tensor,  # (B,) valid key counts
+    scale: float,
+) -> torch.Tensor:
+    """Plain PyTorch attention with an additive bias (the JAX package's
+    ``flash_attention_reference``): scores and softmax in float32, the
+    value product in float32, the result in qu's dtype."""
+    scores, _ = _masked_bias_scores(qu, k, bias, lengths, scale)
+    prob = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhij,bjhd->bihd", prob, v.to(prob.dtype)).to(qu.dtype)
+
+
+def flash_attention_backward_plain(
+    qu, k, v, bias, lengths, scale: float, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dqu, dk, dv, dbias) of `flash_attention` for the cotangent ``g``, by
+    the JAX package's ``_fa_bwd``: the probabilities are recomputed, masked
+    columns get no gradient, and the scale is folded into dqu, dk and dbias."""
+    scores, mask = _masked_bias_scores(qu, k, bias, lengths, scale)
+    acc = scores.dtype
+    prob = torch.softmax(scores, dim=-1)
+    g_acc = g.to(acc)
+    dv = torch.einsum("bhij,bihd->bjhd", prob, g_acc)
+    dprob = torch.einsum("bihd,bjhd->bhij", g_acc, v.to(acc))
+    ds = prob * (dprob - (dprob * prob).sum(dim=-1, keepdim=True))
+    ds = torch.where(mask, ds, 0.0) * scale
+    dqu = torch.einsum("bhij,bjhd->bihd", ds, k.to(acc))
+    dk = torch.einsum("bhij,bihd->bjhd", ds, qu.to(acc))
+    return dqu.to(qu.dtype), dk.to(k.dtype), dv.to(v.dtype), ds.to(bias.dtype)
+
+
+def _check_bias_inputs(qu, k, v, bias, lengths) -> Tuple[int, int, int, int]:
+    """Raises on what the bias-input kernel does not take; returns (B, T, H, dh)."""
+    what = "flash_attention"
+    if qu.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {qu.device}")
+    b, t, h, dh = qu.shape
+    dtype = qu.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: unsupported dtype {dtype}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{what}: head_dim {dh} not in {HEAD_DIMS}")
+    for name, x in (("k", k), ("v", v)):
+        if x.shape != qu.shape or x.dtype != dtype or x.device != qu.device:
+            raise ValueError(f"{what}: {name} does not match qu")
+    if bias.shape != (b, h, t, t) or bias.device != qu.device or bias.dtype not in (torch.float32, dtype):
+        raise ValueError(f"{what}: bias must be {(b, h, t, t)} float32 or {dtype}")
+    if lengths.shape != (b,):
+        raise ValueError(f"{what}: lengths must be (B,)")
+    return b, t, h, dh
+
+
+def flash_attention_forward(qu, k, v, bias, lengths, scale: float) -> torch.Tensor:
+    """(B, T, H, dh) attention output in qu's dtype, every query row
+    computed.  The kernel for CUDA tensors, the plain twin for CPU ones.
+    ``lengths >= 1`` is the contract.  Returns a graph-less tensor:
+    `BiasFlashAttention` is the differentiable entry."""
+    if qu.device.type == "cpu":
+        return flash_attention_plain(qu, k, v, bias, lengths, scale)
+    b, t, h, dh = _check_bias_inputs(qu, k, v, bias, lengths)
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    qu, k, v, bias = (x.contiguous() for x in (qu, k, v, bias))
+    lengths = _lengths_i32(lengths, qu.device)
+    out = torch.empty_like(qu)
+    err = build.library().attention_bias_fwd(
+        qu.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, t, h, dh, float(scale), int(qu.dtype == torch.bfloat16), int(bias.dtype == torch.bfloat16),
+        build.stream_of(qu),
+    )
+    build.check(err, "attention_bias")
+    flash_attention_forward.launches += 1
+    return out
+
+
+class BiasFlashAttention(torch.autograd.Function):
+    """(qu, k, v, bias, lengths, scale) → out, with the backward of
+    ``flash_attention``'s ``custom_vjp`` in the JAX package: the forward
+    saves its inputs, the backward is `flash_attention_backward_plain`
+    (plain einsums on either device; lengths get no gradient)."""
+
+    @staticmethod
+    def forward(ctx, qu, k, v, bias, lengths, scale):
+        ctx.save_for_backward(qu, k, v, bias, lengths)
+        ctx.scale = scale
+        return flash_attention_forward(qu, k, v, bias, lengths, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        qu, k, v, bias, lengths = ctx.saved_tensors
+        return (*flash_attention_backward_plain(qu, k, v, bias, lengths, ctx.scale, g), None, None)
+
+
+def flash_attention(
+    qu: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: float,
+) -> torch.Tensor:
+    """(B, T, H, dh) attention with an additive (B, H, T, T) bias and
+    valid-length masking of the keys, differentiable in qu, k, v and bias.
+    CUDA tensors go through the forward kernel (a failed build or launch
+    raises), CPU tensors through the plain twin."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (qu, k, v, bias)):
+        return BiasFlashAttention.apply(qu, k, v, bias, lengths, scale)
+    return flash_attention_forward(qu, k, v, bias, lengths, scale)
+
+
 flash_relpos_attention.launches = 0
 flash_relpos_attention_forward_lse.launches = 0
 flash_relpos_attention_bwd_dq.launches = 0
 flash_relpos_attention_bwd_dkv.launches = 0
 flash_relpos_attention_bwd_dband.launches = 0
+flash_attention_forward.launches = 0

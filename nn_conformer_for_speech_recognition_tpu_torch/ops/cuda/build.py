@@ -48,6 +48,9 @@ SIGNATURES = {
         f"attention_relpos_bwd_{name}": (*(_P,) * 11, _I, _I, _I, _I, _F, _I, _P)
         for name in ("dq", "dkv", "dband")
     },
+    # qu, k, v, bias, lengths, out, batch, t, heads, head_dim, scale, is_bf16,
+    # bias_is_bf16, stream
+    "attention_bias_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # xw, w_hh, lengths, h_out, c_out | NULL, gates_out | NULL, batch, t,
     # hidden, reverse, stream
     "lstm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,7 +1,8 @@
 """Train, eval and predict steps and the `Trainer` that drives them, port of
 `nn_conformer_for_speech_recognition_tpu/train/loop.py` (``make_augment_step``,
 ``make_feature_train_step``, ``make_train_step``, ``make_eval_step``,
-``make_predict_step``, ``optax_global_norm``, ``Trainer``).
+``make_predict_step``, ``make_beam_step``, ``make_eval_beam_step``,
+``optax_global_norm``, ``Trainer``).
 
 The JAX steps are pure functions of a state pytree.  Here the model module
 holds its parameters and batch statistics and the optimizer its state, so
@@ -17,9 +18,9 @@ first CUDA device unless the caller asks for ``device="cpu"``.
 
 Not ported, as TPU scheduler workarounds: the ``optimization_barrier``
 fence between the augment and train halves and the hardware-RNG dropout
-key.  Not ported yet, and refused with ``NotImplementedError``: beam-search
-evaluation, shallow LM fusion, a device mesh or sequence parallelism, and
-device-resident datasets with the whole-epoch scan.
+key.  Not ported yet, and refused with ``NotImplementedError``: shallow LM
+fusion, a device mesh or sequence parallelism, and device-resident datasets
+with the whole-epoch scan.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCT
 from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import MaskedBatchNorm
 from nn_conformer_for_speech_recognition_tpu_torch.ops.ctc import ctc_loss
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.ctc import ctc_loss_kernel
-from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import greedy_decode
+from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import ctc_beam_search, greedy_decode
 from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
 from nn_conformer_for_speech_recognition_tpu_torch.ops.specaugment import add_gaussian_noise, specaugment
 from nn_conformer_for_speech_recognition_tpu_torch.train import metrics as M
@@ -209,14 +210,70 @@ def make_predict_step(
     return predict_step
 
 
+def make_beam_step(
+    model: ConformerCTC,
+    feat_cfg: FeatureConfig,
+    blank_id: int,
+    beam: int = 8,
+    prune: int = 16,
+    max_label_len: int = 64,
+) -> Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Returns ``beam_step(audio, audio_lengths) → (tokens (B,
+    max_label_len) padded with -1, lengths (B,), scores (B,))``: the 1-best
+    of `ops/decode.ctc_beam_search` over an eval-mode forward."""
+    featurize = make_featurizer(feat_cfg)
+
+    @torch.inference_mode()
+    def beam_step(audio, audio_lengths):
+        model.eval()
+        feats, frame_lengths = featurize(audio, audio_lengths)
+        log_probs, out_lengths = model(feats, frame_lengths)
+        toks, lens, scores = ctc_beam_search(
+            log_probs, out_lengths, blank_id=blank_id, beam=beam, prune=prune, max_label_len=max_label_len)
+        return toks[:, 0], lens[:, 0], scores[:, 0]
+
+    return beam_step
+
+
+def make_eval_beam_step(
+    model: ConformerCTC,
+    feat_cfg: FeatureConfig,
+    blank_id: int,
+    beam: int = 8,
+    prune: int = 16,
+    max_label_len: int = 64,
+    ctc_impl: str = "auto",
+) -> Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Returns ``step(audio, audio_lengths, targets, target_lengths) →
+    (loss, tokens (B, max_label_len), lengths (B,))``: the eval step's loss
+    and the beam search's 1-best from the log-probs of one forward.
+    Shallow LM fusion is not ported yet."""
+    featurize = make_featurizer(feat_cfg)
+    ctc = _select_ctc(ctc_impl)
+
+    @torch.inference_mode()
+    def step(audio, audio_lengths, targets, target_lengths):
+        model.eval()
+        feats, frame_lengths = featurize(audio, audio_lengths)
+        log_probs, out_lengths = model(feats, frame_lengths)
+        loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id)
+        toks, lens, _ = ctc_beam_search(
+            log_probs, out_lengths, blank_id=blank_id, beam=beam, prune=prune, max_label_len=max_label_len)
+        return loss, toks[:, 0], lens[:, 0]
+
+    return step
+
+
 def resolve_device(device=None) -> torch.device:
-    """The first CUDA device, unless the caller names another; with no CUDA
-    device and no explicit choice this raises rather than run on the CPU."""
-    if device is not None:
+    """The first CUDA device, unless the caller names another; where a CUDA
+    device is wanted (by default, or by name) and there is none this raises
+    rather than run on the CPU."""
+    if device is not None and torch.device(device).type != "cuda":
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device found; pass device='cpu' to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
+    wanted = torch.device("cuda" if device is None else device)
+    return torch.device("cuda", torch.cuda.current_device() if wanted.index is None else wanted.index)
 
 
 class Trainer:
@@ -273,6 +330,9 @@ class Trainer:
         # augmentation per train() call
         self._step_cache: Dict[Tuple[bool, float], Callable] = {}
         self._eval_step = make_eval_step(model, self.feat_cfg, blank, pad, ctc_impl=cfg.ctc_impl)
+        self._eval_beam_step = make_eval_beam_step(
+            model, self.feat_cfg, blank, beam=cfg.beam, prune=cfg.prune, max_label_len=cfg.max_label_len,
+            ctc_impl=cfg.ctc_impl)
         self._predict_step = make_predict_step(model, self.feat_cfg, pad)
 
     @property
@@ -509,21 +569,30 @@ class Trainer:
         wer_protocol: str = "standard",
         return_texts: bool = False,
     ):
-        """Mean loss and corpus WER over a split, greedy decode.
+        """Mean loss and corpus WER over a split.  ``decode='greedy'`` is the
+        per-frame argmax, ``decode='beam'`` the CTC prefix beam search
+        (width, prune and label room from ``TrainConfig.beam / prune /
+        max_label_len``), both from one forward per batch.
         ``wer_protocol='padded'`` scores with the '_'-padded alignment
         (`train/metrics.padded_wer`).  ``return_texts=True`` returns (loss,
         wer, refs, hyps).  ``dump_path`` receives the first prediction and
         its target."""
         self._require_state()
-        if decode != "greedy":
-            raise NotImplementedError(f"decode={decode!r} is not ported yet: Decoding and NST (beam search)")
+        if decode not in ("greedy", "beam"):
+            raise ValueError(f"decode must be 'greedy' or 'beam', got {decode!r}")
         losses = M.Mean()
         refs: List[str] = []
         hyps: List[str] = []
         for batch in dataset.epoch(shuffle=False):
-            loss, ids, _ = self._eval_step(*self._put(batch))
+            if decode == "beam":
+                loss, toks, lens = self._eval_beam_step(*self._put(batch))
+                toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
+                # the -1 padding beyond each hypothesis becomes the pad token
+                ids = np.where(np.arange(toks.shape[1])[None, :] < lens[:, None], toks, self.vocab.pad_id)
+            else:
+                loss, ids, _ = self._eval_step(*self._put(batch))
+                ids = ids.cpu().numpy()
             losses.update(float(loss), batch.size)
-            ids = ids.cpu().numpy()
             for row, idx in enumerate(batch.indices):
                 if idx < 0:
                     continue

@@ -21,7 +21,13 @@ against torch's own CTC the loss 1e-5 relative and the logit gradient
 of variance 1/K (33 float32 multiply-adds in the twin's order, fused here),
 bfloat16 one bf16 ulp at the reference's largest entry (both sum in float32
 and round once); dw through the Function 1e-4 of its largest entry (a
-float32 sum over B·T rows).
+float32 sum over B·T rows).  The bias-input attention: against its twin on
+every query row 1e-4 in float32 and in bfloat16 one bf16 ulp at the
+reference's largest entry, on a bias wide enough that a kernel which
+ignores it misses that bar fourfold; its gradients (plain
+einsums behind the kernel's forward) 5e-4 against autograd through the twin;
+the beam search on the card against its own CPU run: tokens and lengths
+equal, scores 1e-3 (60 float32 logaddexp steps in two libraries).
 """
 
 import pytest
@@ -325,3 +331,72 @@ def test_depthwise_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="above"):  # one tap more than a block's shared memory holds
         D.depthwise_conv1d(x, torch.zeros(D.MAX_KERNEL_SIZE + 1, 8, device="cuda"))
     assert D.depthwise_conv1d(x[:0], torch.zeros(3, 8, device="cuda")).shape == (0, 5, 8)
+
+
+@pytest.mark.parametrize("dtype, bias_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                               (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("t, dh, lengths", [(1, 64, [1, 1, 1]), (33, 32, [33, 1, 30]), (235, 64, [235, 117, 78]),
+                                            (70, 128, [70, 35, 64]), (40, 16, [40, 0, 32])])
+def test_attention_bias_kernel(cuda, dtype, bias_dtype, t, dh, lengths):
+    """Every query row against the twin, at each compiled head width; a
+    length of 0 gives the mean of v on both sides, a tile that ends at the
+    length (32, 64) leaves no masked key in the last tile walked.  The bias
+    is drawn wide (its share of a score has spread 4·dh^-0.5, the qu·k
+    share about 0.25) so that the softmax follows it, and the bar can see
+    it: the same kernel on a zeroed bias must miss the bar."""
+    b, h = 3, 2
+    qu, k, v = ((torch.randn(b, t, h, dh, generator=cuda) * 0.5).cuda().to(dtype) for _ in range(3))
+    bias = (torch.randn(b, h, t, t, generator=cuda) * 4.0).cuda().to(bias_dtype)
+    args = (qu, k, v, bias, torch.tensor(lengths, dtype=torch.int32).cuda(), dh ** -0.5)
+    before = A.flash_attention_forward.launches
+    out = A.flash_attention(*args)
+    assert A.flash_attention_forward.launches == before + 1
+    assert out.shape == qu.shape and out.dtype == dtype
+    ref = A.flash_attention_plain(*args)
+    atol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * ref.float().abs().max().item()
+    _close(out, ref, atol)
+    if t > 1:  # with one key the softmax is 1 whatever the bias
+        blind = A.flash_attention(qu, k, v, torch.zeros_like(bias), *args[4:])
+        assert (blind.float() - ref.float()).abs().max().item() > 4 * atol
+
+
+def test_attention_bias_gradients_and_checks(cuda):
+    """`BiasFlashAttention` on the card: the forward is the kernel, the
+    backward the plain einsums; every input gets the gradient autograd
+    gives through the twin.  The wrapper refuses what the kernel does not
+    take."""
+    b, t, h, dh = 2, 70, 2, 32
+    qu, k, v, g = ((torch.randn(b, t, h, dh, generator=cuda) * 0.5).cuda() for _ in range(4))
+    bias = (torch.randn(b, h, t, t, generator=cuda) * 0.5).cuda()
+    lengths = torch.tensor([70, 41], dtype=torch.int32).cuda()
+    leaves = [x.clone().requires_grad_(True) for x in (qu, k, v, bias)]
+    twins = [x.clone().requires_grad_(True) for x in (qu, k, v, bias)]
+    before = A.flash_attention_forward.launches
+    A.flash_attention(*leaves, lengths, dh ** -0.5).backward(g)
+    assert A.flash_attention_forward.launches == before + 1
+    A.flash_attention_plain(*twins, lengths, dh ** -0.5).backward(g)
+    for got, ref in zip(leaves, twins):
+        _close(got.grad, ref.grad, 5e-4)
+    assert not leaves[3].grad[1, :, :, 41:].any()
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_attention(torch.zeros(1, 4, 1, 24, device="cuda"), *(torch.zeros(1, 4, 1, 24, device="cuda"),) * 2,
+                          torch.zeros(1, 1, 4, 4, device="cuda"), lengths[:1], 1.0)
+    with pytest.raises(ValueError, match="bias must be"):
+        A.flash_attention(qu, k, v, bias.to(torch.bfloat16), lengths, 1.0)
+    with pytest.raises(ValueError, match="bias must be"):
+        A.flash_attention(qu, k, v, bias[:, :, :, :-1], lengths, 1.0)
+
+
+def test_beam_search_on_the_card_equals_the_cpu(cuda):
+    """`ctc_beam_search` runs where its log-probs lie; the same float32
+    log-probs give the same hypotheses on both devices."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import ctc_beam_search
+
+    lp = torch.log_softmax(torch.randn(4, 60, 50, generator=cuda) * 3, dim=-1)
+    lengths = torch.tensor([60, 31, 1, 45], dtype=torch.int32)
+    kw = dict(beam=8, prune=16, max_label_len=32)
+    toks, lens, scores = ctc_beam_search(lp.cuda(), lengths.cuda(), **kw)
+    assert toks.is_cuda
+    rtoks, rlens, rscores = ctc_beam_search(lp, lengths, **kw)
+    assert torch.equal(lens.cpu(), rlens) and torch.equal(toks.cpu(), rtoks)
+    _close(scores, rscores.cuda(), 1e-3)

@@ -42,8 +42,10 @@ def test_config_copies_equal():
     for name in ("FeatureConfig", "SpecAugmentConfig", "SubsamplingConfig", "ConformerConfig", "DecoderConfig",
                  "ModelConfig", "OptimizerConfig", "MeshConfig", "TrainConfig", "NSTConfig"):
         assert repr(getattr(TC, name)()) == repr(getattr(C, name)()), name
-    for preset in ("conformer_s", "conformer_m", "conformer_l"):
+    for preset in ("conformer_s", "conformer_m", "conformer_l", "reference_parity"):
         assert repr(getattr(TC, preset)()) == repr(getattr(C, preset)()), preset
+    assert list(TC.MODEL_PRESETS) == list(C.MODEL_PRESETS)
+    assert all(repr(TC.MODEL_PRESETS[k](n_mels=13)) == repr(C.MODEL_PRESETS[k](n_mels=13)) for k in C.MODEL_PRESETS)
     assert TC.SubsamplingConfig().subsampled_length(938) == C.SubsamplingConfig().subsampled_length(938) == 235
     assert TC.FeatureConfig().num_frames(480000) == C.FeatureConfig().num_frames(480000) == 938
 
@@ -165,8 +167,9 @@ def test_port_never_imports_jax():
     """With jax, flax and optax unimportable, every module of the port
     imports (``train.loop``, ``train.checkpoint``, ``nst.driver`` and
     ``data.*`` among them), and on the CPU a predict step, one train step, a
-    two-step `Trainer.train` with a checkpoint and one `run_nst` generation
-    run."""
+    two-step `Trainer.train` with a checkpoint, one `run_nst` generation, a
+    beam-search `evaluate`, the bias-input attention op and the command
+    line (``train`` then ``eval --decode beam``) run."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -214,6 +217,16 @@ with tempfile.TemporaryDirectory() as root:
     nst = C.NSTConfig(generations=1, initial_supervised_finetune=False)
     results = run_nst(trainer, data["train"], data["unlabeled"], nst, val_dataset=data["validation"], work_dir=root + "/nst")
     assert len(results) == 1 and results[0].num_pseudo_labels == 2
+    loss, wer = trainer.evaluate(data["validation"], decode="beam")
+    assert loss == trainer.evaluate(data["validation"])[0] and wer >= 0.0
+    from nn_conformer_for_speech_recognition_tpu_torch.cli.main import main
+    flags = ["--manifest-dir", root, "--batch-size", "2", "--max-target-len", "2", "--use-pallas", "--device", "cpu"]
+    assert main(["train", *flags, "--epochs", "1", "--save", root + "/saved"]) == 0
+    assert main(["eval", *flags, "--split", "validation", "--checkpoint", root + "/saved", "--decode", "beam"]) == 0
+from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.attention import flash_attention
+q = torch.randn(1, 5, 2, 16, requires_grad=True)
+flash_attention(q, q.detach(), q.detach(), torch.zeros(1, 2, 5, 5), torch.tensor([4]), 0.25).sum().backward()
+assert torch.isfinite(q.grad).all()
 """
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(REPO), os.environ.get("PYTHONPATH")]))}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=240)

@@ -14,6 +14,7 @@ uninterrupted one bit for bit.
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -27,8 +28,10 @@ from _torch_trainer_helpers import (
     port_trainer,
 )
 
+from nn_conformer_for_speech_recognition_tpu.train import loop as JL
 from nn_conformer_for_speech_recognition_tpu_torch import config as TC
 from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import CheckpointManager, restore_state, save_state
+from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_beam_step
 
 
 @pytest.fixture(scope="module")
@@ -180,11 +183,55 @@ def test_encoder_only_restore_touches_encoder_and_subsampling_only(corpus, tmp_p
     assert tr.state.step == 0
 
 
+BEAM_KNOBS = dict(beam=4, prune=3, max_label_len=6)
+
+
+@pytest.fixture(scope="module")
+def beam_pair(corpus):
+    """A trainer of each package from the same weights, with the beam's knobs."""
+    _, jvocab, tvocab, _, _ = corpus
+    jt = jax_trainer(jvocab, **BEAM_KNOBS)
+    variables = perturbed_variables(jt, np.random.default_rng(1))
+    return jax_trainer(jvocab, variables, **BEAM_KNOBS), port_trainer(tvocab, variables, **BEAM_KNOBS)
+
+
+def test_evaluate_beam_matches_jax(corpus, beam_pair):
+    """`evaluate(decode='beam')` from the same weights in both packages (beam
+    4, prune 3, room for 6 labels): loss rtol 1e-4 and equal to the greedy
+    call's, decoded strings and WER equal."""
+    _, _, _, jdata, tdata = corpus
+    jt, tt = beam_pair
+    ref_loss, ref_wer, ref_refs, ref_hyps = jt.evaluate(jdata["validation"], decode="beam", return_texts=True)
+    loss, wer, refs, hyps = tt.evaluate(tdata["validation"], decode="beam", return_texts=True)
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-4)
+    assert refs == ref_refs and hyps == ref_hyps and wer == ref_wer
+    assert any(hyps), "the decodes are all empty: the comparison is vacuous"
+    assert loss == tt.evaluate(tdata["validation"])[0]
+    with pytest.raises(ValueError, match="decode must be"):
+        tt.evaluate(tdata["validation"], decode="viterbi")
+
+
+def test_make_beam_step_matches_jax(corpus, beam_pair):
+    """`make_beam_step` on one batch against the JAX package's: the 1-best
+    tokens and lengths equal, its score atol 1e-4 (a float32 log-sum over
+    the frames of two forwards that sum in another order)."""
+    _, _, _, jdata, tdata = corpus
+    jt, tt = beam_pair
+    jbatch, tbatch = next(iter(jdata["validation"].epoch(seed=0))), next(iter(tdata["validation"].epoch(seed=0)))
+    ref = jax.jit(JL.make_beam_step(jt.model, jt.feat_cfg, jt.vocab.blank_id, **BEAM_KNOBS))(
+        jt.state, jbatch.audio, jbatch.audio_lengths)
+    step = make_beam_step(tt.model, tt.feat_cfg, tt.vocab.blank_id, **BEAM_KNOBS)
+    toks, lens, scores = step(torch.from_numpy(tbatch.audio), torch.from_numpy(tbatch.audio_lengths))
+    ref_toks, ref_lens, ref_scores = (np.asarray(a) for a in ref)
+    assert toks.shape == (len(tbatch.audio), BEAM_KNOBS["max_label_len"]) and ref_lens.max() > 0
+    np.testing.assert_array_equal(toks.numpy(), ref_toks)
+    np.testing.assert_array_equal(lens.numpy(), ref_lens)
+    np.testing.assert_allclose(scores.numpy(), ref_scores, atol=1e-4)
+
+
 def test_what_is_not_ported_raises(corpus):
     _, _, tvocab, _, tdata = corpus
     tr = port_trainer(tvocab)
-    with pytest.raises(NotImplementedError, match="beam"):
-        tr.evaluate(tdata["validation"], decode="beam")
     with pytest.raises(NotImplementedError, match="device-resident"):
         tr.train_device_epochs(tdata["train"], 1)
 
