@@ -15,7 +15,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels are also read against the same recursions in float64.  Beside each
    time it works out the least time the card could take for the same work
    (bytes over the memory rate against operations over the peak rate) and,
-   where one PyTorch call computes the same function, times that call.
+   where one PyTorch call computes the same function, times that call (for
+   the LSTM recurrences, cuDNN's LSTM on a packed sequence).
 3. Serving path: the Noisy Student pseudo-label pass (``make_predict_step``:
    log-mel → Conformer-M forward → greedy decode → ``WordVocab.decode_ids``)
    with weights and audio made from a seed.  The kernel path and the plain
@@ -80,7 +81,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    greedy and beam from the saved checkpoint (held to `Trainer.evaluate`
    on the same weights), ``nst --generations 1``, and ``parity --tiny`` in
    both protocols.
-11. Prints one JSON line with each kernel's numbers, then, as the last line,
+11. Repeatability: the same ten bf16 train steps (the Noisy Student
+   corpus through ``Trainer.train``, Conformer-M, ``conv_impl='pallas'``)
+   from one seed in two fresh processes (``multiprocessing``'s spawn, each
+   with its own CUDA context), losses and final parameters compared bit for bit
+   and the first stage whose bits differ named; then each step group's op
+   twice on the same inputs in this process (SpecAugment, the subsampling
+   convs, the gather behind the CTC loss, ``lstm_dwhh``, Adafactor).
+12. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
@@ -91,6 +99,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -118,9 +127,9 @@ NST_PRETRAIN_EPOCHS = 20  # supervised epochs before the generation, so that the
 NST_EVAL_LOSS_TOL = 1e-4  # float32 validation loss, kernel path vs plain path, relative
 KERNEL_SHAPES_CHECKED = set()  # (rows, frames after subsampling) at which the kernel phases ran
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): device memory 3.35 TB/s,
-# 989 TFLOP/s in bf16 on the tensor cores, 67 TFLOP/s in float32 outside them
+# 989 TFLOP/s in bf16 on the tensor cores, 495 TFLOP/s in TF32 on them, 67 TFLOP/s in float32 outside them
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, "tf32": 495e12, torch.float32: 67e12}
 TOL = {
     "stft_logmel": 1e-3, "attention_f32": 1e-4, "attention_bf16": 2e-2, "lstm": 1e-4,
     # lse and the attention backward in float32, absolute, as the JAX package
@@ -190,6 +199,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call of the card's own work: CUDA events around
+    ``iters`` calls queued behind a kernel that keeps the card busy (~20 ms)
+    while the host queues them, so that the calls run back to back and the
+    host's share, which `cuda_ms` reads when launches and not kernels set the
+    pace, drops out.  ``fn`` must not wait for the card."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -206,11 +234,12 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def numbers(err: float, ms: float, plain_ms: float, moved_bytes: float, flops: float, dtype: torch.dtype,
+def numbers(err: float, ms: float, plain_ms: float, moved_bytes: float, flops: float, dtype,
             library_ms=None) -> dict:
     """One kernel's measured numbers beside its bound: the larger of the
     bytes it must move (inputs read once, outputs written once) over the
-    memory rate and its operations over the peak rate for ``dtype``."""
+    memory rate and its operations over the peak rate for ``dtype`` (a key
+    of `PEAK_FLOPS`)."""
     by_bytes, by_ops = moved_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations", library_ms=library_ms)
@@ -330,14 +359,46 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
     err = max(errs)
     ms = cuda_ms(lambda: L.lstm(xw, w_hh, lengths, reverse=True))
     plain_ms = cuda_ms(lambda: L.lstm_plain(xw, w_hh, lengths, True), iters=5)
+    cudnn = cudnn_lstm_ms(b, t, hidden, lengths, gen)
     print(f"lstm ({b}, {t}, 4x320) f32, per direction: max|Δ| fwd {errs[0]:.3e} bwd {errs[1]:.3e} "
-          f"(tol {TOL['lstm']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+          f"(tol {TOL['lstm']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; cuDNN's LSTM, one direction on the packed "
+          f"sequence (input projection included): forward {cudnn['forward']:.4f} ms, backward {cudnn['backward']:.4f} ms, "
+          f"forward + backward {cudnn['both']:.4f} ms  [{card}]")
     check(err <= TOL["lstm"], "lstm disagrees with its plain twin")
     # per valid step h·W_hh: 2·H·4H operations; read xw and W_hh, write h
     steps = int(lengths.sum())
     results["lstm"] = numbers(err, ms, plain_ms, nbytes(xw, w_hh) + 4 * b * t * hidden, 8 * hidden * hidden * steps,
-                              torch.float32)
+                              torch.float32, library_ms=cudnn["forward"])
     return results
+
+
+def cudnn_lstm_ms(b: int, t: int, hidden: int, lengths: torch.Tensor, gen: torch.Generator) -> dict:
+    """The yardstick of the LSTM recurrence kernels (the port never calls
+    it): cuDNN's LSTM through ``nn.LSTM``, one direction, float32, on a
+    packed sequence at the same lengths, with the BiLSTM's input width, so
+    it also computes the input projection x·W_ih that the kernels are handed
+    done.  Its forward alone, its backward alone (``autograd.grad`` on the
+    forward's graph, kept), and a forward with its backward."""
+    from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence
+
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_m
+
+    width = conformer_m().decoder.projection_dim
+    layer = torch.nn.LSTM(width, hidden, batch_first=True).cuda()
+    x = pack_padded_sequence(torch.randn(b, t, width, generator=gen).cuda(), lengths.cpu(), batch_first=True,
+                             enforce_sorted=False)
+    data = x.data.requires_grad_(True)  # the packed input as the leaf: each forward starts a graph of its own
+    packed = PackedSequence(data, x.batch_sizes, x.sorted_indices, x.unsorted_indices)
+    leaves = [data, *layer.parameters()]
+    out = layer(packed)[0].data
+    g = torch.randn(out.shape, generator=gen).cuda()
+
+    def both():
+        torch.autograd.grad(layer(packed)[0].data, leaves, g)
+
+    return {"forward": cuda_ms(lambda: layer(packed)),
+            "backward": cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)),
+            "both": cuda_ms(both)}
 
 
 def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
@@ -376,24 +437,37 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     h, c, gates, dxw = saved[True]
     ms = cuda_ms(lambda: L.lstm_backward(gout, gates, c, w_hh, lengths, reverse=True))
     plain_ms = cuda_ms(lambda: L.lstm_backward_plain(gout, gates, c, w_hh, lengths, True), iters=5)
+    again = [L.lstm_weight_grad(h, dxw, reverse=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(torch.equal(*again), "lstm_weight_grad is not bit-equal from launch to launch")
     wms = cuda_ms(lambda: L.lstm_weight_grad(h, dxw, reverse=True))
     wplain_ms = cuda_ms(lambda: L.lstm_weight_grad_plain(h, dxw, True))
+    wdev = device_ms(lambda: L.lstm_weight_grad(h, dxw, reverse=True))
+    wplain_dev = device_ms(lambda: L.lstm_weight_grad_plain(h, dxw, True))
+    cudnn = cudnn_lstm_ms(b, t, hidden, lengths, gen)
     fms = cuda_ms(lambda: L.lstm_forward(xw, w_hh, lengths, reverse=True, save=True))
     print(f"lstm training forward ({b}, {t}, 4x320) (h, c, gates) vs twin: max|Δ| {fwd_err:.3e} (tol {TOL['lstm']}), "
           f"kernel {fms:.4f} ms  [{card}]")
     print(f"lstm_backward ({b}, {t}, 4x320) f32, per direction: dxw max|Δ| fwd {errs[1]:.3e} bwd {errs[3]:.3e} "
           f"(tol {TOL['lstm_backward']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
     print(f"lstm_weight_grad (320 x {b * t})·({b * t} x 1280) f32: dW_hh max|Δ|/max|dW| fwd {werrs[0]:.3e} "
-          f"bwd {werrs[1]:.3e} (tol {TOL['lstm_weight_grad']}), kernel {wms:.4f} ms, plain {wplain_ms:.4f} ms  [{card}]")
+          f"bwd {werrs[1]:.3e} (tol {TOL['lstm_weight_grad']}), two launches bit-equal, kernel {wms:.4f} ms "
+          f"({L.dwhh_plan(b * t, hidden, torch.cuda.get_device_properties(0).multi_processor_count)[0]} slices), "
+          f"plain (the float32 einsum) {wplain_ms:.4f} ms; device time (calls queued back to back): kernel and reduce "
+          f"{wdev:.4f} ms, einsum {wplain_dev:.4f} ms  [{card}]")
+    print(f"cuDNN's LSTM at ({b}, {t}, 320), one direction (its backward also gives dx and dW_ih): forward "
+          f"{cudnn['forward']:.4f} ms, backward {cudnn['backward']:.4f} ms, forward + backward {cudnn['both']:.4f} ms  [{card}]")
     check(fwd_err <= TOL["lstm"], "lstm training forward disagrees with its plain twin")
     check(bwd_err <= TOL["lstm_backward"], "lstm_backward disagrees with its plain twin")
     check(max(werrs) <= TOL["lstm_weight_grad"], "lstm_weight_grad disagrees with its plain twin")
     steps = int(lengths.sum())
     results["lstm_backward"] = numbers(bwd_err, ms, plain_ms, nbytes(gout, gates, c, w_hh, dxw),
-                                       8 * hidden * hidden * steps, torch.float32)
-    # the plain version is one einsum (a cuBLAS GEMM): it doubles as the library yardstick
+                                       8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["backward"])
+    # the plain version is one einsum (a cuBLAS GEMM): it doubles as the library yardstick.  Bytes: h and dxw
+    # read once, dW_hh written once; 2·H·4H operations a row, done three times (the 3×TF32 split that keeps
+    # float32's accuracy on the tensor cores) at the TF32 rate
     results["lstm_weight_grad"] = numbers(max(werrs), wms, wplain_ms, nbytes(h, dxw, w_hh),
-                                          8 * hidden * hidden * b * t, torch.float32, library_ms=wplain_ms)
+                                          3 * 8 * hidden * hidden * b * t, "tf32", library_ms=wplain_ms)
 
     # -- CTC alpha/beta: S = 2·target_len + 1 states, V=1024; one row of
     #    repeated pairs, one empty label, one impossible alignment
@@ -683,6 +757,7 @@ def check_bias_attention_kernel(card: str) -> dict:
             ms = cuda_ms(lambda: A.flash_attention(*args))
             plain_ms = cuda_ms(lambda: A.flash_attention_plain(*args), iters=5)
             library_ms = cuda_ms(library)
+            kernel_dev, library_dev = device_ms(lambda: A.flash_attention(*args)), device_ms(library)
             # bytes this run's lengths need: qu read and out written whole, k and v up to each row's length,
             # the bias columns up to it; 4·dh operations for each (query, valid key) pair and head
             size, bias_size = args[0].element_size(), args[3].element_size()
@@ -692,11 +767,25 @@ def check_bias_attention_kernel(card: str) -> dict:
             print(f"attention_bias ({b}, {t}, {h}, {dh}) {name}, lengths {lengths.tolist()[:4]}…: max|Δ| {err:.3e} "
                   f"(tol {tol:.3e}; {blind:.3e} with the bias zeroed), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {n['bound_ms']:.4f} ms "
                   f"({n['bound_by']}, {moved / 1e6:.2f} MB), scaled_dot_product_attention with the bias and the key "
-                  f"padding as its mask {library_ms:.4f} ms (max|Δ| to the twin {lib_err:.3e})  [{card}]")
+                  f"padding as its mask {library_ms:.4f} ms (max|Δ| to the twin {lib_err:.3e}); device time (calls "
+                  f"queued back to back): kernel {kernel_dev:.4f} ms, scaled_dot_product_attention {library_dev:.4f} ms  [{card}]")
             check(err <= tol, f"attention_bias ({name}) disagrees with its plain twin")
             check(blind > 4 * tol, f"attention_bias ({name}): the bar does not see the bias")
             if (b, t, dtype, bias_dtype) == (BATCH, T_SUB, torch.bfloat16, torch.bfloat16):
                 result = n
+            if (b, t, dtype, bias_dtype) == (LONG_BATCH, LONG_T_SUB, torch.bfloat16, torch.bfloat16):
+                # the ragged tail: the same call with every row at full length, and with every row at the mean
+                # of this run's lengths; a block walks its row's 64-key tiles up to the length
+                # (device times: `cuda_ms` reads the host's launch pace at these sizes)
+                full, mean = torch.full_like(lengths, t), torch.full_like(lengths, valid // b)
+                full_dev = device_ms(lambda: A.flash_attention(*args[:4], full, scale))
+                mean_dev = device_ms(lambda: A.flash_attention(*args[:4], mean, scale))
+                walked = [-(-int(x) // 64) for x in lengths]
+                print(f"attention_bias ragged tail at ({b}, {t}, {h}, {dh}) bf16, device times: lengths {lengths.tolist()} "
+                      f"(64-key tiles walked a block {walked}) {kernel_dev:.4f} ms; every row at {t} {full_dev:.4f} ms; "
+                      f"every row at the mean length {valid // b} {mean_dev:.4f} ms: the ragged call takes "
+                      f"{kernel_dev / full_dev:.2f} of the full one for {valid / (b * t):.2f} of its keys, "
+                      f"{kernel_dev / mean_dev:.2f} of the call with the same keys spread evenly  [{card}]")
     return {"attention_bias": result}
 
 
@@ -1601,6 +1690,246 @@ def check_cli(card: str) -> dict:
     return launches
 
 
+F2_STEPS_PER_EPOCH, F2_EPOCHS = 5, 2  # the repeatability phase: ten steps, the first five batches of two epochs
+F2_STAGES = ("batch", "features (log-mel, SpecAugment)", "subsampling convs out", "encoder out", "BiLSTM out",
+             "log-probs", "loss", "log-prob gradient (the CTC gather's adjoint)")
+F2_GROUPS = ("final_fc", "BiLSTM w_hh (lstm_dwhh)", "BiLSTM w_ih, bias", "projection, norm", "encoder",
+             "subsampling convs")
+
+
+def bits(x: torch.Tensor) -> int:
+    """A digest of a tensor's bits, taken on the card: the bit patterns as
+    integers weighted by position, summed in int64 (exact, so the same bits
+    give the same digest whatever the order of the sum)."""
+    v = x.detach().reshape(-1)
+    v = v.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[v.element_size()]).to(torch.int64)
+    return int((v * torch.arange(1, v.numel() + 1, device=v.device)).sum())
+
+
+def f2_group(name: str) -> str:
+    """The step group a parameter's gradient and update belong to."""
+    if name.startswith("decoder_lstm"):
+        return F2_GROUPS[1] if name.endswith("_w_hh") else F2_GROUPS[2]
+    for prefix, group in (("final_fc", 0), ("encoder", 4), ("subsampling", 5)):
+        if name.startswith(prefix):
+            return F2_GROUPS[group]
+    return F2_GROUPS[3]
+
+
+class FirstBatches:
+    """Dataset proxy whose epoch stops after ``n`` batches."""
+
+    def __init__(self, dataset, n: int):
+        self._dataset, self._n = dataset, n
+
+    def epoch(self, seed):
+        for i, batch in zip(range(self._n), self._dataset.epoch(seed=seed)):
+            yield batch
+
+    def __getattr__(self, name):
+        return getattr(self._dataset, name)
+
+
+def repeat_worker(out_dir: str) -> None:
+    """One of the repeatability phase's two fresh processes: ten bf16
+    Conformer-M train steps (``conv_impl='pallas'``) through `Trainer.train`
+    on the Noisy Student corpus, from SEED, recording for each step, in the
+    order they are computed, a digest of every stage's bits and of each
+    group's gradients and updated parameters; writes them, the losses and
+    the final model and optimizer state into ``out_dir``."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, OptimizerConfig, TrainConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.data.audio import make_synthetic_corpus
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset, load_manifest
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        manifests = make_synthetic_corpus(os.path.join(root, "corpus"), NST_WORDS, NST_TRAIN, NST_VAL, 0, NST_UNLABELED,
+                                          max_words_per_utt=NST_MAX_WORDS, seed=SEED)
+        utts = load_manifest(manifests["train"])
+        vocab = build_vocab("word", [u.transcript for u in utts])
+        data = BucketedDataset(utts, vocab, NST_BATCH, bucket_boundaries=[n for n, _ in NST_BUCKETS],
+                               max_target_len=NST_MAX_WORDS)
+        train_cfg = TrainConfig(batch_size=NST_BATCH, optimizer=OptimizerConfig(learning_rate=NST_LR), log_every=0)
+        tr = Trainer(ConformerCTC(conformer_m(use_pallas=True, conv_impl="pallas"), len(vocab)), vocab, FeatureConfig(),
+                     train_cfg, log_fn=lambda msg: None)
+        tr.init_state(seed=SEED)
+        model, record, grads, steps, losses = tr.model, {}, {}, [], []
+        names = {group: [n for n, _ in model.named_parameters() if f2_group(n) == group] for group in F2_GROUPS}
+
+        def note(stage, x):
+            record[stage] = bits(x)
+
+        def on_output(module, inputs, out):
+            note(F2_STAGES[5], out[0])
+            if out[0].requires_grad:
+                out[0].register_hook(lambda g: note(F2_STAGES[7], g))
+
+        model.subsampling.register_forward_hook(lambda m, i, o: note(F2_STAGES[2], o[0]))
+        model.encoder.register_forward_hook(lambda m, i, o: note(F2_STAGES[3], o))
+        model.decoder_lstm.register_forward_hook(lambda m, i, o: note(F2_STAGES[4], o))
+        model.register_forward_hook(on_output)
+        for name, p in model.named_parameters():
+            p.register_post_accumulate_grad_hook(lambda p, name=name: grads.__setitem__(name, bits(p.grad)))
+        put, core = tr._put, tr._train_core
+
+        def put_recorded(batch):
+            record.clear()
+            grads.clear()
+            audio, alen, tgt, tlen = put(batch)
+            record[F2_STAGES[0]] = hash((bits(audio), bits(alen), bits(tgt), bits(tlen)))
+            return audio, alen, tgt, tlen
+
+        def core_recorded(state, feats, frame_lengths, targets, target_lengths):
+            note(F2_STAGES[1], feats)
+            state, metrics = core(state, feats, frame_lengths, targets, target_lengths)
+            note(F2_STAGES[6], metrics["loss"])
+            losses.append(metrics["loss"].item())
+            params = dict(model.named_parameters())
+            for group in F2_GROUPS:
+                record[f"gradients: {group}"] = hash(tuple(grads[n] for n in names[group]))
+            for group in F2_GROUPS:
+                record[f"parameters after Adafactor: {group}"] = hash(tuple(bits(params[n]) for n in names[group]))
+            record["batch statistics"] = hash(tuple(bits(b) for _, b in model.named_buffers()))
+            steps.append({**{stage: record[stage] for stage in F2_STAGES}, **record})  # in the order computed
+            return state, metrics
+
+        tr._put, tr._train_core = put_recorded, core_recorded
+        tr.train(FirstBatches(data, F2_STEPS_PER_EPOCH), epochs=F2_EPOCHS)
+        torch.cuda.synchronize()
+        with open(os.path.join(out_dir, "record.json"), "w") as f:
+            json.dump({"losses": [x.hex() for x in losses], "steps": steps}, f)
+        slots = {f"{name}.{k}": v for name, slot in tr.state.optimizer.state.items() for k, v in slot.items()}
+        torch.save({**model.state_dict(), **slots}, os.path.join(out_dir, "state.pt"))
+
+
+def check_repeatability(card: str) -> dict:
+    """F2: the same ten bf16 train steps from one seed (`repeat_worker`) in
+    two fresh processes, losses and final parameters compared bit for bit,
+    and the first stage of the first step whose bits differ named.  Then,
+    inside this process, each step group's op twice on the same inputs:
+    SpecAugment's draws and time warp, the subsampling convs forward and
+    backward, the gather behind the CTC loss forward and backward (the
+    port's, and torch's own ``gather`` beside it), two ``lstm_dwhh``
+    launches, and one Adafactor update.  Returns the verdicts."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import (
+        FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
+    )
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.ops import ctc as TC
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_augment_step
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+
+    runs = []
+    with tempfile.TemporaryDirectory() as root:
+        for i in range(2):
+            out = os.path.join(root, f"run{i}")
+            os.makedirs(out)
+            t0 = time.perf_counter()
+            # a fresh interpreter with a fresh CUDA context each time
+            proc = multiprocessing.get_context("spawn").Process(target=repeat_worker, args=(out,))
+            proc.start()
+            proc.join(timeout=900)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            check(proc.exitcode == 0, f"repeat worker {i} exited with {proc.exitcode}")
+            with open(os.path.join(out, "record.json")) as f:
+                runs.append((json.load(f), torch.load(os.path.join(out, "state.pt")), time.perf_counter() - t0))
+    (ra, sa, ta), (rb, sb, tb) = runs
+    losses_equal = ra["losses"] == rb["losses"]
+    state_equal = sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+    first = next(((i, stage) for i, (a, b) in enumerate(zip(ra["steps"], rb["steps"])) for stage in a
+                  if a[stage] != b.get(stage)), None)
+    n_steps = len(ra["steps"])
+    check(n_steps == len(rb["steps"]) == F2_STEPS_PER_EPOCH * F2_EPOCHS, f"the workers ran {n_steps} steps")
+    print(f"F2, {n_steps} bf16 Conformer-M train steps (conv_impl='pallas', NST corpus, seed {SEED}) in two fresh "
+          f"processes ({ta:.1f} s and {tb:.1f} s each): losses {'equal' if losses_equal else 'unequal'} ("
+          + " ".join(f"{float.fromhex(x):.6f}" for x in ra["losses"]) + " / "
+          + " ".join(f"{float.fromhex(x):.6f}" for x in rb["losses"]) + f"); final parameters and optimizer state "
+          f"{'bit-equal' if state_equal else 'unequal'}; first stage whose bits differ: "
+          + (f"step {first[0]}, {first[1]}" if first else "none") + f"  [{card}]")
+
+    # -- each group's op twice on the same inputs, in this process (the NST phase's longer bucket and the 30 s
+    #    step's shapes: B=16, T'=235, 100 targets, vocabulary 1024)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    verdicts = {}
+    augment = make_augment_step(FeatureConfig(), SpecAugmentConfig())
+    audio = (torch.randn(NST_BATCH, NST_LONGEST, generator=gen) * 0.1).cuda()
+    alen = mixed_lengths(gen, NST_BATCH, NST_LONGEST, NST_LONGEST // 3).cuda()
+    feats = [augment(torch.Generator(device="cuda").manual_seed(SEED), audio, alen)[0] for _ in range(2)]
+    verdicts["SpecAugment draws and time warp"] = torch.equal(*feats)
+    model = init_params(ConformerCTC(conformer_m(use_pallas=True), VOCAB), gen).cuda()
+    sub = model.subsampling
+    x = feats[0]
+
+    def subsampling_grads():
+        sub.zero_grad(set_to_none=True)
+        out, _ = sub(x, torch.full((NST_BATCH,), x.shape[1], device="cuda"), torch.bfloat16)
+        out.float().square().sum().backward()
+        return [p.grad.clone() for p in sub.parameters()]
+
+    verdicts["subsampling convs forward and backward"] = all(map(torch.equal, subsampling_grads(), subsampling_grads()))
+    b, t, target_len = BATCH, T_SUB, TARGET_LEN
+    log_probs = torch.log_softmax(torch.randn(b, t, VOCAB, generator=gen) * 2, -1).cuda()
+    labels = torch.randint(3, VOCAB, (b, target_len), generator=gen).cuda()
+    ext = TC.extended_labels(labels, torch.full((b,), target_len, device="cuda"), 0)[0]
+    g = torch.randn(b, t, ext.shape[1], generator=gen).cuda()
+
+    def gather_grad(fn):
+        leaf = log_probs.clone().requires_grad_(True)
+        (grad,) = torch.autograd.grad(fn(leaf), leaf, g)
+        return grad
+
+    torch_gather = lambda lp: torch.gather(lp, 2, ext[:, None, :].expand(b, t, -1))  # noqa: E731
+    verdicts["the CTC gather's adjoint (the port's emit_log_probs)"] = torch.equal(
+        gather_grad(lambda lp: TC.emit_log_probs(lp, ext)), gather_grad(lambda lp: TC.emit_log_probs(lp, ext)))
+    verdicts["torch.gather's own adjoint (scatter-add), same inputs"] = torch.equal(
+        gather_grad(torch_gather), gather_grad(torch_gather))
+    # what the port's deterministic adjoint costs against torch's scatter-add, at the 30 s step's shape here and
+    # at the 120 s step's (B=4, T'=938, 400 targets)
+    costs = {(b, t): (device_ms(lambda: gather_grad(lambda lp: TC.emit_log_probs(lp, ext)), iters=10),
+                      device_ms(lambda: gather_grad(torch_gather), iters=10))}
+    b2, t2, l2 = LONG_BATCH, LONG_T_SUB, LONG_TARGET_LEN
+    log_probs = torch.log_softmax(torch.randn(b2, t2, VOCAB, generator=gen) * 2, -1).cuda()
+    ext = TC.extended_labels(torch.randint(3, VOCAB, (b2, l2), generator=gen).cuda(),
+                             torch.full((b2,), l2, device="cuda"), 0)[0]
+    g = torch.randn(b2, t2, ext.shape[1], generator=gen).cuda()
+    torch_gather = lambda lp: torch.gather(lp, 2, ext[:, None, :].expand(b2, t2, -1))  # noqa: E731
+    costs[(b2, t2)] = (device_ms(lambda: gather_grad(lambda lp: TC.emit_log_probs(lp, ext)), iters=10),
+                       device_ms(lambda: gather_grad(torch_gather), iters=10))
+    print("F2, the CTC gather forward + backward, device time (calls queued back to back), the port's (one-hot contraction in "
+          "float64) against torch.gather's (scatter-add with atomics): "
+          + "; ".join(f"B={k[0]}, T'={k[1]}: {ours:.4f} ms against {lib:.4f} ms"
+                                                      for k, (ours, lib) in costs.items()) + f"  [{card}]")
+    h = torch.randn(b, t, 320, generator=gen).cuda()
+    dxw = torch.randn(b, t, 1280, generator=gen).cuda()
+    verdicts["lstm_dwhh, two launches"] = torch.equal(L.lstm_weight_grad(h, dxw), L.lstm_weight_grad(h, dxw))
+    params = [torch.nn.Parameter(torch.randn(shape, generator=gen).cuda()) for shape in ((320, 1280), (1024,), (4, 64))]
+    grads = [torch.randn(p.shape, generator=gen).cuda() for p in params]
+
+    def adafactor_update():
+        leaves = [torch.nn.Parameter(p.detach().clone()) for p in params]
+        opt = make_optimizer(OptimizerConfig(), [(f"p{i}", leaf) for i, leaf in enumerate(leaves)])
+        for leaf, grad in zip(leaves, grads):
+            leaf.grad = grad.clone()
+        opt.step()
+        return leaves
+
+    verdicts["one Adafactor update"] = all(map(torch.equal, adafactor_update(), adafactor_update()))
+    torch.cuda.synchronize()
+    print("F2, each step group's op twice on the same inputs in one process: "
+          + "; ".join(f"{k} {'bit-equal' if v else 'UNEQUAL'}" for k, v in verdicts.items()) + f"  [{card}]")
+    check(verdicts["lstm_dwhh, two launches"], "two lstm_dwhh launches on the same inputs are not bit-equal")
+    check(verdicts["the CTC gather's adjoint (the port's emit_log_probs)"], "the CTC gather's adjoint is not bit-equal")
+    check(losses_equal and state_equal, f"F2: two fresh processes differ, first at {first}")
+    return {"losses_equal": losses_equal, "state_equal": state_equal, "first": first, **verdicts}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -1619,8 +1948,9 @@ def main() -> None:
     results.update(check_train_kernels(card, BATCH, T_SUB, TARGET_LEN))
     long_results = check_kernels(card, LONG_BATCH, LONG_SECONDS, LONG_T_SUB, inference_attention=False)
     long_results.update(check_train_kernels(card, LONG_BATCH, LONG_T_SUB, LONG_TARGET_LEN))
-    print("at the long-form shapes, kernel ms against bound ms: " + ", ".join(
-        f"{name} {r['ms']:.4f} / {r['bound_ms']:.4f} ({r['bound_by']})" for name, r in long_results.items()))
+    print("at the long-form shapes, kernel ms against bound ms (and the library call's): " + ", ".join(
+        f"{name} {r['ms']:.4f} / {r['bound_ms']:.4f} ({r['bound_by']}" + (
+            f"; library {r['library_ms']:.4f})" if r["library_ms"] is not None else ")") for name, r in long_results.items()))
     # and at the Noisy Student phase's two buckets, where a row is shorter than the conv kernel's 64-row tile and
     # the attention kernel's 32-row tile: every block is one partial tile with halo on both sides
     for n_samples, frames in NST_BUCKETS:
@@ -1642,6 +1972,8 @@ def main() -> None:
     op = check_bias_attention_op(card)
     beam = check_beam(card)
     cli = check_cli(card)
+    # F2: the same ten train steps in two fresh processes, bit for bit
+    check_repeatability(card)
     pallas = "ops/pallas"
     sources = {
         "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),

@@ -112,18 +112,31 @@ class ConformerCTC(nn.Module):
         return torch.log_softmax(logits, dim=-1), lengths
 
 
+def orthogonal_(p: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``orthogonal()`` on a (rows, cols) matrix with rows ≤ cols: QR
+    of a (cols, rows) normal draw, Q's columns multiplied by the signs of
+    R's diagonal, transposed, so that the rows are orthonormal.  Draws as
+    many numbers as a normal fill of ``p``."""
+    q, r = torch.linalg.qr(torch.randn(p.shape[::-1], generator=generator).double())
+    return p.copy_((q * torch.sign(torch.diagonal(r))).t())
+
+
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded initialisation: LeCun-normal matrices (std 1/sqrt(fan_in)),
-    norm scales at 1, every bias (and the attention's u/v) at 0."""
+    """Seeded initialisation, as the JAX package's model initialises:
+    LeCun-normal matrices (std 1/sqrt(fan_in)), each LSTM direction's
+    recurrent ``_w_hh`` (H, 4H) orthogonal, norm scales at 1, every bias
+    (and the attention's u/v) at 0."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.ndim == 1:
                 p.fill_(1.0 if name.endswith("weight") else 0.0)
             elif name.endswith(("u_bias", "v_bias")):
                 p.zero_()
+            elif name.endswith("_w_hh"):
+                orthogonal_(p, generator)
             else:
-                # LSTM matrices are (in, 4H) and the depthwise taps (K, C);
-                # Linear/conv weights are (out, in, ...)
-                fan_in = p.shape[0] if name.endswith(("_w_ih", "_w_hh", "dw_kernel")) else p[0].numel()
+                # LSTM input matrices are (in, 4H) and the depthwise taps
+                # (K, C); Linear/conv weights are (out, in, ...)
+                fan_in = p.shape[0] if name.endswith(("_w_ih", "dw_kernel")) else p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=generator) * fan_in ** -0.5)
     return model

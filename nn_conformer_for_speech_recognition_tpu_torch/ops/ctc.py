@@ -49,13 +49,38 @@ def extended_labels(
     return ext, can_skip, valid_pos, ext_len
 
 
+class EmitGather(torch.autograd.Function):
+    """(B, T, V) log-probs → (B, T, S) emit at the extended labels ``ext``
+    (B, S).  The forward is a gather, which selects exactly what the JAX
+    package's one-hot contraction at HIGHEST precision selects.  The adjoint
+    puts each state's gradient back on its vocabulary column; every blank
+    state of a row lands on the one blank column, so torch's own adjoint of
+    a gather (a scatter-add with atomics on CUDA) sums those S/2 terms in
+    another order on every run, and two runs of a train step differ in
+    their last bits.  Here the adjoint is the JAX package's: the transposed
+    one-hot contraction, one batched product in float64 (exact for these
+    sums whatever the matmul precision settings) rounded once, summed in a
+    fixed order, so bit-equal from run to run."""
+
+    @staticmethod
+    def forward(ctx, log_probs: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
+        b, t, vocab = log_probs.shape
+        ctx.save_for_backward(ext)
+        ctx.vocab = vocab
+        index = ext.to(torch.int64)[:, None, :].expand(b, t, ext.shape[1])
+        return torch.gather(log_probs, 2, index)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (ext,) = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(ext.to(torch.int64), ctx.vocab).to(torch.float64)
+        return torch.bmm(g.to(torch.float64), onehot).to(g.dtype), None
+
+
 def emit_log_probs(log_probs: torch.Tensor, ext: torch.Tensor) -> torch.Tensor:
-    """emit[b, t, s] = log_probs[b, t, ext[b, s]].  A gather selects
-    exactly what the JAX package's one-hot contraction at HIGHEST precision
-    selects (that matmul was a TPU workaround); its adjoint is a scatter-add."""
-    b, t, _ = log_probs.shape
-    index = ext.to(torch.int64)[:, None, :].expand(b, t, ext.shape[1])
-    return torch.gather(log_probs, 2, index)
+    """emit[b, t, s] = log_probs[b, t, ext[b, s]], differentiable in
+    ``log_probs`` with a deterministic adjoint (`EmitGather`)."""
+    return EmitGather.apply(log_probs, ext)
 
 
 def alpha_recursion(

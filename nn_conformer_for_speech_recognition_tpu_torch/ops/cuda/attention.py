@@ -43,11 +43,15 @@ bias instead of being formed in the kernel,
 
     s[i, j] = (qu_i·k_j + bias[b, h, i, j]) · scale
 
-with the same key mask and guard.  Its forward is a kernel of the same tile
-shape, which reads the bias tile by index and walks a row's key tiles only
-up to its length; its backward is plain einsums that recompute the
-probabilities, as in the JAX package (a T² bias has a T² gradient anyway).
-No model routes through it, in either package: it is a public op of its own.
+with the same key mask and guard.  Its forward walks a row's key tiles only
+up to its length: in bfloat16 on the tensor cores (``mma.sync``, 64 query
+rows a block held in registers, 64-key tiles of k and v brought by
+``cp.async``, the bias read straight into the score accumulator, P kept in
+registers for the value product); in float32 on the CUDA cores, 32 × 32
+tiles as the rel-pos kernels.  Its backward is plain einsums that recompute
+the probabilities, as in the JAX package (a T² bias has a T² gradient
+anyway).  No model routes through it, in either package: it is a public op
+of its own.
 """
 
 from __future__ import annotations
@@ -398,7 +402,9 @@ def flash_attention_forward(qu, k, v, bias, lengths, scale: float) -> torch.Tens
     b, t, h, dh = _check_bias_inputs(qu, k, v, bias, lengths)
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
+    # contiguous, and on 16-byte boundaries for the bfloat16 kernel's 16-byte copies
     qu, k, v, bias = (x.contiguous() for x in (qu, k, v, bias))
+    qu, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (qu, k, v))
     lengths = _lengths_i32(lengths, qu.device)
     out = torch.empty_like(qu)
     err = build.library().attention_bias_fwd(

@@ -33,7 +33,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# launcher name → argument types (every pointer and the stream as void*)
+_IP = ctypes.POINTER(ctypes.c_int)
+# launcher name → argument types (every device pointer and the stream as void*)
 SIGNATURES = {
     # audio, window, dft_re, dft_im, mel_fb, out, batch, samples, n_fft,
     # hop, n_frames, n_bins, n_mels, log_floor, stream
@@ -56,8 +57,11 @@ SIGNATURES = {
     "lstm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # gout, gates, c, w_hh_t, lengths, dxw, batch, t, hidden, reverse, stream
     "lstm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # h, dxw, dw, batch, t, hidden, reverse, stream
-    "lstm_dwhh": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # h, dxw, part | NULL, dw, batch, t, hidden, reverse, rows_per_slice,
+    # slices, stream
+    "lstm_dwhh": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # rows, hidden, SMs → slices, rows per slice (host only; no launch)
+    "lstm_dwhh_plan": (_I, _I, _I, _IP, _IP),
     # emit, can_skip, ext_len, input_len, alpha, batch, t, states, stream
     "ctc_alpha": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # emit, alpha, can_skip, ext_len, input_len, ll, g, demit, batch, t,

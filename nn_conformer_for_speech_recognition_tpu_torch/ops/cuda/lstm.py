@@ -14,8 +14,10 @@ outside, as they are XLA outside the ``custom_vjp`` in the JAX package.
 The CUDA kernels (`csrc/lstm.cu`): the forward and the backward recurrence
 run all T steps in one launch each, one block per batch row and thread j
 owning hidden unit j; dW_hh = Σ_t h_prevᵀ·dgates_t, which the TPU kernel
-accumulates inside its recurrence, is hoisted out of it into one tiled
-float32 GEMM over all B·T rows.
+accumulates inside its recurrence, is hoisted out of it into one product
+over all B·T rows on the tensor cores (TF32 with the 3×TF32 split, float32
+accumulation), split over the rows into slices whose float32 partials a
+second kernel sums in slice order: no atomics, bit-equal from run to run.
 
 What bounds them on the H100: each step of either recurrence reads all of
 W_hh (H × 4H float32, 1.6 MB for Conformer-M's H=320) from L2 in every
@@ -26,6 +28,7 @@ split of W_hh over distributed shared memory is later work.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -196,9 +199,29 @@ def lstm_backward(
     return dxw
 
 
+def dwhh_plan(rows: int, hidden: int, sms: int) -> Tuple[int, int]:
+    """(slices, rows per slice) of the dW_hh kernel's split over the B·T
+    rows on a card of ``sms`` SMs, as `csrc/lstm.cu::lstm_dwhh_plan`, which
+    owns the kernel's tile shape, picks it."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    slices, per = ctypes.c_int(), ctypes.c_int()
+    build.check(build.library().lstm_dwhh_plan(rows, hidden, sms, ctypes.byref(slices), ctypes.byref(per)),
+                "lstm_dwhh_plan")
+    return slices.value, per.value
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous on a 16-byte boundary, as the kernel's 16-byte copies need."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def lstm_weight_grad(h: torch.Tensor, dxw: torch.Tensor, *, reverse: bool = False) -> torch.Tensor:
     """dW_hh (H, 4H) from the forward's h (B, T, H) and dxw (B, T, 4H).
-    The GEMM kernel for CUDA tensors, the plain twin for CPU ones."""
+    The tensor-core kernel for CUDA tensors (one call: the split product
+    and, past one slice, the sum of the slices), the plain twin for CPU
+    ones."""
     if h.device.type == "cpu":
         return lstm_weight_grad_plain(h, dxw, reverse)
     _check_cuda(h, "lstm_weight_grad")
@@ -207,10 +230,13 @@ def lstm_weight_grad(h: torch.Tensor, dxw: torch.Tensor, *, reverse: bool = Fals
         raise ValueError("lstm_weight_grad: h must be (B, T, H) and dxw (B, T, 4H), float32")
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
-    h, dxw = h.contiguous(), dxw.contiguous()
+    h, dxw = _aligned(h), _aligned(dxw)
+    slices, per = dwhh_plan(b * t, hidden, torch.cuda.get_device_properties(h.device).multi_processor_count)
     dw = torch.empty(hidden, 4 * hidden, device=h.device, dtype=torch.float32)
+    part = torch.empty(slices, hidden, 4 * hidden, device=h.device, dtype=torch.float32) if slices > 1 else None
     err = build.library().lstm_dwhh(
-        h.data_ptr(), dxw.data_ptr(), dw.data_ptr(), b, t, hidden, int(reverse), build.stream_of(h),
+        h.data_ptr(), dxw.data_ptr(), None if part is None else part.data_ptr(), dw.data_ptr(), b, t, hidden,
+        int(reverse), per, slices, build.stream_of(h),
     )
     build.check(err, "lstm_dwhh")
     lstm_weight_grad.launches += 1

@@ -34,7 +34,7 @@ GROUPS = (
     ("attention bwd dband (+ reduce)", ("bwd_dband_kernel", "dband_reduce_kernel")),
     ("lstm_fwd", ("lstm_fwd_kernel",)),
     ("lstm_bwd", ("lstm_bwd_kernel",)),
-    ("lstm_dwhh", ("lstm_dwhh_kernel",)),
+    ("lstm_dwhh (+ reduce)", ("lstm_dwhh_kernel", "lstm_dwhh_reduce_kernel")),
     ("ctc alpha + beta", ("ctc_alpha_kernel", "ctc_beta_kernel")),
     ("stft_logmel", ("stft_logmel_kernel",)),
     ("depthwise_conv", ("depthwise_conv_kernel",)),

@@ -156,3 +156,29 @@ def test_alpha_beta_twins_match_pallas_kernels(rng, case):
     demit_ref = np.moveaxis(np.asarray(demit_ref)[:t, :b, :s], 0, 1)
     demit = K.ctc_beta(*targs[:1], alpha, *targs[1:], ll, torch.from_numpy(g))
     np.testing.assert_allclose(demit.numpy(), demit_ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_emit_adjoint_is_the_one_hot_contraction(rng, case):
+    """The gather behind the loss puts each state's gradient back on its
+    vocabulary column through the transposed one-hot contraction, as the
+    JAX package differentiates its one-hot selection: equal to JAX's
+    adjoint of that contraction and to torch's own adjoint of the gather
+    (a scatter-add) within 1e-6, rows of repeated labels and the blank
+    column included, and bit-equal from call to call."""
+    log_probs, labels, _, lab_len = _inputs(rng, case)
+    ext = TC.extended_labels(torch.from_numpy(labels), torch.from_numpy(lab_len), 0)[0]
+    g = rng.standard_normal((*log_probs.shape[:2], ext.shape[1])).astype(np.float32)
+
+    def adjoint(fn):
+        leaf = torch.from_numpy(log_probs).requires_grad_(True)
+        (grad,) = torch.autograd.grad(fn(leaf), leaf, torch.from_numpy(g))
+        return grad
+
+    got = adjoint(lambda lp: TC.emit_log_probs(lp, ext))
+    assert torch.equal(got, adjoint(lambda lp: TC.emit_log_probs(lp, ext)))
+    index = ext[:, None, :].expand(*log_probs.shape[:2], -1)
+    torch.testing.assert_close(got, adjoint(lambda lp: torch.gather(lp, 2, index)), rtol=0, atol=1e-6)
+    onehot = jax.nn.one_hot(jnp.asarray(ext.numpy()), log_probs.shape[2], dtype=jnp.float32)
+    _, vjp = jax.vjp(lambda lp: jnp.einsum("btv,bsv->bts", lp, onehot, precision="highest"), jnp.asarray(log_probs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), rtol=0, atol=1e-6)

@@ -12,7 +12,9 @@ package holds its Pallas backward to, and in bfloat16 one bf16 ulp at the
 reference's largest entry (2^-7 of it; measured: none to half an ulp, the
 sums being float32 and rounded once), LSTM forward, its
 saved c and gates, and the backward's dxw 1e-4 (235 or 938 float32 steps), dW_hh
-1e-4 of its largest entry (a sum over B·T rows); CTC: alpha within
+1e-4 of its largest entry (a sum over B·T rows; the kernel's 3×TF32
+products keep float32's accuracy, one-pass TF32 would not), and bit-equal
+from launch to launch; CTC: alpha within
 1e-5 of its magnitude plus 1e-3 (log-space sums of up to 938 frames),
 ll within 1e-5 relative, demit 5e-4 (posteriors exp(α + β − ll) formed
 from log-space values of ~1.5e3, where one float32 ulp is 1.2e-4), and
@@ -204,6 +206,47 @@ def test_lstm_backward_kernels(cuda, reverse, hidden, t):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("hidden", [37, 100, 320, 640])
+@pytest.mark.parametrize("b, t", [(16, 14), (16, 235), (4, 938), (3, 347)])
+def test_lstm_weight_grad_kernel(cuda, b, t, hidden, reverse):
+    """dW_hh on the tensor cores (3×TF32, split over the B·T rows) against
+    the float32 einsum: 1e-4 of its largest entry, at the NST bucket's 224
+    rows, the 30 s step's 3,760, the 120 s step's 3,752 and 1,041 rows (a
+    multiple of neither the 32-row slab nor the slice count); H = 37 and 100
+    take the edge of a tile (37: 4-byte copies of h).  Two launches on the
+    same inputs are bit-equal: the slices are summed in order, no atomics."""
+    h = torch.randn(b, t, hidden, generator=cuda).cuda()
+    dxw = torch.randn(b, t, 4 * hidden, generator=cuda).cuda()
+    before = L.lstm_weight_grad.launches
+    got = L.lstm_weight_grad(h, dxw, reverse=reverse)
+    again = L.lstm_weight_grad(h, dxw, reverse=reverse)
+    assert L.lstm_weight_grad.launches == before + 2
+    ref = L.lstm_weight_grad_plain(h, dxw, reverse)
+    assert got.shape == (hidden, 4 * hidden) and got.dtype == torch.float32
+    _close(got, ref, 1e-4 * ref.abs().max().item())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows, hidden, want", [
+    (3760, 320, (6, 640)),  # the 30 s step, B=16 × T'=235: 50 tiles × 6 slices, 300 blocks
+    (3752, 320, (6, 640)),  # the 120 s step, B=4 × T'=938
+    (224, 320, (4, 64)),  # the NST phase's short bucket, B=16 × T'=14: as many slices as 64-row slices hold
+    (940, 37, (15, 64)),  # 2 tiles: the 16-slice cap, rounded to whole slabs
+    (3760, 1024, (1, 3776)),  # 512 tiles fill the card alone: no partials, no second kernel
+    (1, 320, (1, 32)),
+])
+def test_lstm_dwhh_plan_covers_the_rows_in_whole_slabs(cuda, rows, hidden, want):
+    """The dW_hh kernel's split over the B·T rows, as the CUDA source picks
+    it for 132 SMs: whole 32-row slabs, every row in one slice, no empty
+    slice, at most 16 slices, and as many as two waves of the SMs ask for
+    where the rows allow."""
+    slices, per = L.dwhh_plan(rows, hidden, 132)
+    assert per % 32 == 0 and (slices - 1) * per < rows <= slices * per
+    assert 1 <= slices <= 16
+    assert (slices, per) == want
+
+
+@pytest.mark.parametrize("reverse", [False, True])
 def test_lstm_gradients_reach_xw_and_w_hh(cuda, reverse):
     """The kernel path differentiates: gradients in xw and w_hh equal those
     of autograd through the plain loop, through one launch of each kernel."""
@@ -335,16 +378,23 @@ def test_depthwise_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("dtype, bias_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
                                                (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("t, dh, lengths", [(1, 64, [1, 1, 1]), (33, 32, [33, 1, 30]), (235, 64, [235, 117, 78]),
-                                            (70, 128, [70, 35, 64]), (40, 16, [40, 0, 32])])
+@pytest.mark.parametrize("t, dh, lengths", [
+    (1, 64, [1, 1, 1]), (33, 32, [33, 1, 30]), (235, 64, [235, 117, 78]), (70, 128, [70, 35, 64]),
+    (40, 16, [40, 0, 32]),
+    *((t, dh, [0, 1, t, t // 2 + 1, *(n for n in (64, 128) if n < t)])
+      for t in (1, 14, 63, 64, 65, 235, 938) for dh in (16, 32, 64, 128)),
+])
 def test_attention_bias_kernel(cuda, dtype, bias_dtype, t, dh, lengths):
-    """Every query row against the twin, at each compiled head width; a
-    length of 0 gives the mean of v on both sides, a tile that ends at the
-    length (32, 64) leaves no masked key in the last tile walked.  The bias
-    is drawn wide (its share of a score has spread 4·dh^-0.5, the qu·k
+    """Every query row against the twin, at each compiled head width, with
+    lengths 0, 1, full and about half in one batch: a length of 0 gives the
+    mean of v on both sides; T = 63, 64, 65 put the edge just inside, on and
+    just past a 64-key tile of the bfloat16 kernel (and a 32-key tile of the
+    float32 one), and a length of 64 or 128 short of T (or 32, 64 in the
+    first five cases) makes a row's walk stop exactly at a tile edge.  The
+    bias is drawn wide (its share of a score has spread 4·dh^-0.5, the qu·k
     share about 0.25) so that the softmax follows it, and the bar can see
-    it: the same kernel on a zeroed bias must miss the bar."""
-    b, h = 3, 2
+    it: the same kernel on a zeroed bias must miss the bar fourfold."""
+    b, h = len(lengths), 2
     qu, k, v = ((torch.randn(b, t, h, dh, generator=cuda) * 0.5).cuda().to(dtype) for _ in range(3))
     bias = (torch.randn(b, h, t, t, generator=cuda) * 4.0).cuda().to(bias_dtype)
     args = (qu, k, v, bias, torch.tensor(lengths, dtype=torch.int32).cuda(), dh ** -0.5)

@@ -61,12 +61,13 @@ def _jax_grads(xw, wh, lens, r, reverse):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("hidden, lengths", [(8, [7, 3, 7, 1]), (160, [6, 4, 6])])
+@pytest.mark.parametrize("hidden, lengths", [(8, [7, 3, 7, 1]), (160, [6, 4, 6]), (37, [5, 2, 5]), (100, [4, 4, 1, 3])])
 def test_lstm_gradients_match_pallas_interpret(rng, reverse, hidden, lengths):
     """d(sum(h · r)) / d(xw, w_hh): the autograd Function over the plain
     twins (explicit BPTT + the weight-gradient product), and autograd
     through the plain loop, both against jax.grad through the Pallas
-    kernel's custom_vjp."""
+    kernel's custom_vjp; H = 37 and 100 end the dW_hh kernel's output tile
+    part-way."""
     b, t = len(lengths), max(lengths)
     xw = rng.standard_normal((b, t, 4 * hidden)).astype(np.float32) * 0.5
     wh = rng.standard_normal((hidden, 4 * hidden)).astype(np.float32) * hidden ** -0.5
@@ -106,3 +107,37 @@ def test_training_forward_twin_matches_pallas_saves(rng, reverse):
     np.testing.assert_allclose(gates.numpy()[active], g_ref[active], atol=ATOL)
     assert np.all(gates.numpy()[~active] == 0.0)
     assert lstm_forward(torch.from_numpy(xw), torch.from_numpy(wh), torch.from_numpy(lens))[1:] == (None, None)
+
+
+def test_init_params_draws_w_hh_orthogonal_and_keeps_the_other_leaves():
+    """Each direction's recurrent matrix starts orthogonal, as flax's
+    ``orthogonal()`` draws it in the JAX package (rows orthonormal:
+    w_hh·w_hhᵀ = I within 1e-5); the draw takes as many numbers from the
+    generator as a normal fill, so every other leaf keeps the value, and
+    the LeCun-normal standard deviation, it had before."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as C
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+
+    enc = C.ConformerConfig(num_blocks=1, d_model=16, num_heads=2, ffn_dim=32, conv_kernel_size=5)
+    dec = C.DecoderConfig(projection_dim=8, lstm_hidden=24, lstm_layers=2)
+    cfg = C.ModelConfig(encoder=enc, decoder=dec, use_pallas=True)
+    model = init_params(ConformerCTC(cfg, 12), torch.Generator().manual_seed(0))
+    params = dict(model.named_parameters())
+    w_hh = {n: p for n, p in params.items() if n.endswith("_w_hh")}
+    assert len(w_hh) == 4  # two layers, two directions
+    for name, w in w_hh.items():
+        assert w.shape == (24, 96)
+        torch.testing.assert_close(w @ w.t(), torch.eye(24), rtol=0, atol=1e-5, msg=name)
+        assert abs(w.std().item() - 96 ** -0.5) < 0.1 * 96 ** -0.5, name  # entries of variance 1/(4H)
+
+    # the LeCun-normal rule for every other leaf, as it drew before
+    gen = torch.Generator().manual_seed(0)
+    for name, p in params.items():
+        if p.ndim == 1 or name.endswith(("u_bias", "v_bias")):
+            continue
+        fan_in = p.shape[0] if name.endswith(("_w_ih", "_w_hh", "dw_kernel")) else p[0].numel()
+        draw = torch.randn(p.shape, generator=gen) * fan_in ** -0.5
+        if name not in w_hh:
+            assert torch.equal(p.detach(), draw), name
+            if p.numel() >= 1000:
+                assert abs(p.std().item() - fan_in ** -0.5) < 0.1 * fan_in ** -0.5, name

@@ -380,6 +380,9 @@ def test_flops_copy_equal_and_peak_by_card_name():
         ("void bwd_dband_kernel<float, 64>(BwdArgs)", "attention bwd dband (+ reduce)"),
         ("void dband_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int)", "attention bwd dband (+ reduce)"),
         ("void lstm_fwd_kernel<true>(LstmArgs)", "lstm_fwd"),
+        ("void (anonymous namespace)::lstm_dwhh_kernel<4>(float const*, float const*, float*, int)",
+         "lstm_dwhh (+ reduce)"),
+        ("void (anonymous namespace)::lstm_dwhh_reduce_kernel(float4 const*, float4*, int, int)", "lstm_dwhh (+ reduce)"),
         ("void (anonymous namespace)::depthwise_conv_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "depthwise_conv"),
         ("nvjet_tst_128x64_64x8_2x1_v_bz_TNN", "GEMMs (cuBLAS)"),
         ("sm90_xmma_wgrad_implicit_gemm_bf16", "convolutions (cuDNN)"),
