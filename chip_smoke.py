@@ -16,7 +16,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    time it works out the least time the card could take for the same work
    (bytes over the memory rate against operations over the peak rate) and,
    where one PyTorch call computes the same function, times that call (for
-   the LSTM recurrences, cuDNN's LSTM on a packed sequence).
+   the LSTM recurrences, cuDNN's LSTM on a packed sequence, one direction
+   and bidirectional).  The LSTM recurrences run both directions in one
+   launch of the cluster kernels: that launch is held to the twin of each
+   direction and to each direction alone, bit for bit, and timed beside one
+   direction alone and the row kernel; then the row route, which
+   Conformer-L's H = 640 takes, against its twins and through Conformer-L's
+   BiLSTM head forward and backward, counted.
 3. Serving path: the Noisy Student pseudo-label pass (``make_predict_step``:
    log-mel → Conformer-M forward → greedy decode → ``WordVocab.decode_ids``)
    with weights and audio made from a seed.  The kernel path and the plain
@@ -87,7 +93,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    with its own CUDA context), losses and final parameters compared bit for bit
    and the first stage whose bits differ named; then each step group's op
    twice on the same inputs in this process (SpecAugment, the subsampling
-   convs, the gather behind the CTC loss, ``lstm_dwhh``, Adafactor).
+   convs, the gather behind the CTC loss, ``lstm_dwhh``, the cluster LSTM
+   recurrences, Adafactor).
 12. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -97,6 +104,7 @@ CUDA device the script exits non-zero before printing any result.
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import multiprocessing
@@ -106,6 +114,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -117,6 +126,7 @@ N_TRAIN_STEPS = 5  # bf16 train steps timed and counted, after two warm-up steps
 LOSS_STEPS, LOSS_LR = 10, 1e-3  # the loss must fall over 10 steps at this lr
 LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN = 4, 120.0, 400  # the long-form step: T'=938, S=801
 T_SUB, LONG_T_SUB = 235, 938  # frames after subsampling; check_train holds them to the model's own count
+DIRECTIONS = (False, True)  # a BiLSTM's two directions: reverse flags
 # The Noisy Student phase: a synthetic corpus of ten words, up to 8 an utterance (0.4 s a word, gaps of 0.05 s),
 # two length buckets; its batches are (16, 28400) and (16, 56800) samples, T' = 14 and 28, at most 8 targets
 NST_WORDS = ["yes", "no", "go", "stop", "left", "right", "up", "down", "on", "off"]
@@ -258,8 +268,8 @@ def counters() -> dict:
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import stft_logmel as S
 
     return {
-        "stft_logmel": S.stft_logmel, "attention_relpos": A.flash_relpos_attention, "lstm": L.lstm_forward,
-        "lstm_backward": L.lstm_backward, "lstm_weight_grad": L.lstm_weight_grad,
+        "stft_logmel": S.stft_logmel, "attention_relpos": A.flash_relpos_attention, "lstm": L.lstm_forward_cluster,
+        "lstm_backward": L.lstm_backward_cluster, "lstm_weight_grad": L.lstm_weight_grad,
         "ctc_alpha": K.ctc_alpha, "ctc_beta": K.ctc_beta,
         "attention_relpos_lse": A.flash_relpos_attention_forward_lse,
         "attention_relpos_bwd_dq": A.flash_relpos_attention_bwd_dq,
@@ -267,6 +277,7 @@ def counters() -> dict:
         "attention_relpos_bwd_dband": A.flash_relpos_attention_bwd_dband,
         "depthwise_conv": D.depthwise_conv1d_forward,
         "attention_bias": A.flash_attention_forward,
+        "lstm_rows": L.lstm_forward_rows, "lstm_backward_rows": L.lstm_backward_rows,
     }
 
 
@@ -346,45 +357,93 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
         results["attention_relpos"] = numbers(err32, ms, plain_ms, nbytes(*args16[:5], args16[0]), 6 * h * dh * pairs,
                                               torch.bfloat16)
 
-    # -- LSTM, one direction: xw (16, 235, 1280) or (4, 938, 1280) f32, w_hh (320, 1280)
+    # -- the LSTM forward recurrence, H=320: a direction's xw (16, 235, 1280) or (4, 938, 1280) f32 and w_hh
+    #    (320, 1280); both directions in one cluster launch (the model's call), each direction alone, and the
+    #    row kernel (one block a batch row: the route past the cluster's H) one direction at the same shape
     hidden = 320
-    xw = torch.randn(b, t, 4 * hidden, generator=gen).to(dev)
-    w_hh = (torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev)
+    xws = [torch.randn(b, t, 4 * hidden, generator=gen).to(dev) for _ in DIRECTIONS]
+    w_hhs = [(torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev) for _ in DIRECTIONS]
     lengths = lengths.to(dev)
+    both = L.lstm_directions(xws, w_hhs, lengths, DIRECTIONS)
     errs = []
-    for reverse in (False, True):
-        errs.append(max_abs(L.lstm(xw, w_hh, lengths, reverse=reverse),
-                            L.lstm_plain(xw, w_hh, lengths, reverse)))
+    for xw, w, reverse, h in zip(xws, w_hhs, DIRECTIONS, both):
+        errs.append(max_abs(h, L.lstm_plain(xw, w, lengths, reverse)))
+        check(torch.equal(h, L.lstm(xw, w, lengths, reverse=reverse)),
+              "lstm: the two-direction launch and one direction alone differ")
     torch.cuda.synchronize()
     err = max(errs)
-    ms = cuda_ms(lambda: L.lstm(xw, w_hh, lengths, reverse=True))
-    plain_ms = cuda_ms(lambda: L.lstm_plain(xw, w_hh, lengths, True), iters=5)
-    cudnn = cudnn_lstm_ms(b, t, hidden, lengths, gen)
-    print(f"lstm ({b}, {t}, 4x320) f32, per direction: max|Δ| fwd {errs[0]:.3e} bwd {errs[1]:.3e} "
-          f"(tol {TOL['lstm']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; cuDNN's LSTM, one direction on the packed "
-          f"sequence (input projection included): forward {cudnn['forward']:.4f} ms, backward {cudnn['backward']:.4f} ms, "
-          f"forward + backward {cudnn['both']:.4f} ms  [{card}]")
+    n32 = lengths.to(torch.int32)
+    times = {
+        "both directions, one launch": lambda: L.lstm_directions(xws, w_hhs, lengths, DIRECTIONS),
+        "one direction": lambda: L.lstm(xws[1], w_hhs[1], lengths, reverse=True),
+        "row kernel, one direction": lambda: L.lstm_forward_rows(xws[1], w_hhs[1], n32, True, False),
+    }
+    events = {k: cuda_ms(fn) for k, fn in times.items()}
+    device = {k: device_ms(fn) for k, fn in times.items()}
+    plain_ms = cuda_ms(lambda: [L.lstm_plain(*a, lengths, r) for *a, r in zip(xws, w_hhs, DIRECTIONS)], iters=5)
+    cudnn = {k: cudnn_lstm_ms(b, t, hidden, lengths, gen, bidirectional=k) for k in (False, True)}
+    steps_live = int(lengths.max())
+    floor = serial_floor_ms(b, hidden, steps_live)
+    print(f"lstm ({b}, {t}, 4x320) f32: max|Δ| fwd {errs[0]:.3e} bwd {errs[1]:.3e} (tol {TOL['lstm']}), the two-direction "
+          "launch bit-equal to each direction alone; kernel ms (events / device): " + ", ".join(
+              f"{k} {events[k]:.4f} / {device[k]:.4f}" for k in times)
+          + f"; cluster {device['one direction'] / steps_live * 1e3:.2f} us a step over {steps_live} steps, serial "
+          f"floor {floor:.4f} ms (a cluster barrier {cluster_barrier_us():.3f} us); plain, both directions "
+          f"{plain_ms:.4f} ms; cuDNN's LSTM on the packed sequence (input "
+          f"projection included), forward: one direction {cudnn[False]['forward']:.4f} ms, bidirectional "
+          f"{cudnn[True]['forward']:.4f} ms  [{card}]")
     check(err <= TOL["lstm"], "lstm disagrees with its plain twin")
-    # per valid step h·W_hh: 2·H·4H operations; read xw and W_hh, write h
-    steps = int(lengths.sum())
-    results["lstm"] = numbers(err, ms, plain_ms, nbytes(xw, w_hh) + 4 * b * t * hidden, 8 * hidden * hidden * steps,
-                              torch.float32, library_ms=cudnn["forward"])
+    # both directions: per valid step h·W_hh, 2·H·4H operations; read xw and W_hh, write h
+    steps = 2 * int(lengths.sum())
+    results["lstm"] = numbers(err, events["both directions, one launch"], plain_ms,
+                              nbytes(*xws, *w_hhs) + 2 * 4 * b * t * hidden, 8 * hidden * hidden * steps,
+                              torch.float32, library_ms=cudnn[True]["forward"])
     return results
 
 
-def cudnn_lstm_ms(b: int, t: int, hidden: int, lengths: torch.Tensor, gen: torch.Generator) -> dict:
+def serial_floor_ms(b: int, hidden: int, steps: int) -> float:
+    """The least time of the cluster recurrence's chain of ``steps``
+    dependent steps: each one CTA's share of the step's product (min(b, 16)
+    rows, rounded up to the kernel's groups of 4, by H by 4H/16 columns) at
+    one SM's share of the float32 peak, plus one cluster barrier as the card
+    times it (`cluster_barrier_us`)."""
+    rows = 4 * ((min(b, 16) + 3) // 4)
+    share = 2 * rows * hidden * 4 * -(-hidden // 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return steps * (share / (PEAK_FLOPS[torch.float32] / sms) * 1e3 + cluster_barrier_us() * 1e-3)
+
+
+@functools.lru_cache(maxsize=1)
+def cluster_barrier_us() -> float:
+    """Microseconds of one barrier of a 16-CTA cluster (two clusters, one CTA
+    an SM, as the recurrences run): events around 10,000 barriers in one
+    launch, less the same launch with 100."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    stream = build.stream_of(torch.zeros(1, device="cuda"))
+
+    def run(iters):
+        build.check(build.library().lstm_cluster_barrier_probe(iters, 320, stream), "lstm_cluster_barrier_probe")
+
+    long_ms, short_ms = cuda_ms(lambda: run(10_000), iters=5), cuda_ms(lambda: run(100), iters=5)
+    return (long_ms - short_ms) / 9_900 * 1e3
+
+
+def cudnn_lstm_ms(b: int, t: int, hidden: int, lengths: torch.Tensor, gen: torch.Generator,
+                  bidirectional: bool = False, width: Optional[int] = None) -> dict:
     """The yardstick of the LSTM recurrence kernels (the port never calls
-    it): cuDNN's LSTM through ``nn.LSTM``, one direction, float32, on a
-    packed sequence at the same lengths, with the BiLSTM's input width, so
-    it also computes the input projection x·W_ih that the kernels are handed
-    done.  Its forward alone, its backward alone (``autograd.grad`` on the
-    forward's graph, kept), and a forward with its backward."""
+    it): cuDNN's LSTM through ``nn.LSTM``, one direction or both, float32,
+    on a packed sequence at the same lengths, with the BiLSTM's input width
+    (``width``, Conformer-M's by default), so it also computes the input
+    projection x·W_ih that the kernels are handed done.  Its forward alone,
+    its backward alone (``autograd.grad`` on the forward's graph, kept), and
+    a forward with its backward."""
     from torch.nn.utils.rnn import PackedSequence, pack_padded_sequence
 
     from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_m
 
-    width = conformer_m().decoder.projection_dim
-    layer = torch.nn.LSTM(width, hidden, batch_first=True).cuda()
+    width = width or conformer_m().decoder.projection_dim
+    layer = torch.nn.LSTM(width, hidden, batch_first=True, bidirectional=bidirectional).cuda()
     x = pack_padded_sequence(torch.randn(b, t, width, generator=gen).cuda(), lengths.cpu(), batch_first=True,
                              enforce_sorted=False)
     data = x.data.requires_grad_(True)  # the packed input as the leaf: each forward starts a graph of its own
@@ -414,59 +473,84 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     results = {}
     KERNEL_SHAPES_CHECKED.add((b, t))
 
-    # -- LSTM backward + dW_hh: H=320, both directions
+    # -- LSTM training forward, backward and dW_hh: H=320, both directions, each recurrence one cluster launch
     hidden = 320
-    xw = torch.randn(b, t, 4 * hidden, generator=gen).to(dev)
-    w_hh = (torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev)
+    xws = [torch.randn(b, t, 4 * hidden, generator=gen).to(dev) for _ in DIRECTIONS]
+    w_hhs = [(torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev) for _ in DIRECTIONS]
     lengths = mixed_lengths(gen, b, t, t // 3).to(dev)
-    gout = torch.randn(b, t, hidden, generator=gen).to(dev)
-    errs, werrs, saved = [], [], {}
-    for reverse in (False, True):
-        h, c, gates = L.lstm_forward(xw, w_hh, lengths, reverse=reverse, save=True)
-        h_ref, c_ref, g_ref = L.lstm_forward_plain(xw, w_hh, lengths, reverse)
-        errs.append(max(max_abs(h, h_ref), max_abs(c, c_ref), max_abs(gates, g_ref)))
-        dxw = L.lstm_backward(gout, gates, c, w_hh, lengths, reverse=reverse)
-        dxw_ref = L.lstm_backward_plain(gout, g_ref, c_ref, w_hh, lengths, reverse)
-        dw = L.lstm_weight_grad(h, dxw, reverse=reverse)
+    gouts = [torch.randn(b, t, hidden, generator=gen).to(dev) for _ in DIRECTIONS]
+    outs = L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True)
+    refs = [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, DIRECTIONS)]
+    hs, cs, gates = (list(x) for x in zip(*outs))
+    dxws = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS)
+    again = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS)
+    errs, werrs = [], []
+    for i, reverse in enumerate(DIRECTIONS):
+        h_ref, c_ref, g_ref = refs[i]
+        errs.append(max(max_abs(hs[i], h_ref), max_abs(cs[i], c_ref), max_abs(gates[i], g_ref)))
+        dxw_ref = L.lstm_backward_plain(gouts[i], g_ref, c_ref, w_hhs[i], lengths, reverse)
+        errs.append(max_abs(dxws[i], dxw_ref))
+        check(torch.equal(dxws[i], again[i]), "lstm_backward: two launches on the same inputs are not bit-equal")
+        check(torch.equal(dxws[i], L.lstm_backward(gouts[i], gates[i], cs[i], w_hhs[i], lengths, reverse=reverse)),
+              "lstm_backward: the two-direction launch and one direction alone differ")
+        dw = L.lstm_weight_grad(hs[i], dxws[i], reverse=reverse)
         dw_ref = L.lstm_weight_grad_plain(h_ref, dxw_ref, reverse)
-        errs.append(max_abs(dxw, dxw_ref))
         werrs.append(max_abs(dw, dw_ref) / dw_ref.abs().max().item())
-        saved[reverse] = (h, c, gates, dxw)
     torch.cuda.synchronize()
     fwd_err, bwd_err = max(errs[0], errs[2]), max(errs[1], errs[3])
-    h, c, gates, dxw = saved[True]
-    ms = cuda_ms(lambda: L.lstm_backward(gout, gates, c, w_hh, lengths, reverse=True))
-    plain_ms = cuda_ms(lambda: L.lstm_backward_plain(gout, gates, c, w_hh, lengths, True), iters=5)
-    again = [L.lstm_weight_grad(h, dxw, reverse=True) for _ in range(2)]
+    n32 = lengths.to(torch.int32)
+    times = {
+        "both directions, one launch": lambda: L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS),
+        "one direction": lambda: L.lstm_backward(gouts[1], gates[1], cs[1], w_hhs[1], lengths, reverse=True),
+        "row kernel, one direction": lambda: L.lstm_backward_rows(gouts[1], gates[1], cs[1], w_hhs[1], n32, True),
+    }
+    events = {k: cuda_ms(fn) for k, fn in times.items()}
+    device = {k: device_ms(fn) for k, fn in times.items()}
+    plain_ms = cuda_ms(lambda: [L.lstm_backward_plain(*a, lengths, r)
+                                for *a, r in zip(gouts, gates, cs, w_hhs, DIRECTIONS)], iters=5)
+    fwd_times = {
+        "both directions, one launch": lambda: L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True),
+        "one direction": lambda: L.lstm_forward(xws[1], w_hhs[1], lengths, reverse=True, save=True),
+        "row kernel, one direction": lambda: L.lstm_forward_rows(xws[1], w_hhs[1], n32, True, True),
+    }
+    fwd_device = {k: device_ms(fn) for k, fn in fwd_times.items()}
+    h, dxw = hs[1], dxws[1]
+    twice = [L.lstm_weight_grad(h, dxw, reverse=True) for _ in range(2)]
     torch.cuda.synchronize()
-    check(torch.equal(*again), "lstm_weight_grad is not bit-equal from launch to launch")
+    check(torch.equal(*twice), "lstm_weight_grad is not bit-equal from launch to launch")
     wms = cuda_ms(lambda: L.lstm_weight_grad(h, dxw, reverse=True))
     wplain_ms = cuda_ms(lambda: L.lstm_weight_grad_plain(h, dxw, True))
     wdev = device_ms(lambda: L.lstm_weight_grad(h, dxw, reverse=True))
     wplain_dev = device_ms(lambda: L.lstm_weight_grad_plain(h, dxw, True))
-    cudnn = cudnn_lstm_ms(b, t, hidden, lengths, gen)
-    fms = cuda_ms(lambda: L.lstm_forward(xw, w_hh, lengths, reverse=True, save=True))
-    print(f"lstm training forward ({b}, {t}, 4x320) (h, c, gates) vs twin: max|Δ| {fwd_err:.3e} (tol {TOL['lstm']}), "
-          f"kernel {fms:.4f} ms  [{card}]")
-    print(f"lstm_backward ({b}, {t}, 4x320) f32, per direction: dxw max|Δ| fwd {errs[1]:.3e} bwd {errs[3]:.3e} "
-          f"(tol {TOL['lstm_backward']}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+    cudnn = {k: cudnn_lstm_ms(b, t, hidden, lengths, gen, bidirectional=k) for k in (False, True)}
+    steps_live = int(lengths.max())
+    print(f"lstm training forward ({b}, {t}, 4x320), both directions (h, c, gates) vs twin: max|Δ| {fwd_err:.3e} "
+          f"(tol {TOL['lstm']}); device ms: " + ", ".join(f"{k} {v:.4f}" for k, v in fwd_device.items()) + f"  [{card}]")
+    print(f"lstm_backward ({b}, {t}, 4x320) f32: dxw max|Δ| fwd {errs[1]:.3e} bwd {errs[3]:.3e} (tol "
+          f"{TOL['lstm_backward']}), two launches bit-equal, the two-direction launch bit-equal to each direction alone; "
+          "kernel ms (events / device): " + ", ".join(f"{k} {events[k]:.4f} / {device[k]:.4f}" for k in times)
+          + f"; cluster {device['one direction'] / steps_live * 1e3:.2f} us a step over {steps_live} steps, serial floor "
+          f"{serial_floor_ms(b, hidden, steps_live):.4f} ms; plain, both directions {plain_ms:.4f} ms  [{card}]")
     print(f"lstm_weight_grad (320 x {b * t})·({b * t} x 1280) f32: dW_hh max|Δ|/max|dW| fwd {werrs[0]:.3e} "
           f"bwd {werrs[1]:.3e} (tol {TOL['lstm_weight_grad']}), two launches bit-equal, kernel {wms:.4f} ms "
           f"({L.dwhh_plan(b * t, hidden, torch.cuda.get_device_properties(0).multi_processor_count)[0]} slices), "
           f"plain (the float32 einsum) {wplain_ms:.4f} ms; device time (calls queued back to back): kernel and reduce "
           f"{wdev:.4f} ms, einsum {wplain_dev:.4f} ms  [{card}]")
-    print(f"cuDNN's LSTM at ({b}, {t}, 320), one direction (its backward also gives dx and dW_ih): forward "
-          f"{cudnn['forward']:.4f} ms, backward {cudnn['backward']:.4f} ms, forward + backward {cudnn['both']:.4f} ms  [{card}]")
+    print(f"cuDNN's LSTM at ({b}, {t}, 320) (its backward also gives dx, dW_ih and dW_hh), one direction: forward "
+          f"{cudnn[False]['forward']:.4f} ms, backward {cudnn[False]['backward']:.4f} ms, forward + backward "
+          f"{cudnn[False]['both']:.4f} ms; bidirectional: forward {cudnn[True]['forward']:.4f} ms, backward "
+          f"{cudnn[True]['backward']:.4f} ms, forward + backward {cudnn[True]['both']:.4f} ms  [{card}]")
     check(fwd_err <= TOL["lstm"], "lstm training forward disagrees with its plain twin")
     check(bwd_err <= TOL["lstm_backward"], "lstm_backward disagrees with its plain twin")
     check(max(werrs) <= TOL["lstm_weight_grad"], "lstm_weight_grad disagrees with its plain twin")
-    steps = int(lengths.sum())
-    results["lstm_backward"] = numbers(bwd_err, ms, plain_ms, nbytes(gout, gates, c, w_hh, dxw),
-                                       8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["backward"])
+    steps = 2 * int(lengths.sum())
+    results["lstm_backward"] = numbers(bwd_err, events["both directions, one launch"], plain_ms,
+                                       nbytes(*gouts, *gates, *cs, *w_hhs, *dxws), 8 * hidden * hidden * steps,
+                                       torch.float32, library_ms=cudnn[True]["backward"])
     # the plain version is one einsum (a cuBLAS GEMM): it doubles as the library yardstick.  Bytes: h and dxw
     # read once, dW_hh written once; 2·H·4H operations a row, done three times (the 3×TF32 split that keeps
     # float32's accuracy on the tensor cores) at the TF32 rate
-    results["lstm_weight_grad"] = numbers(max(werrs), wms, wplain_ms, nbytes(h, dxw, w_hh),
+    results["lstm_weight_grad"] = numbers(max(werrs), wms, wplain_ms, nbytes(h, dxw, w_hhs[1]),
                                           3 * 8 * hidden * hidden * b * t, "tf32", library_ms=wplain_ms)
 
     # -- CTC alpha/beta: S = 2·target_len + 1 states, V=1024; one row of
@@ -561,6 +645,76 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     results["ctc_beta"] = numbers(demit_err, bms, bplain_ms, nbytes(emit, alpha, demit), 10 * cells, torch.float32,
                                   library_ms=lib_bwd_ms)
     return results
+
+
+def check_row_route(card: str):
+    """The route past the cluster's shared memory: Conformer-L's BiLSTM (H =
+    640, input 512) at the 30 s shapes (B=16, T'=235).  The row kernels
+    (inference and training forward, backward) against their twins for each
+    direction, timed beside cuDNN's LSTM at that width; then their own path,
+    the model's `BiLSTM` module under Conformer-L's decoder widths forward
+    and backward, counted: one launch of each a direction, none of the
+    cluster kernels.  Returns the kernels' numbers and the path's launches."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_l
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import BiLSTM, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    dec = conformer_l().decoder
+    b, t, hidden = BATCH, T_SUB, dec.lstm_hidden
+    check(not L.cluster_plan(b, hidden, L.smem_optin(0))[0], f"H={hidden} fits the cluster's shared memory")
+    xws = [torch.randn(b, t, 4 * hidden, generator=gen).to(dev) for _ in DIRECTIONS]
+    w_hhs = [(torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev) for _ in DIRECTIONS]
+    gouts = [torch.randn(b, t, hidden, generator=gen).to(dev) for _ in DIRECTIONS]
+    lengths = mixed_lengths(gen, b, t, t // 3).to(dev)
+    fwd_errs, bwd_errs, saved = [], [], []
+    for xw, w, gout, reverse in zip(xws, w_hhs, gouts, DIRECTIONS):
+        got, ref = L.lstm_forward(xw, w, lengths, reverse=reverse, save=True), L.lstm_forward_plain(xw, w, lengths, reverse)
+        fwd_errs += [max_abs(x, y) for x, y in zip(got, ref)] + [max_abs(L.lstm(xw, w, lengths, reverse=reverse), ref[0])]
+        dxw = L.lstm_backward(gout, got[2], got[1], w, lengths, reverse=reverse)
+        bwd_errs.append(max_abs(dxw, L.lstm_backward_plain(gout, ref[2], ref[1], w, lengths, reverse)))
+        saved.append((got, dxw))
+    torch.cuda.synchronize()
+    (_, c, gates), dxw = saved[1]
+    fms = cuda_ms(lambda: L.lstm(xws[1], w_hhs[1], lengths, reverse=True))
+    fdev = device_ms(lambda: L.lstm(xws[1], w_hhs[1], lengths, reverse=True))
+    fplain = cuda_ms(lambda: L.lstm_plain(xws[1], w_hhs[1], lengths, True), iters=5)
+    bms = cuda_ms(lambda: L.lstm_backward(gouts[1], gates, c, w_hhs[1], lengths, reverse=True))
+    bdev = device_ms(lambda: L.lstm_backward(gouts[1], gates, c, w_hhs[1], lengths, reverse=True))
+    bplain = cuda_ms(lambda: L.lstm_backward_plain(gouts[1], gates, c, w_hhs[1], lengths, True), iters=5)
+    cudnn = cudnn_lstm_ms(b, t, hidden, lengths, gen, width=dec.projection_dim)
+    print(f"lstm row route ({b}, {t}, 4x{hidden}) f32, per direction: forward (h; h, c, gates) max|Δ| "
+          f"{max(fwd_errs):.3e} (tol {TOL['lstm']}), kernel {fms:.4f} ms (device {fdev:.4f}), plain {fplain:.4f} ms; "
+          f"backward dxw max|Δ| {max(bwd_errs):.3e} (tol {TOL['lstm_backward']}), kernel {bms:.4f} ms (device "
+          f"{bdev:.4f}), plain {bplain:.4f} ms; cuDNN's LSTM, one direction (input {dec.projection_dim}): forward "
+          f"{cudnn['forward']:.4f} ms, backward {cudnn['backward']:.4f} ms  [{card}]")
+    check(max(fwd_errs) <= TOL["lstm"], "the row forward disagrees with its plain twin")
+    check(max(bwd_errs) <= TOL["lstm_backward"], "the row backward disagrees with its plain twin")
+    steps = int(lengths.sum())
+    results = {
+        "lstm_rows": numbers(max(fwd_errs), fms, fplain, nbytes(xws[1], w_hhs[1]) + 4 * b * t * hidden,
+                             8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["forward"]),
+        "lstm_backward_rows": numbers(max(bwd_errs), bms, bplain, nbytes(gouts[1], gates, c, w_hhs[1], dxw),
+                                      8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["backward"]),
+    }
+
+    # -- the path: Conformer-L's BiLSTM head, forward and backward
+    module = init_params(BiLSTM(dec.projection_dim, hidden, dec.lstm_layers, dec.bidirectional), gen).to(dev)
+    x = torch.randn(b, t, dec.projection_dim, generator=gen).to(dev).requires_grad_(True)
+    r = torch.randn(b, t, 2 * hidden, generator=gen).to(dev)
+    torch.cuda.synchronize()
+    reset_counters()
+    (module(x, lengths) * r).sum().backward()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expected = {"lstm_rows": 2, "lstm_backward_rows": 2, "lstm_weight_grad": 2}
+    print(f"Conformer-L's BiLSTM head (B={b}, T'={t}, H={hidden}) forward and backward, launches: {launches}")
+    check(launches == {**dict.fromkeys(launches, 0), **expected}, f"row-route launch counts, want {expected}")
+    for name, p in [("x", x), *module.named_parameters()]:
+        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and p.grad.abs().max().item() > 0,
+              f"Conformer-L's BiLSTM: the gradient of {name} is missing, non-finite or zero")
+    return results, launches
 
 
 def check_attention_backward_kernels(card: str) -> dict:
@@ -982,7 +1136,7 @@ def check_slice(card: str, conv_impl: str = "auto") -> dict:
         texts += [vocab.decode_ids(row.tolist()) for row in ids.cpu()]
     print(f"pseudo-labels: {len(texts)} strings, first: {texts[0][:80]!r}")
     print(f"launch counts over {N_BATCHES} pseudo-label batches: {launches}")
-    expected = {"stft_logmel": N_BATCHES, "attention_relpos": 16 * N_BATCHES, "lstm": 2 * N_BATCHES,
+    expected = {"stft_logmel": N_BATCHES, "attention_relpos": 16 * N_BATCHES, "lstm": N_BATCHES,
                 "depthwise_conv": 16 * N_BATCHES if conv_impl == "pallas" else 0}
     check(launches == {**dict.fromkeys(launches, 0), **expected}, f"pseudo-label launch counts, want {expected}")
     per_batch = dt / N_BATCHES
@@ -1150,10 +1304,11 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     print(f"launch counts over {N_TRAIN_STEPS} bf16 train steps: {launches}")
     n, attn = N_TRAIN_STEPS, blocks * N_TRAIN_STEPS if long_form else 0
     conv = 2 * blocks * N_TRAIN_STEPS if conv_impl == "pallas" else 0  # forward and dx in every block
-    expected = {"stft_logmel": n, "attention_relpos": 0, "lstm": 2 * n, "lstm_backward": 2 * n,
+    # one launch of each recurrence serves both directions; dW_hh is one launch a direction
+    expected = {"stft_logmel": n, "attention_relpos": 0, "lstm": n, "lstm_backward": n,
                 "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
                 "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn,
-                "depthwise_conv": conv, "attention_bias": 0}
+                "depthwise_conv": conv, "attention_bias": 0, "lstm_rows": 0, "lstm_backward_rows": 0}
     check(launches == expected, f"train-step launch counts, want {expected}")
     del state
 
@@ -1352,9 +1507,10 @@ def check_nst(card: str) -> dict:
         check(res.is_best and res.val_loss is not None and np.isfinite(res.val_loss), "the generation has no validation score")
         evals, label_batches = 2 * data["validation"].num_batches(), data["unlabeled"].num_batches()
         check(forwards == {True: steps, False: evals + label_batches}, f"forwards counted {forwards}")
-        # every forward runs the conv kernel once per block, every train step once more for dx
+        # every forward runs the conv kernel once per block, every train step once more for dx; one launch of each
+        # LSTM recurrence serves both directions, dW_hh is one launch a direction
         expected = {"stft_logmel": steps + evals + label_batches, "attention_relpos": blocks * (evals + label_batches),
-                    "lstm": 2 * (steps + evals + label_batches), "lstm_backward": 2 * steps, "lstm_weight_grad": 2 * steps,
+                    "lstm": steps + evals + label_batches, "lstm_backward": steps, "lstm_weight_grad": 2 * steps,
                     "ctc_alpha": steps + evals, "ctc_beta": steps,
                     "depthwise_conv": blocks * (forwards[True] + forwards[False]) + blocks * steps}
         print(f"launch counts over the NST generation ({steps} train steps, {evals} validation and {label_batches} "
@@ -1395,7 +1551,7 @@ def check_nst(card: str) -> dict:
         check(not any(count_p.values()), f"the plain path launched a kernel: {count_p}")
         n_eval = data["validation"].num_batches() + label_batches
         check(count_k == {**dict.fromkeys(count_k, 0), "stft_logmel": n_eval, "attention_relpos": blocks * n_eval,
-                          "lstm": 2 * n_eval, "ctc_alpha": data["validation"].num_batches(),
+                          "lstm": n_eval, "ctc_alpha": data["validation"].num_batches(),
                           "depthwise_conv": blocks * n_eval}, f"float32 kernel path launches: {count_k}")
         loss_err = abs(loss_k - loss_p) / abs(loss_p)
         frames = sum(model_cfg.subsampled_length(FeatureConfig().num_frames(int(n)))
@@ -1555,7 +1711,7 @@ def check_beam(card: str) -> dict:
               "the beam step's loss differs from the greedy step's")
         check(btoks.shape == (BATCH, MAX_LABEL_LEN) and blens.shape == (BATCH,), "beam step output shapes")
     check(torch.equal(beam_outs[0][1].cpu(), toks[:, 0]), "the beam step's 1-best differs from the search on its log-probs")
-    expected = {"stft_logmel": N_BATCHES, "attention_relpos": blocks * N_BATCHES, "lstm": 2 * N_BATCHES, "ctc_alpha": N_BATCHES}
+    expected = {"stft_logmel": N_BATCHES, "attention_relpos": blocks * N_BATCHES, "lstm": N_BATCHES, "ctc_alpha": N_BATCHES}
     check(launches == {**dict.fromkeys(launches, 0), **expected}, f"beam-step launch counts {launches}, want {expected}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -1814,7 +1970,8 @@ def check_repeatability(card: str) -> dict:
     SpecAugment's draws and time warp, the subsampling convs forward and
     backward, the gather behind the CTC loss forward and backward (the
     port's, and torch's own ``gather`` beside it), two ``lstm_dwhh``
-    launches, and one Adafactor update.  Returns the verdicts."""
+    launches, two launches of each cluster LSTM recurrence, and one
+    Adafactor update.  Returns the verdicts."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import (
         FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
     )
@@ -1909,6 +2066,18 @@ def check_repeatability(card: str) -> dict:
     h = torch.randn(b, t, 320, generator=gen).cuda()
     dxw = torch.randn(b, t, 1280, generator=gen).cuda()
     verdicts["lstm_dwhh, two launches"] = torch.equal(L.lstm_weight_grad(h, dxw), L.lstm_weight_grad(h, dxw))
+    xws = [torch.randn(b, t, 1280, generator=gen).cuda() for _ in DIRECTIONS]
+    w_hhs = [(torch.randn(320, 1280, generator=gen) * 320 ** -0.5).cuda() for _ in DIRECTIONS]
+    lengths = mixed_lengths(gen, b, t, t // 3).cuda()
+    _, cs, gates = zip(*L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True))
+
+    def cluster_lstm():
+        """Both directions' h from the forward and dxw from the backward, one launch each."""
+        hs = [h for h, _, _ in L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS)]
+        return hs + L.lstm_backward_directions(hs, gates, cs, w_hhs, lengths, DIRECTIONS)
+
+    verdicts["the cluster LSTM forward and backward, two launches"] = all(map(torch.equal, cluster_lstm(),
+                                                                              cluster_lstm()))
     params = [torch.nn.Parameter(torch.randn(shape, generator=gen).cuda()) for shape in ((320, 1280), (1024,), (4, 64))]
     grads = [torch.randn(p.shape, generator=gen).cuda() for p in params]
 
@@ -1925,6 +2094,7 @@ def check_repeatability(card: str) -> dict:
     print("F2, each step group's op twice on the same inputs in one process: "
           + "; ".join(f"{k} {'bit-equal' if v else 'UNEQUAL'}" for k, v in verdicts.items()) + f"  [{card}]")
     check(verdicts["lstm_dwhh, two launches"], "two lstm_dwhh launches on the same inputs are not bit-equal")
+    check(verdicts["the cluster LSTM forward and backward, two launches"], "two cluster LSTM launches are not bit-equal")
     check(verdicts["the CTC gather's adjoint (the port's emit_log_probs)"], "the CTC gather's adjoint is not bit-equal")
     check(losses_equal and state_equal, f"F2: two fresh processes differ, first at {first}")
     return {"losses_equal": losses_equal, "state_equal": state_equal, "first": first, **verdicts}
@@ -1958,6 +2128,9 @@ def main() -> None:
         check_train_kernels(card, NST_BATCH, frames, NST_MAX_WORDS)
     results.update(check_attention_backward_kernels(card))
     results.update(check_depthwise_conv_kernel(card))
+    # the LSTM route past the cluster's shared memory (Conformer-L's H = 640) and its own path
+    row_results, row_path = check_row_route(card)
+    results.update(row_results)
     serve = check_slice(card)
     train = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False)
     long_train = check_train(card, LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN, long_form=True)
@@ -1989,17 +2162,22 @@ def main() -> None:
         "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:590"),
         "depthwise_conv": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
         "attention_bias": ("csrc/attention_bias.cu", f"{pallas}/attention.py:64"),
+        "lstm_rows": ("csrc/lstm.cu", f"{pallas}/lstm.py:69"),
+        "lstm_backward_rows": ("csrc/lstm.cu", f"{pallas}/lstm.py:107"),
     }
     model_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli)
-    paths = (*model_paths, op)
+    paths = (*model_paths, op, row_path)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
           "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line + the bias-input "
-          f"op: { {k: tuple(path.get(k, 0) for path in paths) for k in sources} }")
-    # no model routes through the bias-input attention, here as in the JAX package: its path is its own op
-    check(not any(path.get("attention_bias", 0) for path in model_paths), "a model path launched the bias-input attention")
-    check(op["attention_bias"] > 0, "the bias-input op's own path did not launch its kernel")
+          f"op + Conformer-L's BiLSTM head: { {k: tuple(path.get(k, 0) for path in paths) for k in sources} }")
+    # no model routes through the bias-input attention, here as in the JAX package: its path is its own op; the
+    # Conformer-M paths run the cluster LSTM kernels, Conformer-L's head the row kernels
+    own_path = {"attention_bias": op, "lstm_rows": row_path, "lstm_backward_rows": row_path}
+    for name, path in own_path.items():
+        check(not any(p.get(name, 0) for p in model_paths), f"a Conformer-M path launched {name}")
+        check(path[name] > 0, f"{name}'s own path did not launch it")
     for name in sources:
-        if name != "attention_bias":
+        if name not in own_path:
             check(sum(path.get(name, 0) for path in model_paths) > 0, f"no model path launched {name}")
     kernels = [
         {

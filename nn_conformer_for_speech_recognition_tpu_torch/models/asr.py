@@ -31,7 +31,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import (
 )
 from nn_conformer_for_speech_recognition_tpu_torch.models.layers import Linear
 from nn_conformer_for_speech_recognition_tpu_torch.models.subsampling import ConvSubsampling
-from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.lstm import lstm, lstm_plain
+from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.lstm import lstm_directions, lstm_plain
 
 
 class BiLSTM(nn.Module):
@@ -40,9 +40,10 @@ class BiLSTM(nn.Module):
     ``w_hh`` (H, 4H) and one ``bias`` (4H,), gates in i, f, g, o order.
     The input projection runs in the compute dtype and is cast to float32;
     the recurrence is float32; the output is cast back to the compute dtype.
-    With ``use_kernel`` the recurrence is `ops.cuda.lstm.lstm` (the kernels
-    and their autograd Function on CUDA, the same Function over the plain
-    twins on the CPU); otherwise `lstm_plain`, differentiated by autograd.
+    With ``use_kernel`` a layer's directions go to `ops.cuda.lstm.lstm_directions`
+    together (on CUDA one launch of each kernel for both, through their
+    autograd Function; on the CPU the same Function over the plain twins);
+    otherwise each direction is `lstm_plain`, differentiated by autograd.
     """
 
     def __init__(
@@ -52,7 +53,7 @@ class BiLSTM(nn.Module):
         super().__init__()
         self.num_layers = num_layers
         self.directions = [("fwd", False)] + ([("bwd", True)] if bidirectional else [])
-        self.run = lstm if use_kernel else lstm_plain
+        self.use_kernel = use_kernel
         d = input_dim
         for i in range(num_layers):
             for name, _ in self.directions:
@@ -63,12 +64,15 @@ class BiLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
+        reverse = [r for _, r in self.directions]
         for i in range(self.num_layers):
-            outs = []
-            for name, reverse in self.directions:
-                w_ih = getattr(self, f"lstm_{name}_{i}_w_ih")
-                xw = (x.to(dtype) @ w_ih.to(dtype)).float() + getattr(self, f"lstm_{name}_{i}_bias")
-                outs.append(self.run(xw, getattr(self, f"lstm_{name}_{i}_w_hh"), lengths, reverse=reverse))
+            xws = [(x.to(dtype) @ getattr(self, f"lstm_{name}_{i}_w_ih").to(dtype)).float()
+                   + getattr(self, f"lstm_{name}_{i}_bias") for name, _ in self.directions]
+            w_hhs = [getattr(self, f"lstm_{name}_{i}_w_hh") for name, _ in self.directions]
+            if self.use_kernel:
+                outs = lstm_directions(xws, w_hhs, lengths, reverse)
+            else:
+                outs = [lstm_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, reverse)]
             x = torch.cat(outs, dim=-1)
         return x.to(dtype)
 

@@ -52,11 +52,26 @@ SIGNATURES = {
     # qu, k, v, bias, lengths, out, batch, t, heads, head_dim, scale, is_bf16,
     # bias_is_bf16, stream
     "attention_bias_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # xw, w_hh, lengths, h_out, c_out | NULL, gates_out | NULL, batch, t,
-    # hidden, reverse, stream
+    # the row route (H past the cluster's): xw, w_hh, lengths, h_out,
+    # c_out | NULL, gates_out | NULL, batch, t, hidden, reverse, stream
     "lstm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # gout, gates, c, w_hh_t, lengths, dxw, batch, t, hidden, reverse, stream
     "lstm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # xw0, xw1 | NULL, w_hh0, w_hh1 | NULL, lengths, h0, h1 | NULL, c0, c1,
+    # gates0, gates1 (c and gates NULL: the inference variant), directions,
+    # reverse0, reverse1, batch, t, hidden, stream
+    "lstm_fwd_cluster": (*(_P,) * 11, _I, _I, _I, _I, _I, _I, _P),
+    # gout0, gout1, gates0, gates1, c0, c1, w_hh0, w_hh1, lengths, dxw0, dxw1
+    # (the second of each NULL for one direction), directions, reverse0,
+    # reverse1, batch, t, hidden, stream
+    "lstm_bwd_cluster": (*(_P,) * 11, _I, _I, _I, _I, _I, _I, _P),
+    # batch, hidden, the device's shared memory per block → fits, CTAs per
+    # cluster, batch rows per cluster, shared bytes per CTA (host only)
+    "lstm_cluster_plan": (_I, _I, _I, _IP, _IP, _IP, _IP),
+    # device → the shared memory a block may opt in to
+    "lstm_smem_optin": (_I, _IP),
+    # iterations, threads, stream: cluster barriers alone (a measurement)
+    "lstm_cluster_barrier_probe": (_I, _I, _P),
     # h, dxw, part | NULL, dw, batch, t, hidden, reverse, rows_per_slice,
     # slices, stream
     "lstm_dwhh": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

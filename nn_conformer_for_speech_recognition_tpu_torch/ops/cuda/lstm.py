@@ -1,4 +1,4 @@
-"""One LSTM direction, forward and backward: kernel wrappers, plain twins
+"""The LSTM recurrence, forward and backward: kernel wrappers, plain twins
 and the autograd Function that joins them.
 
 Replaces the TPU kernels
@@ -11,25 +11,39 @@ emit the carried h and the reverse direction starts at each row's own
 len-1.  The input projection x·W_ih + b and its gradient stay torch ops
 outside, as they are XLA outside the ``custom_vjp`` in the JAX package.
 
-The CUDA kernels (`csrc/lstm.cu`): the forward and the backward recurrence
-run all T steps in one launch each, one block per batch row and thread j
-owning hidden unit j; dW_hh = Σ_t h_prevᵀ·dgates_t, which the TPU kernel
-accumulates inside its recurrence, is hoisted out of it into one product
-over all B·T rows on the tensor cores (TF32 with the 3×TF32 split, float32
-accumulation), split over the rows into slices whose float32 partials a
-second kernel sums in slice order: no atomics, bit-equal from run to run.
+The recurrences take one or more directions (a BiLSTM's two) that share
+the lengths, and run them in one launch.  Two routes (`csrc/lstm.cu`),
+chosen by shape through `cluster_plan`, which the CUDA source owns:
+- the cluster route (H up to 385 on an H100: Conformer-S and -M's H = 320):
+  `lstm_forward_cluster` and `lstm_backward_cluster`.  W_hh is split by
+  hidden unit over the shared memory of a 16-CTA thread-block cluster, one
+  cluster per direction and 16-row batch tile; each step exchanges h
+  (forward) or each unit's partial dh (backward) through distributed shared
+  memory and one cluster barrier.  W_hh is read from memory once per launch,
+  not once per step.
+- the row route (H past it, e.g. Conformer-L's 640): `lstm_forward_rows`
+  and `lstm_backward_rows`, one block per batch row and direction reading
+  all of W_hh from L2 at every step (the backward W_hhᵀ, a transposed copy
+  made per call).
+Either way dW_hh = Σ_t h_prevᵀ·dgates_t, which the TPU kernel accumulates
+inside its recurrence, is hoisted out of it into one product over all B·T
+rows on the tensor cores (`lstm_weight_grad`: TF32 with the 3×TF32 split,
+float32 accumulation), split over the rows into slices whose float32
+partials a second kernel sums in slice order: no atomics, bit-equal from run
+to run.  Each route's wrapper counts its launches (``wrapper.launches``);
+one launch serves every direction of the call.
 
-What bounds them on the H100: each step of either recurrence reads all of
-W_hh (H × 4H float32, 1.6 MB for Conformer-M's H=320) from L2 in every
-block, which exceeds one SM's 227 KB of shared memory; with B=16 only 16
-of the 132 SMs work, and the T steps are strictly sequential.  A cluster
-split of W_hh over distributed shared memory is later work.
+What bounds the recurrences on the H100: the chain of T dependent steps,
+each a (B × H)·(H × 4H) product, so the latency of one step; the cluster
+route's step is one CTA's 1/16 share of the product on the CUDA cores, the
+cell update and one exchange and barrier.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -113,6 +127,11 @@ def lstm_weight_grad_plain(h: torch.Tensor, dxw: torch.Tensor, reverse: bool = F
     return torch.einsum("bth,btg->hg", _previous_in_sequence(h, reverse), dxw)
 
 
+
+
+CLUSTER_UNPLACEABLE = -2  # csrc/lstm.cu::kClusterUnplaceable
+
+
 def _lengths_i32(lengths: torch.Tensor, b: int, device: torch.device) -> torch.Tensor:
     if lengths.shape != (b,):
         raise ValueError("lstm: lengths must be (B,)")
@@ -131,38 +150,201 @@ def _check_cuda(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: unsupported device {x.device}")
 
 
-def lstm_forward(
-    xw: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor, *, reverse: bool = False,
-    save: bool = False,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """One LSTM direction over a padded batch → (h, c, gates): (B, T, H)
-    float32 hidden states, and with ``save`` the cell states and the
-    post-activation gates the backward needs (else None).  The kernel for
-    CUDA tensors, the plain twin for CPU ones."""
-    if xw.device.type == "cpu":
-        h, c, gates = lstm_forward_plain(xw, w_hh, lengths, reverse)
-        return (h, c, gates) if save else (h, None, None)
-    _check_cuda(xw, "lstm_forward")
-    b, t, h4 = xw.shape
-    if xw.dtype != torch.float32:
-        raise ValueError("lstm_forward: xw must be float32")
-    hidden = _check_hidden(w_hh, h4, "lstm_forward")
+def _check_directions(what: str, *per_direction) -> int:
+    """The count of directions, 1 or 2, the same in every per-direction list."""
+    n = len(per_direction[0])
+    if not 1 <= n <= 2 or any(len(x) != n for x in per_direction):
+        raise ValueError(f"{what}: one or two directions, each with every operand")
+    return n
+
+
+def _pair(tensors) -> list:
+    """The data pointers of one or two directions' tensors, None for a
+    missing one (a second direction, or c and gates of the inference variant)."""
+    ptrs = [None if x is None else x.data_ptr() for x in tensors]
+    return ptrs + [None] * (2 - len(ptrs))
+
+
+def _flags(reverse) -> list:
+    return [int(r) for r in reverse] + [0] * (2 - len(reverse))
+
+
+def _check_launch(err: int, kernel: str) -> None:
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
-    xw = xw.contiguous()
-    w_hh = w_hh.to(xw.device).contiguous()
-    lengths = _lengths_i32(lengths, b, xw.device)
-    h = torch.empty(b, t, hidden, device=xw.device, dtype=torch.float32)
+    if err == CLUSTER_UNPLACEABLE:
+        raise RuntimeError(f"{kernel}: no thread-block cluster of 16 CTAs with this shared memory can be placed "
+                           "on the device")
+    build.check(err, kernel)
+
+
+@functools.lru_cache(maxsize=None)
+def smem_optin(device_index: int) -> int:
+    """The shared memory, in bytes, a block may opt in to on the device."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    out = ctypes.c_int()
+    build.check(build.library().lstm_smem_optin(device_index, ctypes.byref(out)), "lstm_smem_optin")
+    return out.value
+
+
+def cluster_plan(batch: int, hidden: int, max_smem: int) -> Tuple[bool, int, int, int]:
+    """(fits, CTAs per cluster, batch rows per cluster, shared bytes per
+    CTA) of the cluster route at (batch, hidden) on a device whose blocks may
+    have ``max_smem`` bytes of shared memory, as
+    `csrc/lstm.cu::lstm_cluster_plan`, which owns the layout, works it out.
+    Past ``fits`` the row route runs."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    fits, cluster, rows, smem = (ctypes.c_int() for _ in range(4))
+    outs = map(ctypes.byref, (fits, cluster, rows, smem))
+    build.check(build.library().lstm_cluster_plan(batch, hidden, max_smem, *outs), "lstm_cluster_plan")
+    return bool(fits.value), cluster.value, rows.value, smem.value
+
+
+def _uses_cluster(batch: int, hidden: int, device: torch.device) -> bool:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return cluster_plan(batch, hidden, smem_optin(index))[0]
+
+
+def lstm_forward_cluster(xws, w_hhs, lengths, reverse, save: bool) -> List[Tuple[torch.Tensor, ...]]:
+    """The cluster forward: one launch for every direction (contiguous
+    float32 CUDA tensors, int32 lengths; `lstm_forward_directions` checks
+    them) → per direction (h, c, gates), c and gates None without ``save``."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    b, t, h4 = xws[0].shape
+    hs = [torch.empty(b, t, h4 // 4, device=xws[0].device, dtype=torch.float32) for _ in xws]
+    cs = [torch.empty_like(h) if save else None for h in hs]
+    gates = [torch.empty_like(xw) if save else None for xw in xws]
+    err = build.library().lstm_fwd_cluster(
+        *_pair(xws), *_pair(w_hhs), lengths.data_ptr(), *_pair(hs), *_pair(cs), *_pair(gates), len(xws),
+        *_flags(reverse), b, t, h4 // 4, build.stream_of(xws[0]),
+    )
+    _check_launch(err, "lstm_fwd_cluster")
+    lstm_forward_cluster.launches += 1
+    return list(zip(hs, cs, gates))
+
+
+def lstm_forward_rows(xw, w_hh, lengths, reverse: bool, save: bool) -> Tuple[torch.Tensor, ...]:
+    """The row forward (one block per batch row) of one direction, for H
+    past the cluster route's shared memory; checked operands as
+    `lstm_forward_cluster`'s."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    b, t, h4 = xw.shape
+    h = torch.empty(b, t, h4 // 4, device=xw.device, dtype=torch.float32)
     c = torch.empty_like(h) if save else None
     gates = torch.empty_like(xw) if save else None
     err = build.library().lstm_fwd(
         xw.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), h.data_ptr(),
         None if c is None else c.data_ptr(), None if gates is None else gates.data_ptr(),
-        b, t, hidden, int(reverse), build.stream_of(xw),
+        b, t, h4 // 4, int(reverse), build.stream_of(xw),
     )
     build.check(err, "lstm_fwd")
-    lstm_forward.launches += 1
+    lstm_forward_rows.launches += 1
     return h, c, gates
+
+
+def lstm_forward_directions(
+    xws: Sequence[torch.Tensor], w_hhs: Sequence[torch.Tensor], lengths: torch.Tensor, reverse: Sequence[bool],
+    *, save: bool = False,
+) -> List[Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]]:
+    """One or two LSTM directions over one padded batch (a BiLSTM's forward
+    and reverse), each its own (B, T, 4H) float32 xw and (H, 4H) w_hh →
+    per direction (h, c, gates): (B, T, H) float32 hidden states, and with
+    ``save`` the cell states and the post-activation gates the backward
+    needs (else None).  For CUDA tensors one launch of the cluster kernel
+    runs every direction (the row kernel, once per direction, where H is
+    past the cluster's shared memory); CPU tensors run the plain twin."""
+    _check_directions("lstm_forward", xws, w_hhs, reverse)
+    if xws[0].device.type == "cpu":
+        outs = [lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, reverse)]
+        return [out if save else (out[0], None, None) for out in outs]
+    _check_cuda(xws[0], "lstm_forward")
+    b, t, h4 = xws[0].shape
+    if any(xw.shape != (b, t, h4) or xw.dtype != torch.float32 or xw.device != xws[0].device for xw in xws):
+        raise ValueError("lstm_forward: every direction's xw must be (B, T, 4H) float32 on one device")
+    for w in w_hhs:
+        hidden = _check_hidden(w, h4, "lstm_forward")
+    xws = [xw.contiguous() for xw in xws]
+    w_hhs = [w.to(xws[0].device).contiguous() for w in w_hhs]
+    lengths = _lengths_i32(lengths, b, xws[0].device)
+    if _uses_cluster(b, hidden, xws[0].device):
+        return lstm_forward_cluster(xws, w_hhs, lengths, reverse, save)
+    return [lstm_forward_rows(xw, w, lengths, r, save) for xw, w, r in zip(xws, w_hhs, reverse)]
+
+
+def lstm_forward(
+    xw: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor, *, reverse: bool = False, save: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """One LSTM direction: `lstm_forward_directions` with one direction."""
+    return lstm_forward_directions([xw], [w_hh], lengths, [reverse], save=save)[0]
+
+
+def lstm_backward_cluster(gouts, gates, cs, w_hhs, lengths, reverse) -> List[torch.Tensor]:
+    """The cluster BPTT: one launch for every direction, W_hh as it is (each
+    CTA reads its slice by rows) → per direction dxw; checked operands as
+    `lstm_forward_cluster`'s."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    b, t, h4 = gates[0].shape
+    dxws = [torch.empty_like(g) for g in gates]
+    err = build.library().lstm_bwd_cluster(
+        *_pair(gouts), *_pair(gates), *_pair(cs), *_pair(w_hhs), lengths.data_ptr(), *_pair(dxws), len(gouts),
+        *_flags(reverse), b, t, h4 // 4, build.stream_of(gouts[0]),
+    )
+    _check_launch(err, "lstm_bwd_cluster")
+    lstm_backward_cluster.launches += 1
+    return dxws
+
+
+def lstm_backward_rows(gout, gates, c, w_hh, lengths, reverse: bool) -> torch.Tensor:
+    """The row BPTT (one block per batch row) of one direction; its product
+    reads a transposed copy of W_hh, (4H, H), for coalesced loads."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    b, t, h4 = gates.shape
+    w_hh_t = w_hh.t().contiguous()
+    dxw = torch.empty_like(gates)
+    err = build.library().lstm_bwd(
+        gout.data_ptr(), gates.data_ptr(), c.data_ptr(), w_hh_t.data_ptr(), lengths.data_ptr(),
+        dxw.data_ptr(), b, t, h4 // 4, int(reverse), build.stream_of(gout),
+    )
+    build.check(err, "lstm_bwd")
+    lstm_backward_rows.launches += 1
+    return dxw
+
+
+def lstm_backward_directions(
+    gouts: Sequence[torch.Tensor],
+    gates: Sequence[torch.Tensor],
+    cs: Sequence[torch.Tensor],
+    w_hhs: Sequence[torch.Tensor],
+    lengths: torch.Tensor,
+    reverse: Sequence[bool],
+) -> List[torch.Tensor]:
+    """BPTT recurrence of one or two directions → per direction dxw (B, T,
+    4H) float32, from the upstream dL/dh (B, T, H) and the forward's saved
+    gates and c.  One cluster launch for CUDA tensors (the row kernel per
+    direction past the cluster's H), the plain twin for CPU ones."""
+    _check_directions("lstm_backward", gouts, gates, cs, w_hhs, reverse)
+    if gouts[0].device.type == "cpu":
+        return [lstm_backward_plain(*args) for args in zip(gouts, gates, cs, w_hhs, [lengths] * len(gouts), reverse)]
+    _check_cuda(gouts[0], "lstm_backward")
+    b, t, h4 = gates[0].shape
+    for w in w_hhs:
+        hidden = _check_hidden(w, h4, "lstm_backward")
+    for name, xs, shape in (("gout", gouts, (b, t, hidden)), ("c", cs, (b, t, hidden)), ("gates", gates, (b, t, h4))):
+        for x in xs:
+            if x.shape != shape or x.dtype != torch.float32 or x.device != gouts[0].device:
+                raise ValueError(f"lstm_backward: {name} must be {shape} float32, got {tuple(x.shape)} {x.dtype}")
+    gouts, gates, cs = ([x.contiguous() for x in xs] for xs in (gouts, gates, cs))
+    w_hhs = [w.to(gouts[0].device).contiguous() for w in w_hhs]
+    lengths = _lengths_i32(lengths, b, gouts[0].device)
+    if _uses_cluster(b, hidden, gouts[0].device):
+        return lstm_backward_cluster(gouts, gates, cs, w_hhs, lengths, reverse)
+    return [lstm_backward_rows(*args) for args in zip(gouts, gates, cs, w_hhs, [lengths] * len(gouts), reverse)]
 
 
 def lstm_backward(
@@ -174,29 +356,8 @@ def lstm_backward(
     *,
     reverse: bool = False,
 ) -> torch.Tensor:
-    """BPTT recurrence → dxw (B, T, 4H) float32.  The kernel for CUDA
-    tensors, the plain twin for CPU ones."""
-    if gout.device.type == "cpu":
-        return lstm_backward_plain(gout, gates, c, w_hh, lengths, reverse)
-    _check_cuda(gout, "lstm_backward")
-    b, t, h4 = gates.shape
-    hidden = _check_hidden(w_hh, h4, "lstm_backward")
-    for name, x, shape in (("gout", gout, (b, t, hidden)), ("c", c, (b, t, hidden))):
-        if x.shape != shape or x.dtype != torch.float32:
-            raise ValueError(f"lstm_backward: {name} must be {shape} float32, got {tuple(x.shape)} {x.dtype}")
-    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
-
-    gout, gates, c = gout.contiguous(), gates.contiguous(), c.contiguous()
-    w_hh_t = w_hh.t().contiguous()  # (4H, H): coalesced reads of dgates · W_hhᵀ
-    lengths = _lengths_i32(lengths, b, gout.device)
-    dxw = torch.empty_like(gates)
-    err = build.library().lstm_bwd(
-        gout.data_ptr(), gates.data_ptr(), c.data_ptr(), w_hh_t.data_ptr(), lengths.data_ptr(),
-        dxw.data_ptr(), b, t, hidden, int(reverse), build.stream_of(gout),
-    )
-    build.check(err, "lstm_bwd")
-    lstm_backward.launches += 1
-    return dxw
+    """BPTT of one direction: `lstm_backward_directions` with one direction."""
+    return lstm_backward_directions([gout], [gates], [c], [w_hh], lengths, [reverse])[0]
 
 
 def dwhh_plan(rows: int, hidden: int, sms: int) -> Tuple[int, int]:
@@ -244,38 +405,60 @@ def lstm_weight_grad(h: torch.Tensor, dxw: torch.Tensor, *, reverse: bool = Fals
 
 
 class LSTMSequence(torch.autograd.Function):
-    """(xw, w_hh) → h with the backward of ``_lstm_seq`` (its
-    ``custom_vjp`` in the JAX package): the forward saves h, c and the
-    gates; the backward runs the recurrence, then the weight gradient."""
+    """Per direction (xw, w_hh) → h, for one or two directions over one
+    batch, with the backward of ``_lstm_seq`` (its ``custom_vjp`` in the
+    JAX package): the forward saves h, c and the gates; the backward runs
+    the recurrence of every direction (one launch), then the weight gradient
+    of each.  Operands: lengths, the directions' reverse flags, then xw and
+    w_hh of each direction in turn."""
 
     @staticmethod
-    def forward(ctx, xw, w_hh, lengths, reverse):
-        h, c, gates = lstm_forward(xw, w_hh, lengths, reverse=reverse, save=True)
-        ctx.save_for_backward(h, c, gates, w_hh, lengths)
+    def forward(ctx, lengths, reverse, *operands):
+        w_hhs = operands[1::2]
+        outs = lstm_forward_directions(operands[0::2], w_hhs, lengths, reverse, save=True)
+        hs, cs, gates = (list(x) for x in zip(*outs))
+        ctx.save_for_backward(lengths, *w_hhs, *hs, *cs, *gates)
         ctx.reverse = reverse
-        return h
+        return tuple(hs)
 
     @staticmethod
-    def backward(ctx, gout):
-        h, c, gates, w_hh, lengths = ctx.saved_tensors
-        dxw = lstm_backward(gout.float(), gates, c, w_hh, lengths, reverse=ctx.reverse)
-        dw = lstm_weight_grad(h, dxw, reverse=ctx.reverse) if ctx.needs_input_grad[1] else None
-        return dxw, dw, None, None
+    def backward(ctx, *gouts):
+        n = len(ctx.reverse)
+        lengths, *saved = ctx.saved_tensors
+        w_hhs, hs, cs, gates = (saved[i * n:(i + 1) * n] for i in range(4))
+        dxws = lstm_backward_directions([g.float() for g in gouts], gates, cs, w_hhs, lengths, ctx.reverse)
+        grads = []
+        for i, (h, dxw, reverse) in enumerate(zip(hs, dxws, ctx.reverse)):
+            grads += [dxw, lstm_weight_grad(h, dxw, reverse=reverse) if ctx.needs_input_grad[3 + 2 * i] else None]
+        return (None, None, *grads)
+
+
+def lstm_directions(
+    xws: Sequence[torch.Tensor], w_hhs: Sequence[torch.Tensor], lengths: torch.Tensor, reverse: Sequence[bool],
+) -> List[torch.Tensor]:
+    """One or two LSTM directions over one padded batch (a BiLSTM's two in
+    one launch of each kernel), per direction (B, T, H) float32 out,
+    differentiable in xw and w_hh.  With autograd recording it goes through
+    `LSTMSequence` (the forward saving c and gates, then the backward
+    kernels); otherwise the forward stores h only.  CPU tensors run the
+    plain twins in the same places."""
+    reverse = tuple(bool(r) for r in reverse)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (*xws, *w_hhs)):
+        return list(LSTMSequence.apply(lengths, reverse, *(x for pair in zip(xws, w_hhs) for x in pair)))
+    return [h for h, _, _ in lstm_forward_directions(xws, w_hhs, lengths, reverse)]
 
 
 def lstm(
     xw: torch.Tensor, w_hh: torch.Tensor, lengths: torch.Tensor, *, reverse: bool = False
 ) -> torch.Tensor:
     """One LSTM direction over a padded batch, (B, T, H) float32 out,
-    differentiable in ``xw`` and ``w_hh``.  With autograd recording it goes
-    through `LSTMSequence` (forward kernel saving c and gates, then the
-    backward kernels); otherwise the forward kernel stores h only.  CPU
-    tensors run the plain twins in the same places."""
-    if torch.is_grad_enabled() and (xw.requires_grad or w_hh.requires_grad):
-        return LSTMSequence.apply(xw, w_hh, lengths, reverse)
-    return lstm_forward(xw, w_hh, lengths, reverse=reverse)[0]
+    differentiable in ``xw`` and ``w_hh``: `lstm_directions` with one
+    direction."""
+    return lstm_directions([xw], [w_hh], lengths, [reverse])[0]
 
 
-lstm_forward.launches = 0
-lstm_backward.launches = 0
+lstm_forward_cluster.launches = 0
+lstm_forward_rows.launches = 0
+lstm_backward_cluster.launches = 0
+lstm_backward_rows.launches = 0
 lstm_weight_grad.launches = 0

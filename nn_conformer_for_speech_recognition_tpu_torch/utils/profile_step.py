@@ -1,19 +1,22 @@
-"""Where one bf16 train step spends the card's time, by kernel group.
+"""Where one bf16 train step, or one pseudo-label batch, spends the card's
+time, by kernel group.
 
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step long    # B=4 × 120 s, 400 targets
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short   # B=16 × 30 s, 100 targets
+    python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step pass    # pseudo-labels, B=16 × 30 s
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short pallas   # conv_impl='pallas'
 
 A second word ``pallas`` profiles the configuration whose depthwise conv is
 the hand-written kernel (``conv_impl='pallas'``) instead of the grouped
 conv1d.  Builds the hand-written kernels, warms Conformer-M's train step
 (`train.loop.make_train_step`: log-mel, SpecAugment, forward, CTC,
-backward, Adafactor; weights and audio from a seed) up over two steps,
-times five steps unprofiled, then runs three under ``torch.profiler`` and
-prints the device time per step by kernel group (first match of `GROUPS`
-on the kernel's name; whatever matches none is elementwise work,
-reductions and copies), the launches per step and the card's busy share.
-Needs a CUDA device.
+backward, Adafactor) or its pseudo-label pass (`train.loop.make_predict_step`:
+log-mel, forward, greedy decode), weights and audio from a seed, up over
+two calls, times five calls unprofiled, then runs three under
+``torch.profiler`` and prints the device time per call by kernel group
+(first match of `GROUPS` on the kernel's name; whatever matches none is
+elementwise work, reductions and copies), the launches per call and the
+card's busy share.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ GROUPS = (
     ("attention bwd dq", ("bwd_dq_kernel",)),
     ("attention bwd dkv", ("bwd_dkv_kernel",)),
     ("attention bwd dband (+ reduce)", ("bwd_dband_kernel", "dband_reduce_kernel")),
-    ("lstm_fwd", ("lstm_fwd_kernel",)),
-    ("lstm_bwd", ("lstm_bwd_kernel",)),
+    # the cluster route (lstm_fwd_cluster_kernel, both directions in one launch) and the row route (lstm_fwd_kernel)
+    ("lstm_fwd", ("lstm_fwd_cluster_kernel", "lstm_fwd_kernel")),
+    ("lstm_bwd", ("lstm_bwd_cluster_kernel", "lstm_bwd_kernel")),
     ("lstm_dwhh (+ reduce)", ("lstm_dwhh_kernel", "lstm_dwhh_reduce_kernel")),
     ("ctc alpha + beta", ("ctc_alpha_kernel", "ctc_beta_kernel")),
     ("stft_logmel", ("stft_logmel_kernel",)),
@@ -48,7 +52,10 @@ def group_of(kernel_name: str) -> str:
     return next((group for group, words in GROUPS if any(w in key for w in words)), REST)
 
 
-def profile_train_step(batch: int, seconds: float, target_len: int, conv_impl: str = "auto") -> None:
+def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: str = "auto",
+                       predict: bool = False) -> None:
+    """Profiles the bf16 train step at (batch, seconds, target_len), or with
+    ``predict`` the pseudo-label pass at (batch, seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -57,7 +64,7 @@ def profile_train_step(batch: int, seconds: float, target_len: int, conv_impl: s
     )
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
-    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_train_step
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predict_step, make_train_step
     from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
     from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
 
@@ -66,23 +73,34 @@ def profile_train_step(batch: int, seconds: float, target_len: int, conv_impl: s
     build.build()
     gen = torch.Generator().manual_seed(SEED)
     model = init_params(ConformerCTC(conformer_m(use_pallas=True, conv_impl=conv_impl), VOCAB), gen).cuda()
-    state = TrainState.create(model, make_optimizer(OptimizerConfig(), model.named_parameters()), SEED)
-    step = make_train_step(model, FeatureConfig(), SpecAugmentConfig(), blank_id=0)
     n_samples = int(seconds * FeatureConfig().sample_rate)
     freqs = 100.0 + 3000.0 * torch.rand(batch, 1, generator=gen)
     tones = torch.sin(2 * torch.pi * freqs * torch.arange(n_samples) / 16000.0)
     audio = (0.1 * tones + 0.05 * torch.randn(batch, n_samples, generator=gen)).cuda()
-    args = (audio, torch.full((batch,), n_samples, device="cuda"),
-            torch.randint(3, VOCAB, (batch, target_len), generator=gen).cuda(),
-            torch.full((batch,), target_len, device="cuda"))
+    audio_lengths = torch.full((batch,), n_samples, device="cuda")
+    if predict:
+        model.eval()
+        predict_step = make_predict_step(model, FeatureConfig(), pad_id=0)
+        call = lambda: predict_step(audio, audio_lengths)  # noqa: E731
+        what = f"bf16 pseudo-label pass (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips"
+    else:
+        state = TrainState.create(model, make_optimizer(OptimizerConfig(), model.named_parameters()), SEED)
+        train_step = make_train_step(model, FeatureConfig(), SpecAugmentConfig(), blank_id=0)
+        args = (audio, audio_lengths, torch.randint(3, VOCAB, (batch, target_len), generator=gen).cuda(),
+                torch.full((batch,), target_len, device="cuda"))
+
+        def call():
+            nonlocal state
+            state, _ = train_step(state, *args)
+
+        what = f"bf16 train step (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips, {target_len} targets"
 
     def run(n: int) -> float:
-        """Milliseconds per step over ``n`` steps, host clock around a synchronise."""
-        nonlocal state
+        """Milliseconds per call over ``n`` calls, host clock around a synchronise."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = step(state, *args)
+            call()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / n * 1e3
 
@@ -99,17 +117,17 @@ def profile_train_step(batch: int, seconds: float, target_len: int, conv_impl: s
     device_ms, launches = sum(g[0] for g in groups.values()), sum(g[1] for g in groups.values())
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    print(f"bf16 train step (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips, {target_len} targets: {plain_ms:.2f} ms/step unprofiled "
-          f"over 5 steps, {profiled_ms:.2f} ms/step under the profiler over {PROFILED_STEPS}; kernel device time "
-          f"{device_ms:.2f} ms/step in {launches:.0f} launches/step; busy share {device_ms / plain_ms:.3f} of the "
-          f"unprofiled step, {device_ms / profiled_ms:.3f} under the profiler  [{card}]")
+    print(f"{what}: {plain_ms:.2f} ms/call unprofiled over 5 calls, {profiled_ms:.2f} ms/call under the profiler over "
+          f"{PROFILED_STEPS}; kernel device time {device_ms:.2f} ms/call in {launches:.0f} launches/call; busy share "
+          f"{device_ms / plain_ms:.3f} of the unprofiled call, {device_ms / profiled_ms:.3f} under the profiler  [{card}]")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {name}: {ms:.3f} ms/step ({ms / device_ms:.1%}), {count:.0f} launches/step")
+        print(f"  {name}: {ms:.3f} ms/call ({ms / device_ms:.1%}), {count:.0f} launches/call")
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] not in (["long"], ["short"]) or sys.argv[2:] not in ([], ["pallas"]):
+    if sys.argv[1:2] not in (["long"], ["short"], ["pass"]) or sys.argv[2:] not in ([], ["pallas"]):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
-    profile_train_step(*SHAPES[sys.argv[1]], conv_impl="pallas" if sys.argv[2:] else "auto")
+    shape = SHAPES["short" if sys.argv[1] == "pass" else sys.argv[1]]
+    profile_main_path(*shape, conv_impl="pallas" if sys.argv[2:] else "auto", predict=sys.argv[1] == "pass")

@@ -174,6 +174,11 @@ def test_attention_backward_kernels(cuda, kernel, b, t, h, dh, lengths, dtype):
         _close(x, r, max(2.0 ** -7 * r.abs().max().item(), 5e-4) if dtype == torch.bfloat16 else 5e-4)
 
 
+# the cluster route's forward and backward, dW_hh, then the row route's forward and backward
+LSTM_COUNTERS = (L.lstm_forward_cluster, L.lstm_backward_cluster, L.lstm_weight_grad, L.lstm_forward_rows,
+                 L.lstm_backward_rows)
+
+
 def _lstm_case(gen, hidden, reverse, t=235):
     b = 4
     xw = torch.randn(b, t, 4 * hidden, generator=gen).cuda()
@@ -255,14 +260,131 @@ def test_lstm_gradients_reach_xw_and_w_hh(cuda, reverse):
     grads = []
     for fn in (L.lstm, lambda *a, reverse: L.lstm_plain(*a, reverse)):
         x, w = xw.clone().requires_grad_(True), w_hh.clone().requires_grad_(True)
-        before = (L.lstm_forward.launches, L.lstm_backward.launches, L.lstm_weight_grad.launches)
+        before = [k.launches for k in LSTM_COUNTERS]
         (fn(x, w, lengths, reverse=reverse) * r).sum().backward()
-        after = (L.lstm_forward.launches, L.lstm_backward.launches, L.lstm_weight_grad.launches)
+        after = [k.launches for k in LSTM_COUNTERS]
         grads.append((x.grad, w.grad, [a - b for a, b in zip(after, before)]))
     (dx, dw, counts), (dx_ref, dw_ref, _) = grads
-    assert counts == [1, 1, 1]
+    assert counts == [1, 1, 1, 0, 0]
     _close(dx, dx_ref, 1e-4)
     _close(dw, dw_ref, 1e-4 * dw_ref.abs().max().item())
+
+
+
+def _bilstm_case(gen, b, t, hidden):
+    """Both directions' xw and w_hh, and lengths that hold T, 1, 0 and
+    T//2+1 (as far as B allows; 0 and 1 clipped to T), then random ones."""
+    xws = [torch.randn(b, t, 4 * hidden, generator=gen).cuda() for _ in range(2)]
+    w_hhs = [(torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).cuda() for _ in range(2)]
+    pattern = [t, 1, 0, t // 2 + 1]
+    lengths = torch.randint(0, t + 1, (b,), generator=gen)
+    lengths[:4] = torch.tensor(pattern[: min(b, 4)])
+    return xws, w_hhs, lengths.to(torch.int32).cuda()
+
+
+@pytest.mark.parametrize("save", [False, True])
+@pytest.mark.parametrize("t", [1, 14, 235, 938])
+@pytest.mark.parametrize("b", [1, 4, 16, 17, 33])
+@pytest.mark.parametrize("hidden", [13, 16, 320])
+def test_lstm_cluster_forward_kernel(cuda, hidden, b, t, save):
+    """The cluster forward, both template variants, against the twin for
+    each direction: one launch for both directions, and each direction
+    alone, bit-equal to it.  H = 13 does not divide by the 16 CTAs (the
+    last ones own no unit); B = 17 and 33 take a second and third 16-row
+    tile (the third of one row)."""
+    xws, w_hhs, lengths = _bilstm_case(cuda, b, t, hidden)
+    before = L.lstm_forward_cluster.launches
+    both = L.lstm_forward_directions(xws, w_hhs, lengths, (False, True), save=save)
+    alone = [L.lstm_forward(xw, w, lengths, reverse=r, save=save) for xw, w, r in zip(xws, w_hhs, (False, True))]
+    assert L.lstm_forward_cluster.launches == before + 3
+    for xw, w, reverse, got, one in zip(xws, w_hhs, (False, True), both, alone):
+        ref = L.lstm_forward_plain(xw, w, lengths, reverse)
+        assert (got[1] is None) == (got[2] is None) == (not save)
+        for g, o, r in zip(got, one, ref):
+            if g is not None:
+                _close(g, r, 1e-4)
+                assert torch.equal(g, o)
+
+
+@pytest.mark.parametrize("t", [1, 14, 235, 938])
+@pytest.mark.parametrize("b", [1, 4, 16, 17, 33])
+@pytest.mark.parametrize("hidden", [13, 16, 320])
+def test_lstm_cluster_backward_kernel(cuda, hidden, b, t):
+    """The cluster BPTT against the twin for each direction, from the
+    twin's saved gates and c: one launch for both directions, each
+    direction alone bit-equal to it, and a second launch bit-equal to the
+    first (the 16 partials of a unit are added in rank order, no atomics)."""
+    xws, w_hhs, lengths = _bilstm_case(cuda, b, t, hidden)
+    saved = [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, (False, True))]
+    gouts = [torch.randn(b, t, hidden, generator=cuda).cuda() for _ in range(2)]
+    gates, cs = [s[2] for s in saved], [s[1] for s in saved]
+    before = L.lstm_backward_cluster.launches
+    both = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, (False, True))
+    again = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, (False, True))
+    alone = [L.lstm_backward(*args, lengths, reverse=r) for *args, r in zip(gouts, gates, cs, w_hhs, (False, True))]
+    assert L.lstm_backward_cluster.launches == before + 4
+    for i, reverse in enumerate((False, True)):
+        _close(both[i], L.lstm_backward_plain(gouts[i], gates[i], cs[i], w_hhs[i], lengths, reverse), 1e-4)
+        assert torch.equal(both[i], again[i]) and torch.equal(both[i], alone[i])
+
+
+def test_lstm_two_directions_differentiate_in_one_launch_each(cuda):
+    """`lstm_directions` with autograd: h and the gradients in xw and w_hh of
+    both directions equal those of autograd through the plain loop, through
+    one cluster forward, one cluster backward and two dW_hh launches."""
+    xws, w_hhs, lengths = _bilstm_case(cuda, 16, 235, 320)
+    rs = [torch.randn(16, 235, 320, generator=cuda).cuda() for _ in range(2)]
+    runs = []
+    for fn in (L.lstm_directions, lambda x, w, n, rev: [L.lstm_plain(*a, n, r) for *a, r in zip(x, w, rev)]):
+        leaves = [t.clone().requires_grad_(True) for t in (*xws, *w_hhs)]
+        before = [k.launches for k in LSTM_COUNTERS]
+        hs = fn(leaves[:2], leaves[2:], lengths, (False, True))
+        sum((h * r).sum() for h, r in zip(hs, rs)).backward()
+        runs.append(([h.detach() for h in hs], [x.grad for x in leaves],
+                     [k.launches - n for k, n in zip(LSTM_COUNTERS, before)]))
+    (hs, grads, counts), (hs_ref, grads_ref, _) = runs
+    assert counts == [1, 1, 2, 0, 0]
+    for h, ref in zip(hs, hs_ref):
+        _close(h, ref, 1e-4)
+    for g, ref in zip(grads, grads_ref):
+        _close(g, ref, 1e-4 * max(1.0, ref.abs().max().item()))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("save", [False, True])
+def test_lstm_row_route_past_the_cluster(cuda, reverse, save):
+    """H = 640 (Conformer-L) does not fit the cluster's shared memory: the
+    plan sends it to the row kernels, one launch per direction, which agree
+    with their twins; the cluster kernels are not launched."""
+    xws, w_hhs, lengths = _bilstm_case(cuda, 4, 235, 640)
+    before = [k.launches for k in LSTM_COUNTERS]
+    both = L.lstm_forward_directions(xws, w_hhs, lengths, (reverse, not reverse), save=save)
+    gouts = [torch.randn(4, 235, 640, generator=cuda).cuda() for _ in range(2)]
+    saved = [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, (reverse, not reverse))]
+    dxws = L.lstm_backward_directions(gouts, [s[2] for s in saved], [s[1] for s in saved], w_hhs, lengths,
+                                      (reverse, not reverse))
+    assert [k.launches - n for k, n in zip(LSTM_COUNTERS, before)] == [0, 0, 0, 2, 2]
+    for got, ref, dxw, gout, w, r in zip(both, saved, dxws, gouts, w_hhs, (reverse, not reverse)):
+        for g, rf in zip(got, ref):
+            if g is not None:
+                _close(g, rf, 1e-4)
+        _close(dxw, L.lstm_backward_plain(gout, ref[2], ref[1], w, lengths, r), 1e-4)
+
+
+@pytest.mark.parametrize("batch, hidden, want", [
+    (16, 320, (True, 16, 16, 166400)),  # Conformer-M: 100 KB of w_hh's slice, double-buffered h, partial gates
+    (4, 320, (True, 16, 4, 166400)),    # the long-form batch: one tile of 4 rows
+    (33, 13, (True, 16, 16, 4048)),     # one unit a CTA, the last three own none
+    (4, 385, (True, 16, 4, 232032)),    # the largest H whose forward fits 232,448 bytes
+    (4, 386, (False, 16, 4, 232560)),
+    (16, 640, (False, 16, 16, 537600)),  # Conformer-L: the row route
+])
+def test_lstm_cluster_plan(cuda, batch, hidden, want):
+    """The cluster route's plan, as the CUDA source works it out for the
+    H100's 232,448 bytes of shared memory a block: whether it fits, CTAs per
+    cluster, rows per cluster, the larger of the forward's and the
+    backward's shared memory per CTA."""
+    assert L.cluster_plan(batch, hidden, 232448) == want
 
 
 def _ctc_case(gen, b=16, t=235, length=100, vocab=1024):
