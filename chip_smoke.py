@@ -721,13 +721,24 @@ def check_attention_backward_kernels(card: str) -> dict:
     """The lse forward and the dq, dkv and dband kernels against their
     plain twins, float32 and bf16, at the long-form step's shape (ragged:
     one row full, one short, one shorter than a tile) and at the 30 s
-    shape; the bf16 numbers at the long-form shape go into the result."""
+    shape; the bf16 numbers at the long-form shape go into the result.
+    In bf16, dq and dband are the tensor-core kernels: their registers,
+    spills and blocks an SM are read first (no spill at dh = 64, two
+    blocks an SM), and the twin on a band shifted by one row (a skew or
+    unskew off by one) must miss the bar that they meet."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 4)
     results = {}
     h, dh = 4, 64
+    for kernel in ("dq", "dband"):
+        plans = {width: A.relpos_bwd_tc_plan(kernel, width) for width in A.HEAD_DIMS}
+        print(f"bf16 {kernel} on the tensor cores, by head width: "
+              + "; ".join(f"dh {w}: {pl['registers']} registers, {pl['local_bytes']} B local, "
+                          f"{pl['smem_bytes']} B shared, {pl['blocks_per_sm']} blocks an SM" for w, pl in plans.items()))
+        check(plans[dh]["local_bytes"] == 0, f"the bf16 {kernel} kernel spills at dh = {dh}")
+        check(plans[dh]["blocks_per_sm"] >= 2, f"the bf16 {kernel} kernel holds fewer than two blocks an SM")
     shapes = [(LONG_BATCH, 938, torch.tensor([938, 500, 20, 811], dtype=torch.int32)),
               (BATCH, 235, mixed_lengths(gen, BATCH, 235, 235 // 3))]
     for b, t, lengths in shapes:
@@ -762,6 +773,15 @@ def check_attention_backward_kernels(card: str) -> dict:
             for n, e in errs.items():
                 check(e <= tols[n], f"attention {'forward with lse' if n in ('out', 'lse') else 'backward'} "
                                     f"({name}): {n} disagrees with the plain twin")
+            if bf16:  # the control: a band one row off misses the bar the kernels meet
+                p_dev = args[4]
+                shifted_p = torch.cat([p_dev[1:], torch.zeros_like(p_dev[:1])])
+                shifted = A.flash_relpos_attention_backward_plain(*args[:4], shifted_p, *args[5:], out_ref, lse_ref, gd)
+                misses = {n: max_abs(shifted[i], ref[i]) for i, n in ((1, "dqv"), (4, "dp"))}
+                print("  the twin on a band one row off: max|Δ| (tol) "
+                      + ", ".join(f"{n} {e:.3e} ({tols[n]:.1e})" for n, e in misses.items()))
+                for n, e in misses.items():
+                    check(e > tols[n], f"the bf16 bar does not see a band one row off in {n}")
 
             times = {
                 "lse": cuda_ms(lambda: A.flash_relpos_attention_forward_lse(*args)),
@@ -779,8 +799,15 @@ def check_attention_backward_kernels(card: str) -> dict:
 
             times["einsum_autograd"] = cuda_ms(lambda: autograd(A.flash_relpos_attention_plain), iters=5)
             times["kernel_autograd"] = cuda_ms(lambda: autograd(A.flash_relpos_attention), iters=5)
+            device = {
+                "lse": device_ms(lambda: A.flash_relpos_attention_forward_lse(*args)),
+                "dq": device_ms(lambda: A.flash_relpos_attention_bwd_dq(*call)),
+                "dkv": device_ms(lambda: A.flash_relpos_attention_bwd_dkv(*call)),
+                "dband": device_ms(lambda: A.flash_relpos_attention_bwd_dband(*call)),
+            }
             print(f"  times, ms: " + ", ".join(f"{n} {x:.4f}" for n, x in times.items())
-                  + f"  (plain_bwd computes all five gradients; *_autograd: forward + backward)  [{card}]")
+                  + f"  (plain_bwd computes all five gradients; *_autograd: forward + backward); device ms: "
+                  + ", ".join(f"{n} {x:.4f}" for n, x in device.items()) + f"  [{card}]")
             if (b, dtype) != (LONG_BATCH, torch.bfloat16):
                 continue
             # bytes: each (B,T,H,dh) input and output once, the table, lse and delta; operations per
@@ -2157,9 +2184,11 @@ def main() -> None:
         "ctc_alpha": ("csrc/ctc.cu", f"{pallas}/ctc.py:57"),
         "ctc_beta": ("csrc/ctc.cu", f"{pallas}/ctc.py:95"),
         "attention_relpos_lse": ("csrc/attention_relpos.cu", f"{pallas}/attention.py:281"),
-        "attention_relpos_bwd_dq": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:530"),
+        # bf16, the main path's type: the tensor-core kernels (float32 runs bwd_dq_kernel and bwd_dband_kernel
+        # of csrc/attention_relpos_bwd.cu)
+        "attention_relpos_bwd_dq": ("csrc/attention_relpos_bwd_tc.cu", f"{pallas}/attention.py:530"),
         "attention_relpos_bwd_dkv": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:559"),
-        "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd.cu", f"{pallas}/attention.py:590"),
+        "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd_tc.cu", f"{pallas}/attention.py:590"),
         "depthwise_conv": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
         "attention_bias": ("csrc/attention_bias.cu", f"{pallas}/attention.py:64"),
         "lstm_rows": ("csrc/lstm.cu", f"{pallas}/lstm.py:69"),

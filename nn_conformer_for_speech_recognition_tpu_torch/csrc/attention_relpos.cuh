@@ -1,7 +1,8 @@
-// Shared by the rel-pos attention kernels (attention_relpos.cu and
-// attention_relpos_bwd.cu): tile sizes, type conversions and the loaders
-// that bring (rows, DH) tiles of the (B, T, H, dh) tensors and bands of the
-// (2T-1, H, dh) rel-pos table into shared memory as float32.
+// Shared by the rel-pos attention kernels (attention_relpos.cu,
+// attention_relpos_bwd.cu and attention_relpos_bwd_tc.cu): tile sizes, type
+// conversions, the loaders that bring (rows, DH) tiles of the (B, T, H, dh)
+// tensors and bands of the (2T-1, H, dh) rel-pos table into shared memory
+// as float32, the backward's arguments and the table gradient's batch sum.
 
 #pragma once
 
@@ -52,6 +53,45 @@ __device__ __forceinline__ void load_band(float* dst, const T* __restrict__ p, i
     dst[r * (DH + 1) + d] =
         (rel >= 0 && rel < n_rel) ? to_float(p[(static_cast<size_t>(rel) * heads + head) * DH + d]) : 0.f;
   }
+}
+
+// The arguments of one backward launch.  Layout: qu, qv, k, v, g (dO) and
+// the gradients (B, T, H, dh), p and dp (2T-1, H, dh), lse and delta
+// (B, H, T) float32, all contiguous.
+struct BwdArgs {
+  const void *qu, *qv, *k, *v, *p;
+  const int* lengths;
+  const void* g;
+  const float *lse, *delta;
+  void *out0, *out1;  // dq: dqu, dqv; dkv: dk, dv; dband: dp, float32 partials (B, 2T-1, H, dh)
+  int batch, seq, heads;
+  float scale;
+  cudaStream_t stream;
+};
+
+// bfloat16 inputs: the tensor-core dq and dband kernels (attention_relpos_bwd_tc.cu)
+cudaError_t bwd_dq_tc(int head_dim, const BwdArgs& a);
+cudaError_t bwd_dband_tc(int head_dim, const BwdArgs& a);
+
+constexpr int kReduceThreads = 256;
+
+// dp[x] = sum over the batch rows' float32 partials, in order: the table
+// gradient is the same bits from launch to launch, with no atomics.
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+dband_reduce_kernel(const float* __restrict__ partial, T* __restrict__ dp, int batch, size_t n) {
+  const size_t x = static_cast<size_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
+  if (x >= n) return;
+  float sum = 0.f;
+  for (int b = 0; b < batch; ++b) sum += partial[b * n + x];
+  dp[x] = from_float<T>(sum);
+}
+
+template <typename T>
+cudaError_t launch_dband_reduce(const float* partial, T* dp, int batch, size_t n, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((n + kReduceThreads - 1) / kReduceThreads);
+  dband_reduce_kernel<T><<<blocks, kReduceThreads, 0, stream>>>(partial, dp, batch, n);
+  return cudaGetLastError();
 }
 
 }  // namespace relpos

@@ -30,6 +30,11 @@
 // partial; a second kernel adds the batch rows' partials in order and casts.
 //
 // Bound on the H100: float32 FMAs on the CUDA cores, fed from shared memory.
+//
+// Routes: float32 inputs run all three kernels here.  bfloat16 inputs run
+// dkv here and go for dq and dband to the tensor-core kernels of
+// attention_relpos_bwd_tc.cu (bwd_dq_tc_kernel, bwd_dband_tc_kernel): the
+// bfloat16 dq and dband kernels of this file are not compiled.
 
 #include <cmath>
 
@@ -41,20 +46,8 @@ using namespace relpos;
 
 constexpr int kTile = 32;           // kBlockQ == kBlockK
 constexpr int kDsLd = kTile + 1;    // row stride of the ds and prob tiles
-constexpr int kReduceThreads = 256;
 
 enum Kind { kDq, kDkv, kDband };
-
-struct Args {
-  const void *qu, *qv, *k, *v, *p;
-  const int* lengths;
-  const void* g;
-  const float *lse, *delta;
-  void *out0, *out1;  // dq: dqu, dqv; dkv: dk, dv; dband: dp, float32 partials
-  int batch, seq, heads;
-  float scale;
-  cudaStream_t stream;
-};
 
 template <int KIND, int DH>
 constexpr size_t smem_bytes() {
@@ -363,17 +356,6 @@ bwd_dband_kernel(const T* __restrict__ qu, const T* __restrict__ qv, const T* __
   }
 }
 
-// dp[x] = sum over the batch rows' partials, in order.
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-dband_reduce_kernel(const float* __restrict__ partial, T* __restrict__ dp, int batch, size_t n) {
-  const size_t x = static_cast<size_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
-  if (x >= n) return;
-  float sum = 0.f;
-  for (int b = 0; b < batch; ++b) sum += partial[b * n + x];
-  dp[x] = from_float<T>(sum);
-}
-
 template <int KIND, typename T, int DH>
 auto kernel_of() {
   if constexpr (KIND == kDq) {
@@ -386,7 +368,7 @@ auto kernel_of() {
 }
 
 template <int KIND, typename T, int DH>
-cudaError_t launch(const Args& a) {
+cudaError_t launch(const BwdArgs& a) {
   constexpr size_t smem = smem_bytes<KIND, DH>();
   auto kernel = kernel_of<KIND, T, DH>();
   static bool configured = false;
@@ -410,10 +392,8 @@ cudaError_t launch(const Args& a) {
                                                partial, a.seq, a.heads, a.scale);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const size_t n = static_cast<size_t>(n_rel) * a.heads * DH;
-    const unsigned blocks = static_cast<unsigned>((n + kReduceThreads - 1) / kReduceThreads);
-    dband_reduce_kernel<T><<<blocks, kReduceThreads, 0, a.stream>>>(
-        partial, static_cast<T*>(a.out0), a.batch, n);
+    return launch_dband_reduce<T>(partial, static_cast<T*>(a.out0), a.batch,
+                                  static_cast<size_t>(n_rel) * a.heads * DH, a.stream);
   } else {
     const dim3 grid((a.seq + kTile - 1) / kTile, a.heads, a.batch);
     kernel<<<grid, kThreads, smem, a.stream>>>(qu, qv, k, v, p, a.lengths, g, a.lse, a.delta,
@@ -424,7 +404,7 @@ cudaError_t launch(const Args& a) {
 }
 
 template <int KIND, typename T>
-cudaError_t dispatch_dim(int head_dim, const Args& a) {
+cudaError_t dispatch_dim(int head_dim, const BwdArgs& a) {
   switch (head_dim) {
     case 16: return launch<KIND, T, 16>(a);
     case 32: return launch<KIND, T, 32>(a);
@@ -439,10 +419,17 @@ int dispatch(const void* qu, const void* qv, const void* k, const void* v, const
              const void* lengths, const void* g, const void* lse, const void* delta, void* out0,
              void* out1, int batch, int seq, int heads, int head_dim, float scale, int is_bf16,
              void* stream) {
-  const Args a{qu, qv, k, v, p, static_cast<const int*>(lengths), g,
-               static_cast<const float*>(lse), static_cast<const float*>(delta), out0, out1,
-               batch, seq, heads, scale, static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dispatch_dim<KIND, __nv_bfloat16>(head_dim, a) : dispatch_dim<KIND, float>(head_dim, a);
+  const BwdArgs a{qu, qv, k, v, p, static_cast<const int*>(lengths), g,
+                  static_cast<const float*>(lse), static_cast<const float*>(delta), out0, out1,
+                  batch, seq, heads, scale, static_cast<cudaStream_t>(stream)};
+  if (!is_bf16) return dispatch_dim<KIND, float>(head_dim, a);
+  if constexpr (KIND == kDq) {
+    return bwd_dq_tc(head_dim, a);
+  } else if constexpr (KIND == kDband) {
+    return bwd_dband_tc(head_dim, a);
+  } else {
+    return dispatch_dim<KIND, __nv_bfloat16>(head_dim, a);
+  }
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
-// Shared by the tensor-core kernels (lstm.cu's dW_hh, attention_bias.cu's
-// bfloat16 path), sm_80 and later: asynchronous global → shared copies,
-// ldmatrix, and the mma.sync products they feed.
+// Shared by the tensor-core kernels (lstm.cu's dW_hh, the bfloat16 paths of
+// attention_bias.cu and attention_relpos_bwd_tc.cu), sm_80 and later:
+// asynchronous global → shared copies, ldmatrix, and the mma.sync products
+// they feed.
 
 #pragma once
 

@@ -26,15 +26,22 @@ The CUDA kernels (`csrc/attention_relpos.cu`, `csrc/attention_relpos_bwd.cu`)
 work on 32 × 32 tiles with 256 threads, float32 accumulation on the CUDA
 cores, and read the rel-pos row by index from a band held in shared memory:
 the TPU kernels' lane-roll ``_skew`` / ``_unskew`` are not needed.  The
-table gradient is deterministic: a block owns (32 table rows, head, batch
-row) and walks the query tiles in order into a float32 partial, and a second
+table gradient is deterministic: a block owns (table rows, head, batch row)
+and walks the query tiles in order into a float32 partial, and a second
 kernel sums the partials over the batch in order.  Inputs may be bfloat16 or
 float32; outputs have the inputs' dtype; lse and delta are float32.
 
 What bounds them on the H100: float32 FMAs fed from shared memory (two to
 three dot products of length dh per score, two products per output); the
-tiles are L2-resident, so device-memory traffic is O(B·T·H·dh).  Tensor-core
-(wgmma) tiles and TMA loads are later work.
+tiles are L2-resident, so device-memory traffic is O(B·T·H·dh).
+
+For bfloat16 inputs, dq and dband run instead on the tensor cores
+(`csrc/attention_relpos_bwd_tc.cu`: ``mma.sync`` in bf16 with float32 sums,
+64-row tiles brought by ``cp.async`` one tile ahead, the skew and unskew an
+index into a per-warp buffer, ds rounded once to bf16 before the products
+that follow it); the wrappers and their launch counts are the same, and a
+refused launch raises as any other.  dkv and the forward keep the kernels
+above in both types.
 
 The bias-input variant (`flash_attention`, `csrc/attention_bias.cu`) replaces
 ``_flash_kernel`` of the same TPU module and its ``custom_vjp``
@@ -219,6 +226,8 @@ def _launch_backward(symbol: str, shapes_like, qu, qv, k, v, p, lengths, scale, 
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
     qu, qv, k, v, p, g, lse, delta = (x.contiguous() for x in (qu, qv, k, v, p, g, lse, delta))
+    if qu.dtype == torch.bfloat16:  # the tensor-core kernels copy 16 bytes at a time
+        qu, qv, k, v, p, g = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (qu, qv, k, v, p, g))
     lengths = _lengths_i32(lengths, qu.device)
     outs = [torch.empty_like(x) for x in shapes_like]
     scratch = []
@@ -231,6 +240,26 @@ def _launch_backward(symbol: str, shapes_like, qu, qv, k, v, p, lengths, scale, 
     )
     build.check(err, symbol)
     return outs
+
+
+def relpos_bwd_tc_plan(kernel: str, head_dim: int) -> dict:
+    """What the card makes of a bfloat16 tensor-core backward kernel
+    (``kernel`` "dq" or "dband") at ``head_dim``: blocks an SM holds at once
+    (the occupancy calculator, after the kernel's shared-memory opt-in),
+    registers a thread, local memory a thread (non-zero: spills or a stack
+    frame) and dynamic shared memory a block.  Needs a CUDA device; launches
+    nothing."""
+    import ctypes
+
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"relpos_bwd_tc_plan: head_dim {head_dim} not in {HEAD_DIMS}")
+    values = [ctypes.c_int(0) for _ in range(4)]
+    err = build.library().attention_relpos_bwd_tc_plan(
+        {"dq": 0, "dband": 1}[kernel], head_dim, *(ctypes.byref(x) for x in values))
+    build.check(err, f"attention_relpos_bwd_tc_plan({kernel}, {head_dim})")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem_bytes"), (x.value for x in values)))
 
 
 def flash_relpos_attention_bwd_dq(

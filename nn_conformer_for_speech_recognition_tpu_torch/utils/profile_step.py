@@ -32,9 +32,10 @@ VOCAB, SEED, PROFILED_STEPS = 1024, 3, 3
 REST = "elementwise, reductions, copies"
 GROUPS = (
     ("attention forward + lse", ("attention_relpos_kernel",)),
-    ("attention bwd dq", ("bwd_dq_kernel",)),
+    # dq and dband: the tensor-core kernels in bf16 (bwd_dq_tc_kernel, bwd_dband_tc_kernel), the CUDA-core ones in float32
+    ("attention bwd dq", ("bwd_dq_kernel", "bwd_dq_tc_kernel")),
     ("attention bwd dkv", ("bwd_dkv_kernel",)),
-    ("attention bwd dband (+ reduce)", ("bwd_dband_kernel", "dband_reduce_kernel")),
+    ("attention bwd dband (+ reduce)", ("bwd_dband_kernel", "bwd_dband_tc_kernel", "dband_reduce_kernel")),
     # the cluster route (lstm_fwd_cluster_kernel, both directions in one launch) and the row route (lstm_fwd_kernel)
     ("lstm_fwd", ("lstm_fwd_cluster_kernel", "lstm_fwd_kernel")),
     ("lstm_bwd", ("lstm_bwd_cluster_kernel", "lstm_bwd_kernel")),

@@ -10,7 +10,10 @@ Tolerances: lse atol 1e-5 on rows with a valid key; the plain backward
 against the Pallas backward atol 5e-4, the bar ``tests/test_pallas.py``
 holds that backward to (tiles of another size sum in another order);
 against ``torch.autograd`` through the plain forward atol 1e-5 (the same
-arithmetic, softmax against exp(s − lse)).
+arithmetic, softmax against exp(s − lse)).  The bf16 tensor-core kernels'
+rounding (a model of it here, the kernels themselves on the card): one
+bf16 ulp at the float32 twin's largest entry, never below 5e-4, the bar
+``chip_smoke.py`` holds the kernels to.
 """
 
 import jax
@@ -150,3 +153,59 @@ def test_function_under_checkpoint_gives_the_same_gradients(rng):
     assert (n_plain, n_remat) == (1, 2)
     for name, a, b in zip(NAMES, grads_remat, grads_plain):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+def _bf16_bar(ref):
+    """``chip_smoke.bf16_bar``: one bf16 ulp at the reference's largest
+    entry (2^-7 of it), never below the float32 bar 5e-4."""
+    return max(2.0 ** -7 * ref.abs().max().item(), 5e-4)
+
+
+def _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale, lse, delta, g, band_shift=0):
+    """The twin's recipe, rounded where the bf16 kernels round: P (dv's
+    operand) and ds (the operand of dqu, dqv, dk and dp) formed in float32
+    and rounded to bf16 before their products, the sums float32, each
+    result rounded to bf16 once.  ``band_shift`` = 1 reads the band one
+    row off in dqv's product and dp one table row off: the unskew off by
+    one."""
+    prob = torch.exp(TA._plain_scores(qu, qv, k, p, scale) - lse[..., None])
+    prob = torch.where(TA._key_mask(lengths, qu.shape[1], qu.device), prob, 0.0)
+    ds = prob * (torch.einsum("bihd,bjhd->bhij", g, v) - delta[..., None]) * scale
+    prob, ds = prob.bfloat16().float(), ds.bfloat16().float()
+    dbd = TR.rel_shift_adjoint(ds)
+
+    def shifted(x):
+        return torch.cat([x[band_shift:], torch.zeros_like(x[:band_shift])])
+
+    grads = (
+        torch.einsum("bhij,bjhd->bihd", ds, k),
+        torch.einsum("bhil,lhd->bihd", dbd, shifted(p)),
+        torch.einsum("bhij,bihd->bjhd", ds, qu),
+        torch.einsum("bhij,bihd->bjhd", prob, g),
+        shifted(torch.einsum("bhil,bihd->lhd", dbd, qv)),
+    )
+    return tuple(x.bfloat16() for x in grads)
+
+
+def test_bf16_rounding_of_the_tensor_core_kernels_fits_the_bar(rng):
+    """The bf16 dq and dband kernels round ds to bf16 before every product
+    that takes it.  Modelled on bf16 inputs at (2, 300, 2, 64) with ragged
+    lengths, that rounding keeps all five gradients within the bar of the
+    float32 twin, so a miss on the card points at a kernel; the same model
+    with the band one row off misses the bar in dqv and dp."""
+    b, t, h, dh = 2, 300, 2, 64
+    shapes = [(b, t, h, dh)] * 5 + [(2 * t - 1, h, dh)]
+    qu, qv, k, v, g, p = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5).bfloat16().float()
+                          for s in shapes)
+    lengths, scale = torch.tensor([300, 137]), dh ** -0.5
+    out, lse = TA.flash_relpos_attention_plain(qu, qv, k, v, p, lengths, scale, return_lse=True)
+    ref = TA.flash_relpos_attention_backward_plain(qu, qv, k, v, p, lengths, scale, out, lse, g)
+    delta = TA.attention_delta(out, g)
+    got = _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale, lse, delta, g)
+    for name, x, r in zip(NAMES, got, ref):
+        assert r.dtype == torch.float32 and r.abs().max() > 0, name
+        err = (x.float() - r).abs().max().item()
+        assert err <= _bf16_bar(r), (name, err, _bf16_bar(r))
+    off = _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale, lse, delta, g, band_shift=1)
+    for i in (1, 4):
+        assert (off[i].float() - ref[i]).abs().max().item() > _bf16_bar(ref[i]), NAMES[i]

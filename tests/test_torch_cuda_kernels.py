@@ -10,7 +10,9 @@ bf16 rounding of the output and of the probabilities), the attention lse
 and backward (dqu, dqv, dk, dv, dp) 5e-4 in float32, the bar the JAX
 package holds its Pallas backward to, and in bfloat16 one bf16 ulp at the
 reference's largest entry (2^-7 of it; measured: none to half an ulp, the
-sums being float32 and rounded once), LSTM forward, its
+sums being float32 and rounded once; the tensor-core dq and dband also
+round ds to bf16 once before their products, and a band one row off
+misses that bar), LSTM forward, its
 saved c and gates, and the backward's dxw 1e-4 (235 or 938 float32 steps), dW_hh
 1e-4 of its largest entry (a sum over B·T rows; the kernel's 3×TF32
 products keep float32's accuracy, one-pass TF32 would not), and bit-equal
@@ -144,7 +146,8 @@ def test_attention_gradients_reach_every_input(cuda):
 @pytest.mark.parametrize("kernel", ["lse", "dq", "dkv", "dband"])
 def test_attention_backward_kernels(cuda, kernel, b, t, h, dh, lengths, dtype):
     """The lse forward and the three backward kernels against their plain
-    twins, from the twin's saved output and lse.  A bfloat16 gradient is
+    twins, from the twin's saved output and lse (float32 dq and dband: the
+    CUDA-core kernels; bfloat16: the tensor-core ones).  A bfloat16 gradient is
     held to one bf16 ulp at its reference's largest entry (and no tighter
     than the float32 bar, for a reference that is all but zero)."""
     args, g = _attention_case(cuda, dtype, b, t, h, dh, lengths)
@@ -172,6 +175,75 @@ def test_attention_backward_kernels(cuda, kernel, b, t, h, dh, lengths, dtype):
     for x, r in zip(got, want):
         assert x.dtype == dtype and x.shape == r.shape
         _close(x, r, max(2.0 ** -7 * r.abs().max().item(), 5e-4) if dtype == torch.bfloat16 else 5e-4)
+
+
+def _bf16_bar(ref):
+    return max(2.0 ** -7 * ref.abs().max().item(), 5e-4)
+
+
+def _edge_lengths(t):
+    """A full row, a row at a 64-row tile edge (half the row below one
+    tile), a row with no valid key, a row shorter than one tile."""
+    return [t, (t // 64) * 64 or max(t // 2, 1), 0, min(5, t)]
+
+
+@pytest.mark.parametrize("t", [14, 28, 63, 64, 65, 235, 938])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("kernel", ["dq", "dband"])
+def test_attention_backward_tensor_core_kernels(cuda, kernel, dh, t):
+    """bfloat16 dq and dband (the tensor-core kernels, one launch each)
+    against their twins at every compiled head width, across the 64-row
+    tile edges, within `_bf16_bar`; dband bit-equal from launch to launch."""
+    lengths = _edge_lengths(t)
+    args, g = _attention_case(cuda, torch.bfloat16, len(lengths), t, 2, dh, lengths)
+    out, lse = A.flash_relpos_attention_plain(*args, return_lse=True)
+    ref = A.flash_relpos_attention_backward_plain(*args, out, lse, g)
+    call = (*args, lse, A.attention_delta(out, g), g)
+    wrapper = A.flash_relpos_attention_bwd_dq if kernel == "dq" else A.flash_relpos_attention_bwd_dband
+    before = wrapper.launches
+    got = wrapper(*call)
+    assert wrapper.launches == before + 1
+    if kernel == "dq":
+        want = ref[0:2]
+    else:
+        got, want = (got,), ref[4:5]
+        again = A.flash_relpos_attention_bwd_dband(*call)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], again)
+    for x, r in zip(got, want):
+        assert x.dtype == torch.bfloat16 and x.shape == r.shape
+        assert bool(torch.isfinite(x).all())
+        _close(x, r, _bf16_bar(r))
+
+
+@pytest.mark.parametrize("t", [63, 235, 938])
+def test_attention_backward_bar_sees_a_one_row_shift(cuda, t):
+    """The control: the twin on a band shifted by one row (the skew and
+    unskew off by one) misses `_bf16_bar` in dqv and dp, where the kernels
+    meet it."""
+    lengths = _edge_lengths(t)
+    args, g = _attention_case(cuda, torch.bfloat16, len(lengths), t, 2, 64, lengths)
+    out, lse = A.flash_relpos_attention_plain(*args, return_lse=True)
+    ref = A.flash_relpos_attention_backward_plain(*args, out, lse, g)
+    p = args[4]
+    shifted_p = torch.cat([p[1:], torch.zeros_like(p[:1])])
+    shifted = A.flash_relpos_attention_backward_plain(*args[:4], shifted_p, *args[5:], out, lse, g)
+    call = (*args, lse, A.attention_delta(out, g), g)
+    got = (A.flash_relpos_attention_bwd_dq(*call)[1], A.flash_relpos_attention_bwd_dband(*call))
+    torch.cuda.synchronize()
+    for x, miss, r in zip(got, (shifted[1], shifted[4]), (ref[1], ref[4])):
+        bar = _bf16_bar(r)
+        assert (x.float() - r.float()).abs().max().item() <= bar
+        assert (miss.float() - r.float()).abs().max().item() > bar
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dband"])
+def test_attention_backward_tensor_core_plan(cuda, kernel):
+    """At dh = 64 the tensor-core kernels spill nothing and two blocks
+    share an SM; every head width opts in to its shared memory."""
+    plans = {dh: A.relpos_bwd_tc_plan(kernel, dh) for dh in A.HEAD_DIMS}
+    assert plans[64]["local_bytes"] == 0 and plans[64]["blocks_per_sm"] >= 2, plans[64]
+    assert all(plan["blocks_per_sm"] >= 1 for plan in plans.values()), plans
 
 
 # the cluster route's forward and backward, dW_hh, then the row route's forward and backward

@@ -378,6 +378,9 @@ def test_flops_copy_equal_and_peak_by_card_name():
     [
         ("void attention_relpos_kernel<__nv_bfloat16, 64, true>(AttnArgs)", "attention forward + lse"),
         ("void bwd_dband_kernel<float, 64>(BwdArgs)", "attention bwd dband (+ reduce)"),
+        ("void (anonymous namespace)::bwd_dq_tc_kernel<64>(__nv_bfloat16 const*, int, int, float)", "attention bwd dq"),
+        ("void (anonymous namespace)::bwd_dband_tc_kernel<64>(__nv_bfloat16 const*, float*, int, int, float)",
+         "attention bwd dband (+ reduce)"),
         ("void dband_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int)", "attention bwd dband (+ reduce)"),
         ("void lstm_fwd_kernel<true>(LstmArgs)", "lstm_fwd"),
         ("void (anonymous namespace)::lstm_dwhh_kernel<4>(float const*, float const*, float*, int)",
