@@ -17,6 +17,11 @@
 // (j - j0) - (i - i0) + 31: index arithmetic in place of the TPU's lane-roll
 // skew.  Online softmax state (m, l) and the output accumulator stay in
 // float32 registers.  Bound on the H100: CUDA-core float32 FMAs.
+//
+// Routes: float32 inputs run this kernel; bfloat16 inputs go to the
+// tensor-core kernel of attention_relpos_tc.cu (attention_relpos_tc_kernel),
+// from the same entry point: the bfloat16 instantiations of this kernel are
+// not compiled.
 
 #include <cmath>
 
@@ -141,18 +146,8 @@ attention_relpos_kernel(const T* __restrict__ qu, const T* __restrict__ qv,
   }
 }
 
-struct Args {
-  const void *qu, *qv, *k, *v, *p;
-  const int* lengths;
-  void* out;
-  float* lse;  // NULL: the inference variant, no lse store
-  int batch, seq, heads;
-  float scale;
-  cudaStream_t stream;
-};
-
 template <typename T, int DH, bool LSE>
-cudaError_t launch(const Args& a) {
+cudaError_t launch(const FwdArgs& a) {
   constexpr size_t smem = smem_bytes<DH>();
   static bool configured = false;
   if (!configured) {
@@ -171,17 +166,16 @@ cudaError_t launch(const Args& a) {
 }
 
 template <typename T, int DH>
-cudaError_t launch_variant(const Args& a) {
+cudaError_t launch_variant(const FwdArgs& a) {
   return a.lse != nullptr ? launch<T, DH, true>(a) : launch<T, DH, false>(a);
 }
 
-template <typename T>
-cudaError_t dispatch(int head_dim, const Args& a) {
+cudaError_t dispatch_f32(int head_dim, const FwdArgs& a) {
   switch (head_dim) {
-    case 16: return launch_variant<T, 16>(a);
-    case 32: return launch_variant<T, 32>(a);
-    case 64: return launch_variant<T, 64>(a);
-    case 128: return launch_variant<T, 128>(a);
+    case 16: return launch_variant<float, 16>(a);
+    case 32: return launch_variant<float, 32>(a);
+    case 64: return launch_variant<float, 64>(a);
+    case 128: return launch_variant<float, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -192,7 +186,7 @@ extern "C" int attention_relpos_fwd(const void* qu, const void* qv, const void* 
                                     const void* p, const void* lengths, void* out, void* lse,
                                     int batch, int seq, int heads, int head_dim, float scale,
                                     int is_bf16, void* stream) {
-  const Args a{qu, qv, k, v, p, static_cast<const int*>(lengths), out, static_cast<float*>(lse),
-               batch, seq, heads, scale, static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dispatch<__nv_bfloat16>(head_dim, a) : dispatch<float>(head_dim, a);
+  const relpos::FwdArgs a{qu, qv, k, v, p, static_cast<const int*>(lengths), out, static_cast<float*>(lse),
+                          batch, seq, heads, scale, static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? relpos::fwd_tc(head_dim, a) : dispatch_f32(head_dim, a);
 }

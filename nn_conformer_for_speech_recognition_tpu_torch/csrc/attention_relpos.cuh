@@ -1,8 +1,10 @@
 // Shared by the rel-pos attention kernels (attention_relpos.cu,
-// attention_relpos_bwd.cu and attention_relpos_bwd_tc.cu): tile sizes, type
-// conversions, the loaders that bring (rows, DH) tiles of the (B, T, H, dh)
-// tensors and bands of the (2T-1, H, dh) rel-pos table into shared memory
-// as float32, the backward's arguments and the table gradient's batch sum.
+// attention_relpos_bwd.cu, and for bfloat16 attention_relpos_tc.cu and
+// attention_relpos_bwd_tc.cu): tile sizes, type conversions, the loaders
+// that bring (rows, DH) tiles of the (B, T, H, dh) tensors and bands of the
+// (2T-1, H, dh) rel-pos table into shared memory as float32 (the CUDA-core
+// kernels), the arguments of a forward and of a backward launch, and the
+// table gradient's batch sum.
 
 #pragma once
 
@@ -55,6 +57,18 @@ __device__ __forceinline__ void load_band(float* dst, const T* __restrict__ p, i
   }
 }
 
+// The arguments of one forward launch.  Layout: qu, qv, k, v, out (B, T, H,
+// dh), p (2T-1, H, dh) and lse (B, H, T) float32, contiguous.
+struct FwdArgs {
+  const void *qu, *qv, *k, *v, *p;
+  const int* lengths;
+  void* out;
+  float* lse;  // NULL: the inference variant, no lse store
+  int batch, seq, heads;
+  float scale;
+  cudaStream_t stream;
+};
+
 // The arguments of one backward launch.  Layout: qu, qv, k, v, g (dO) and
 // the gradients (B, T, H, dh), p and dp (2T-1, H, dh), lse and delta
 // (B, H, T) float32, all contiguous.
@@ -69,8 +83,11 @@ struct BwdArgs {
   cudaStream_t stream;
 };
 
-// bfloat16 inputs: the tensor-core dq and dband kernels (attention_relpos_bwd_tc.cu)
+// bfloat16 inputs: the tensor-core forward (attention_relpos_tc.cu) and the
+// dq, dkv and dband kernels (attention_relpos_bwd_tc.cu)
+cudaError_t fwd_tc(int head_dim, const FwdArgs& a);
 cudaError_t bwd_dq_tc(int head_dim, const BwdArgs& a);
+cudaError_t bwd_dkv_tc(int head_dim, const BwdArgs& a);
 cudaError_t bwd_dband_tc(int head_dim, const BwdArgs& a);
 
 constexpr int kReduceThreads = 256;

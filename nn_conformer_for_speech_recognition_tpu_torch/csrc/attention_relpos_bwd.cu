@@ -31,10 +31,11 @@
 //
 // Bound on the H100: float32 FMAs on the CUDA cores, fed from shared memory.
 //
-// Routes: float32 inputs run all three kernels here.  bfloat16 inputs run
-// dkv here and go for dq and dband to the tensor-core kernels of
-// attention_relpos_bwd_tc.cu (bwd_dq_tc_kernel, bwd_dband_tc_kernel): the
-// bfloat16 dq and dband kernels of this file are not compiled.
+// Routes: float32 inputs run all three kernels here.  bfloat16 inputs go
+// to the tensor-core kernels of attention_relpos_bwd_tc.cu
+// (bwd_dq_tc_kernel, bwd_dkv_tc_kernel, bwd_dband_tc_kernel), from the same
+// entry points: the bfloat16 instantiations of this file's kernels are not
+// compiled.
 
 #include <cmath>
 
@@ -425,10 +426,10 @@ int dispatch(const void* qu, const void* qv, const void* k, const void* v, const
   if (!is_bf16) return dispatch_dim<KIND, float>(head_dim, a);
   if constexpr (KIND == kDq) {
     return bwd_dq_tc(head_dim, a);
-  } else if constexpr (KIND == kDband) {
-    return bwd_dband_tc(head_dim, a);
+  } else if constexpr (KIND == kDkv) {
+    return bwd_dkv_tc(head_dim, a);
   } else {
-    return dispatch_dim<KIND, __nv_bfloat16>(head_dim, a);
+    return bwd_dband_tc(head_dim, a);
   }
 }
 

@@ -1,5 +1,6 @@
 // Shared by the tensor-core kernels (lstm.cu's dW_hh, the bfloat16 paths of
-// attention_bias.cu and attention_relpos_bwd_tc.cu), sm_80 and later:
+// attention_bias.cu, attention_relpos_tc.cu and attention_relpos_bwd_tc.cu),
+// sm_80 and later:
 // asynchronous global → shared copies, ldmatrix, and the mma.sync products
 // they feed.
 

@@ -22,26 +22,27 @@ recomputed tile by tile from the saved lse (no T² tensor is kept):
 
 Query rows at or beyond the length are not masked in either direction.
 
-The CUDA kernels (`csrc/attention_relpos.cu`, `csrc/attention_relpos_bwd.cu`)
-work on 32 × 32 tiles with 256 threads, float32 accumulation on the CUDA
-cores, and read the rel-pos row by index from a band held in shared memory:
-the TPU kernels' lane-roll ``_skew`` / ``_unskew`` are not needed.  The
-table gradient is deterministic: a block owns (table rows, head, batch row)
+Inputs may be bfloat16 or float32; outputs have the inputs' dtype; lse and
+delta are float32.  The dtype picks the kernels, behind the same wrappers
+and launch counts; a refused launch raises as any other.
+
+bfloat16 (the main path's type) runs on the tensor cores: the forward in
+`csrc/attention_relpos_tc.cu`, dq, dkv and dband in
+`csrc/attention_relpos_bwd_tc.cu` (``mma.sync`` in bf16 with float32 sums,
+64-row tiles brought by ``cp.async`` one tile ahead, the rel-pos term formed
+over a warp's band window and skewed, or unskewed, through a per-warp
+buffer; the forward's probabilities rounded to bf16 before the value
+product as the TPU kernel casts them, the backward's P and ds rounded once
+before the products that take them).
+
+float32 keeps the CUDA-core kernels (`csrc/attention_relpos.cu`,
+`csrc/attention_relpos_bwd.cu`): 32 × 32 tiles with 256 threads, float32
+FMAs fed from shared memory, the rel-pos row read by index from a band held
+there (TF32 would miss the float32 bar).  The table gradient is
+deterministic on both routes: a block owns (table rows, head, batch row)
 and walks the query tiles in order into a float32 partial, and a second
-kernel sums the partials over the batch in order.  Inputs may be bfloat16 or
-float32; outputs have the inputs' dtype; lse and delta are float32.
-
-What bounds them on the H100: float32 FMAs fed from shared memory (two to
-three dot products of length dh per score, two products per output); the
-tiles are L2-resident, so device-memory traffic is O(B·T·H·dh).
-
-For bfloat16 inputs, dq and dband run instead on the tensor cores
-(`csrc/attention_relpos_bwd_tc.cu`: ``mma.sync`` in bf16 with float32 sums,
-64-row tiles brought by ``cp.async`` one tile ahead, the skew and unskew an
-index into a per-warp buffer, ds rounded once to bf16 before the products
-that follow it); the wrappers and their launch counts are the same, and a
-refused launch raises as any other.  dkv and the forward keep the kernels
-above in both types.
+kernel sums the partials over the batch in order.  Device-memory traffic
+is O(B·T·H·dh): the tiles are read again from L2.
 
 The bias-input variant (`flash_attention`, `csrc/attention_bias.cu`) replaces
 ``_flash_kernel`` of the same TPU module and its ``custom_vjp``
@@ -188,11 +189,18 @@ def _lengths_i32(lengths: torch.Tensor, device: torch.device) -> torch.Tensor:
     return lengths.to(device=device, dtype=torch.int32).contiguous()
 
 
+def _aligned(*tensors):
+    """The tensors contiguous, and bfloat16 ones on 16-byte boundaries: the
+    tensor-core kernels copy 16 bytes at a time."""
+    tensors = [x.contiguous() for x in tensors]
+    return [x.clone() if x.dtype == torch.bfloat16 and x.data_ptr() % 16 else x for x in tensors]
+
+
 def _launch_forward(qu, qv, k, v, p, lengths, scale, with_lse: bool):
     b, t, h, dh = _check_inputs("flash_relpos_attention", qu, qv, k, v, p, lengths)
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
-    qu, qv, k, v, p = (x.contiguous() for x in (qu, qv, k, v, p))
+    qu, qv, k, v, p = _aligned(qu, qv, k, v, p)
     lengths = _lengths_i32(lengths, qu.device)
     out = torch.empty_like(qu)
     lse = torch.empty(b, h, t, device=qu.device, dtype=torch.float32) if with_lse else None
@@ -225,9 +233,7 @@ def _launch_backward(symbol: str, shapes_like, qu, qv, k, v, p, lengths, scale, 
     b, t, h, dh = _check_backward_inputs(symbol, qu, qv, k, v, p, lengths, lse, delta, g)
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
-    qu, qv, k, v, p, g, lse, delta = (x.contiguous() for x in (qu, qv, k, v, p, g, lse, delta))
-    if qu.dtype == torch.bfloat16:  # the tensor-core kernels copy 16 bytes at a time
-        qu, qv, k, v, p, g = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (qu, qv, k, v, p, g))
+    qu, qv, k, v, p, g, lse, delta = _aligned(qu, qv, k, v, p, g, lse, delta)
     lengths = _lengths_i32(lengths, qu.device)
     outs = [torch.empty_like(x) for x in shapes_like]
     scratch = []
@@ -242,23 +248,30 @@ def _launch_backward(symbol: str, shapes_like, qu, qv, k, v, p, lengths, scale, 
     return outs
 
 
-def relpos_bwd_tc_plan(kernel: str, head_dim: int) -> dict:
-    """What the card makes of a bfloat16 tensor-core backward kernel
-    (``kernel`` "dq" or "dband") at ``head_dim``: blocks an SM holds at once
-    (the occupancy calculator, after the kernel's shared-memory opt-in),
-    registers a thread, local memory a thread (non-zero: spills or a stack
-    frame) and dynamic shared memory a block.  Needs a CUDA device; launches
-    nothing."""
+TC_KERNELS = ("fwd", "fwd_lse", "dq", "dkv", "dband")  # the bfloat16 tensor-core kernels, by `relpos_tc_plan`'s name
+
+
+def relpos_tc_plan(kernel: str, head_dim: int) -> dict:
+    """What the card makes of a bfloat16 tensor-core kernel (``kernel`` one
+    of `TC_KERNELS`: the forward without and with lse, dq, dkv, dband) at
+    ``head_dim``: blocks an SM holds at once (the occupancy calculator,
+    after the kernel's shared-memory opt-in), registers a thread, local
+    memory a thread (non-zero: spills or a stack frame) and dynamic shared
+    memory a block.  Needs a CUDA device; launches nothing."""
     import ctypes
 
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
     if head_dim not in HEAD_DIMS:
-        raise ValueError(f"relpos_bwd_tc_plan: head_dim {head_dim} not in {HEAD_DIMS}")
+        raise ValueError(f"relpos_tc_plan: head_dim {head_dim} not in {HEAD_DIMS}")
+    if kernel not in TC_KERNELS:
+        raise ValueError(f"relpos_tc_plan: kernel {kernel!r} not in {TC_KERNELS}")
     values = [ctypes.c_int(0) for _ in range(4)]
-    err = build.library().attention_relpos_bwd_tc_plan(
-        {"dq": 0, "dband": 1}[kernel], head_dim, *(ctypes.byref(x) for x in values))
-    build.check(err, f"attention_relpos_bwd_tc_plan({kernel}, {head_dim})")
+    if kernel.startswith("fwd"):
+        plan, flag = build.library().attention_relpos_fwd_tc_plan, int(kernel == "fwd_lse")
+    else:
+        plan, flag = build.library().attention_relpos_bwd_tc_plan, {"dq": 0, "dband": 1, "dkv": 2}[kernel]
+    build.check(plan(flag, head_dim, *(ctypes.byref(x) for x in values)), f"relpos_tc_plan({kernel}, {head_dim})")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes", "smem_bytes"), (x.value for x in values)))
 
 

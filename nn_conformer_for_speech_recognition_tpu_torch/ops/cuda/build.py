@@ -49,9 +49,10 @@ SIGNATURES = {
         f"attention_relpos_bwd_{name}": (*(_P,) * 11, _I, _I, _I, _I, _F, _I, _P)
         for name in ("dq", "dkv", "dband")
     },
-    # kind (0 dq, 1 dband), head_dim → blocks per SM, registers, local
-    # bytes, shared bytes of the bf16 tensor-core kernel (host only)
-    "attention_relpos_bwd_tc_plan": (_I, _I, _IP, _IP, _IP, _IP),
+    # with_lse (0, 1) or kind (0 dq, 1 dband, 2 dkv), head_dim → blocks per
+    # SM, registers, local bytes, shared bytes of the bf16 tensor-core
+    # forward or backward kernel (host only)
+    **{f"attention_relpos_{name}_tc_plan": (_I, _I, _IP, _IP, _IP, _IP) for name in ("fwd", "bwd")},
     # qu, k, v, bias, lengths, out, batch, t, heads, head_dim, scale, is_bf16,
     # bias_is_bf16, stream
     "attention_bias_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),

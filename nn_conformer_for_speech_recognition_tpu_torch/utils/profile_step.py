@@ -31,10 +31,11 @@ SHAPES = {"long": (4, 120.0, 400), "short": (16, 30.0, 100)}  # batch, clip seco
 VOCAB, SEED, PROFILED_STEPS = 1024, 3, 3
 REST = "elementwise, reductions, copies"
 GROUPS = (
-    ("attention forward + lse", ("attention_relpos_kernel",)),
-    # dq and dband: the tensor-core kernels in bf16 (bwd_dq_tc_kernel, bwd_dband_tc_kernel), the CUDA-core ones in float32
+    # every rel-pos kernel: the tensor-core one in bf16 (attention_relpos_tc_kernel, bwd_*_tc_kernel), the
+    # CUDA-core one in float32
+    ("attention forward + lse", ("attention_relpos_kernel", "attention_relpos_tc_kernel")),
     ("attention bwd dq", ("bwd_dq_kernel", "bwd_dq_tc_kernel")),
-    ("attention bwd dkv", ("bwd_dkv_kernel",)),
+    ("attention bwd dkv", ("bwd_dkv_kernel", "bwd_dkv_tc_kernel")),
     ("attention bwd dband (+ reduce)", ("bwd_dband_kernel", "bwd_dband_tc_kernel", "dband_reduce_kernel")),
     # the cluster route (lstm_fwd_cluster_kernel, both directions in one launch) and the row route (lstm_fwd_kernel)
     ("lstm_fwd", ("lstm_fwd_cluster_kernel", "lstm_fwd_kernel")),

@@ -62,6 +62,33 @@ def test_attention_twin_matches_jax(rng, lengths, h, dh):
     np.testing.assert_allclose(got.numpy(), np.asarray(einsum), atol=ATOL)
 
 
+def test_length_zero_row_weighs_every_key_alike(rng):
+    """A row with no valid key (a batch-padding row: `audio_lengths` 0)
+    masks every key alike, so every key weighs the same: the port's twin
+    gives the mean of v over the T keys there, as the JAX einsum route does.
+    The JAX Pallas forward weighs its t_pad padded keys alike, the zero
+    padding included, and so reads T / t_pad of that mean (20 / 24 at
+    T = 20).  The block's output on such a row is masked downstream
+    (`models/conformer.py`), so nothing sees the difference; the port holds
+    its kernels to the twin.  A row with valid keys agrees on all three."""
+    t, h, dh = 20, 2, 8
+    qu, qv, k, v = (rng.standard_normal((2, t, h, dh)).astype(np.float32) for _ in range(4))
+    p = rng.standard_normal((2 * t - 1, h, dh)).astype(np.float32)
+    lens = np.asarray([t, 0], np.int32)
+    scale = dh ** -0.5
+    jargs = [jnp.asarray(a) for a in (qu, qv, k, v, p, lens)]
+    flash = np.asarray(JA._flash_relpos_forward(*jargs, scale, interpret=True))
+    einsum = np.asarray(_jax_einsum_attention(*jargs, scale))
+    got = flash_relpos_attention(*[torch.from_numpy(a) for a in (qu, qv, k, v, p, lens)], scale).numpy()
+    mean_v = np.broadcast_to(v[1].mean(axis=0), (t, h, dh))
+    np.testing.assert_allclose(got[1], mean_v, atol=1e-6)
+    np.testing.assert_allclose(got[1], einsum[1], atol=ATOL)
+    t_pad = 24  # the Pallas forward's block: T rounded up to a multiple of 8
+    np.testing.assert_allclose(flash[1], got[1] * t / t_pad, atol=ATOL)
+    np.testing.assert_allclose(got[0], flash[0], atol=ATOL)
+    np.testing.assert_allclose(got[0], einsum[0], atol=ATOL)
+
+
 @pytest.mark.parametrize("use_kernel", [True, False])
 def test_mhsa_with_converted_weights(rng, monkeypatch, use_kernel):
     orig = JA._flash_relpos_forward

@@ -12,8 +12,9 @@ holds that backward to (tiles of another size sum in another order);
 against ``torch.autograd`` through the plain forward atol 1e-5 (the same
 arithmetic, softmax against exp(s − lse)).  The bf16 tensor-core kernels'
 rounding (a model of it here, the kernels themselves on the card): one
-bf16 ulp at the float32 twin's largest entry, never below 5e-4, the bar
-``chip_smoke.py`` holds the kernels to.
+bf16 ulp at the float32 twin's largest entry, never below 5e-4 for the
+gradients and 1e-4 for the forward's output, the bars ``chip_smoke.py``
+holds the kernels to.
 """
 
 import jax
@@ -187,25 +188,81 @@ def _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale
     return tuple(x.bfloat16() for x in grads)
 
 
-def test_bf16_rounding_of_the_tensor_core_kernels_fits_the_bar(rng):
-    """The bf16 dq and dband kernels round ds to bf16 before every product
-    that takes it.  Modelled on bf16 inputs at (2, 300, 2, 64) with ragged
-    lengths, that rounding keeps all five gradients within the bar of the
-    float32 twin, so a miss on the card points at a kernel; the same model
-    with the band one row off misses the bar in dqv and dp."""
-    b, t, h, dh = 2, 300, 2, 64
+# the gradients each bf16 tensor-core backward kernel writes
+KERNEL_GRADS = {"dq": ("dqu", "dqv"), "dkv": ("dk", "dv"), "dband": ("dp",)}
+
+
+def _bf16_case(rng, b=2, t=300, h=2, dh=64):
+    """bf16-representable float32 inputs (qu, qv, k, v, g, p) at (b, t, h, dh),
+    lengths ``t`` and 137, and the scale."""
     shapes = [(b, t, h, dh)] * 5 + [(2 * t - 1, h, dh)]
-    qu, qv, k, v, g, p = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5).bfloat16().float()
-                          for s in shapes)
-    lengths, scale = torch.tensor([300, 137]), dh ** -0.5
+    arrays = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.5).bfloat16().float() for s in shapes]
+    return arrays, torch.tensor([t, 137]), dh ** -0.5
+
+
+def _band_one_row_off(p):
+    return torch.cat([p[1:], torch.zeros_like(p[:1])])
+
+
+def test_bf16_rounding_of_the_tensor_core_kernels_fits_the_bar(rng):
+    """The bf16 dq, dkv and dband kernels round P (dv's operand) and ds (the
+    operand of dqu, dqv, dk and dp) to bf16 before every product that takes
+    them.  Modelled on bf16 inputs at (2, 300, 2, 64) with ragged lengths,
+    that rounding keeps each kernel's gradients (dq: dqu and dqv; dkv: dk
+    and dv; dband: dp) within the bar of the float32 twin, so a miss on the
+    card points at a kernel; the same model with the band one row off misses
+    the bar: in dqv and dp where the unskew reads it, in dk and dv where the
+    scores' skew does."""
+    (qu, qv, k, v, g, p), lengths, scale = _bf16_case(rng)
     out, lse = TA.flash_relpos_attention_plain(qu, qv, k, v, p, lengths, scale, return_lse=True)
-    ref = TA.flash_relpos_attention_backward_plain(qu, qv, k, v, p, lengths, scale, out, lse, g)
+    ref = dict(zip(NAMES, TA.flash_relpos_attention_backward_plain(qu, qv, k, v, p, lengths, scale, out, lse, g)))
     delta = TA.attention_delta(out, g)
-    got = _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale, lse, delta, g)
-    for name, x, r in zip(NAMES, got, ref):
-        assert r.dtype == torch.float32 and r.abs().max() > 0, name
-        err = (x.float() - r).abs().max().item()
-        assert err <= _bf16_bar(r), (name, err, _bf16_bar(r))
-    off = _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale, lse, delta, g, band_shift=1)
-    for i in (1, 4):
-        assert (off[i].float() - ref[i]).abs().max().item() > _bf16_bar(ref[i]), NAMES[i]
+    got = dict(zip(NAMES, _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale, lse, delta, g)))
+    unskew_off = _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, p, lengths, scale, lse, delta, g,
+                                                              band_shift=1)
+    # the scores recomputed on a band one row off
+    skew_off = _backward_rounded_as_the_tensor_core_kernels(qu, qv, k, v, _band_one_row_off(p), lengths, scale, lse,
+                                                            delta, g)
+    for kernel, names in KERNEL_GRADS.items():
+        off = dict(zip(NAMES, skew_off if kernel == "dkv" else unskew_off))
+        for name in names:
+            r = ref[name]
+            assert r.dtype == torch.float32 and r.abs().max() > 0, (kernel, name)
+            err = (got[name].float() - r).abs().max().item()
+            assert err <= _bf16_bar(r), (kernel, name, err, _bf16_bar(r))
+            if name != "dqu":  # dqu = ds . k reads no band row
+                assert (off[name].float() - r).abs().max().item() > _bf16_bar(r), (kernel, name)
+
+
+def _forward_rounded_as_the_tensor_core_kernel(qu, qv, k, v, p, lengths, scale):
+    """The twin's forward, rounded where the bf16 kernel rounds: the
+    unnormalised probabilities exp(s - m) rounded to bf16 before the value
+    product (the TPU kernel's cast to v's type), their sum l unrounded, the
+    division at the end and the output rounded to bf16 once."""
+    scores = TA._plain_scores(qu, qv, k, p, scale)
+    scores = scores.masked_fill(~TA._key_mask(lengths, qu.shape[1], qu.device), TA.MASK_VALUE)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    l = e.sum(dim=-1).transpose(1, 2)[..., None]  # (B, T, H, 1)
+    return (torch.einsum("bhij,bjhd->bihd", e.bfloat16().float(), v) / l).bfloat16()
+
+
+def test_bf16_rounding_of_the_tensor_core_forward_fits_the_bar(rng):
+    """The bf16 forward kernel rounds the probabilities to bf16 before the
+    value product, as the TPU kernel does.  On bf16 inputs at (2, 300, 2, 64)
+    with ragged lengths, a model of that rounding and the JAX package's
+    Pallas forward (interpret mode) on the same bf16 inputs both lie within
+    the bar the card holds the kernel to (one bf16 ulp at the float32 twin's
+    largest entry, never below 1e-4); the model with the band one row off
+    misses it."""
+    (qu, qv, k, v, _, p), lengths, scale = _bf16_case(rng)
+    ref = TA.flash_relpos_attention_plain(qu, qv, k, v, p, lengths, scale)
+    bar = max(2.0 ** -7 * ref.abs().max().item(), 1e-4)
+    got = _forward_rounded_as_the_tensor_core_kernel(qu, qv, k, v, p, lengths, scale)
+    jax_out = JA._flash_relpos_forward(*(jnp.asarray(x.numpy(), jnp.bfloat16) for x in (qu, qv, k, v, p)),
+                                       jnp.asarray(lengths.numpy(), jnp.int32), scale, interpret=True)
+    assert jax_out.dtype == jnp.bfloat16
+    for name, x in (("model", got.float()), ("jax", torch.from_numpy(np.asarray(jax_out, np.float32)))):
+        err = (x - ref).abs().max().item()
+        assert err <= bar, (name, err, bar)
+    off = _forward_rounded_as_the_tensor_core_kernel(qu, qv, k, v, _band_one_row_off(p), lengths, scale)
+    assert (off.float() - ref).abs().max().item() > bar

@@ -6,13 +6,14 @@ conftest:  python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.p
 
 Tolerances: float32 log-mel 1e-3 (log of sums of 512-term products taken
 in another order), float32 attention 1e-4 and bfloat16 attention 2e-2 (one
-bf16 rounding of the output and of the probabilities), the attention lse
-and backward (dqu, dqv, dk, dv, dp) 5e-4 in float32, the bar the JAX
-package holds its Pallas backward to, and in bfloat16 one bf16 ulp at the
-reference's largest entry (2^-7 of it; measured: none to half an ulp, the
-sums being float32 and rounded once; the tensor-core dq and dband also
-round ds to bf16 once before their products, and a band one row off
-misses that bar), LSTM forward, its
+bf16 rounding of the output and of the probabilities), and the bfloat16
+tensor-core forward also one bf16 ulp at the twin's largest entry, the
+attention lse and backward (dqu, dqv, dk, dv, dp) 5e-4 in float32, the bar
+the JAX package holds its Pallas backward to, and in bfloat16 one bf16 ulp
+at the reference's largest entry (2^-7 of it; the sums are float32 and
+rounded once; the tensor-core kernels also round P and ds to bf16 once
+before their products, and a band one row off misses that bar), LSTM
+forward, its
 saved c and gates, and the backward's dxw 1e-4 (235 or 938 float32 steps), dW_hh
 1e-4 of its largest entry (a sum over B·T rows; the kernel's 3×TF32
 products keep float32's accuracy, one-pass TF32 would not), and bit-equal
@@ -237,13 +238,68 @@ def test_attention_backward_bar_sees_a_one_row_shift(cuda, t):
         assert (miss.float() - r.float()).abs().max().item() > bar
 
 
-@pytest.mark.parametrize("kernel", ["dq", "dband"])
+@pytest.mark.parametrize("kernel", A.TC_KERNELS)
 def test_attention_backward_tensor_core_plan(cuda, kernel):
-    """At dh = 64 the tensor-core kernels spill nothing and two blocks
-    share an SM; every head width opts in to its shared memory."""
-    plans = {dh: A.relpos_bwd_tc_plan(kernel, dh) for dh in A.HEAD_DIMS}
+    """At dh = 64 the tensor-core kernels (the forward without and with lse,
+    dq, dkv, dband) spill nothing and two blocks share an SM; every head
+    width opts in to its shared memory."""
+    plans = {dh: A.relpos_tc_plan(kernel, dh) for dh in A.HEAD_DIMS}
     assert plans[64]["local_bytes"] == 0 and plans[64]["blocks_per_sm"] >= 2, plans[64]
     assert all(plan["blocks_per_sm"] >= 1 for plan in plans.values()), plans
+
+
+@pytest.mark.parametrize("t", [1, 14, 28, 63, 64, 65, 235, 938])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_attention_forward_tensor_core_kernel(cuda, with_lse, dh, t):
+    """bfloat16 forward (the tensor-core kernel, one launch), without and
+    with lse, against its twin at every compiled head width, across the
+    64-row tile edges, with a row of length 0 (the mean of v over every
+    key, on both sides): the output within `_bf16_bar` (never below the
+    float32 forward bar 1e-4), lse within 5e-4 on rows with a valid key and
+    within 1e-6 of its size (~-1e30) on the others; bit-equal from launch
+    to launch."""
+    lengths = _edge_lengths(t)
+    args, _ = _attention_case(cuda, torch.bfloat16, len(lengths), t, 2, dh, lengths)
+    ref, ref_lse = A.flash_relpos_attention_plain(*args, return_lse=True)
+    wrapper = A.flash_relpos_attention_forward_lse if with_lse else A.flash_relpos_attention
+    before = wrapper.launches
+    got = wrapper(*args)
+    again = wrapper(*args)
+    assert wrapper.launches == before + 2
+    out, lse = got if with_lse else (got, None)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert torch.equal(out, again[0] if with_lse else again)
+    _close(out, ref, max(2.0 ** -7 * ref.abs().max().item(), 1e-4))
+    if with_lse:
+        assert lse.dtype == torch.float32 and lse.shape == ref_lse.shape and torch.equal(lse, again[1])
+        rows = torch.tensor(lengths).cuda() > 0
+        _close(lse[rows], ref_lse[rows], 5e-4)
+        torch.testing.assert_close(lse[~rows], ref_lse[~rows], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("t", [1, 14, 28, 63, 64, 65, 235, 938])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+def test_attention_dkv_tensor_core_kernel(cuda, dh, t):
+    """bfloat16 dk and dv (the tensor-core dkv kernel, one launch) against
+    their twins at every compiled head width, across the 64-row tile edges,
+    with a row of length 0 (zeros on both sides), within `_bf16_bar`;
+    bit-equal from launch to launch."""
+    lengths = _edge_lengths(t)
+    args, g = _attention_case(cuda, torch.bfloat16, len(lengths), t, 2, dh, lengths)
+    out, lse = A.flash_relpos_attention_plain(*args, return_lse=True)
+    ref = A.flash_relpos_attention_backward_plain(*args, out, lse, g)
+    call = (*args, lse, A.attention_delta(out, g), g)
+    before = A.flash_relpos_attention_bwd_dkv.launches
+    got = A.flash_relpos_attention_bwd_dkv(*call)
+    again = A.flash_relpos_attention_bwd_dkv(*call)
+    assert A.flash_relpos_attention_bwd_dkv.launches == before + 2
+    torch.cuda.synchronize()
+    for x, y, r in zip(got, again, ref[2:4]):
+        assert x.dtype == torch.bfloat16 and x.shape == r.shape and bool(torch.isfinite(x).all())
+        assert torch.equal(x, y)
+        _close(x, r, _bf16_bar(r))
 
 
 # the cluster route's forward and backward, dW_hh, then the row route's forward and backward

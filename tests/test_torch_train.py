@@ -377,6 +377,13 @@ def test_flops_copy_equal_and_peak_by_card_name():
     "kernel, group",
     [
         ("void attention_relpos_kernel<__nv_bfloat16, 64, true>(AttnArgs)", "attention forward + lse"),
+        ("void (anonymous namespace)::attention_relpos_tc_kernel<64, true>(__nv_bfloat16 const*, float*, int, int, float)",
+         "attention forward + lse"),
+        ("void (anonymous namespace)::attention_relpos_tc_kernel<64, false>(__nv_bfloat16 const*, int, int, float)",
+         "attention forward + lse"),
+        ("void bwd_dkv_kernel<float, 64>(BwdArgs)", "attention bwd dkv"),
+        ("void (anonymous namespace)::bwd_dkv_tc_kernel<64>(__nv_bfloat16 const*, __nv_bfloat16*, int, int, float)",
+         "attention bwd dkv"),
         ("void bwd_dband_kernel<float, 64>(BwdArgs)", "attention bwd dband (+ reduce)"),
         ("void (anonymous namespace)::bwd_dq_tc_kernel<64>(__nv_bfloat16 const*, int, int, float)", "attention bwd dq"),
         ("void (anonymous namespace)::bwd_dband_tc_kernel<64>(__nv_bfloat16 const*, float*, int, int, float)",
