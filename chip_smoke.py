@@ -11,9 +11,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    100 tokens; B=4, 120 s clips, targets of 400 tokens; and the two
    buckets of the Noisy Student phase, B=16 clips of 1.8 s and 3.6 s,
    T'=14 and 28, targets of 8 tokens), with mixed lengths, and times both
-   with CUDA events after warm-up.  The CTC
-   kernels are also read against the same recursions in float64.  Beside each
-   time it works out the least time the card could take for the same work
+   with CUDA events after warm-up.  The CTC kernels are also read against
+   the same recursions in float64, and the log-mel kernel against the same
+   function in float64 (at most twice the twin's error), twice for
+   bit-equal launches, beside the cuFFT route.  Beside each time it works
+   out the least time the card could take for the same work
    (bytes over the memory rate against operations over the peak rate) and,
    where one PyTorch call computes the same function, times that call (for
    the LSTM recurrences, cuDNN's LSTM on a packed sequence, one direction
@@ -107,6 +109,7 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -302,6 +305,7 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
     after subsampling), and the inference attention forward where that
     path runs it."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.ops import features as F
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import stft_logmel as S
@@ -314,23 +318,39 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
     cfg = FeatureConfig()
     n_samples = round(seconds * cfg.sample_rate)
     audio = (torch.randn(b, n_samples, generator=gen) * 0.1).to(dev)
-    got, ref = S.stft_logmel(audio, cfg), S.stft_logmel_plain(audio, cfg)
+    got, ref, again = S.stft_logmel(audio, cfg), S.stft_logmel_plain(audio, cfg), S.stft_logmel(audio, cfg)
+    ref64 = S.stft_logmel_float64(audio, cfg)
+    library = cufft_logmel(audio, cfg)
     torch.cuda.synchronize()
     check(got.shape == ref.shape == (b, cfg.num_frames(n_samples), cfg.n_mels),
           f"stft_logmel shape {tuple(got.shape)}")
     err = max_abs(got, ref)
+    kernel64, twin64 = ((x.double() - ref64).abs().max().item() for x in (got, ref))
     ms = cuda_ms(lambda: S.stft_logmel(audio, cfg))
     plain_ms = cuda_ms(lambda: S.stft_logmel_plain(audio, cfg))
-    print(f"stft_logmel ({b}, {n_samples}) f32: max|Δ| {err:.3e} (tol {TOL['stft_logmel']}), "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+    library_ms = cuda_ms(lambda: cufft_logmel(audio, cfg))
+    dev_ms, plain_dev, library_dev = (device_ms(lambda: fn(audio, cfg))
+                                      for fn in (S.stft_logmel, S.stft_logmel_plain, cufft_logmel))
+    plan = S.stft_logmel_tc_plan(cfg.n_fft, b * got.shape[1])
+    print(f"stft_logmel ({b}, {n_samples}) f32: max|Δ| {err:.3e} (tol {TOL['stft_logmel']}); against float64 kernel "
+          f"{kernel64:.3e}, twin {twin64:.3e} (kernel at most 2× the twin's), two launches bit-equal; kernel "
+          f"{ms:.4f} ms, device {dev_ms:.4f}; plain {plain_ms:.4f}, device {plain_dev:.4f}; cuFFT route (torch.stft "
+          f"+ |·|² + mel matmul + log) {library_ms:.4f}, device {library_dev:.4f}, max|Δ| against the twin "
+          f"{max_abs(library, ref):.3e}; plan {plan}  [{card}]")
     check(err <= TOL["stft_logmel"], "stft_logmel disagrees with its plain twin")
-    n_bins, frames = cfg.n_fft // 2 + 1, got.shape[1]
-    # read: audio, window, the two DFT matrices, the mel filterbank; written: the log-mel.  Per frame a
-    # windowed real DFT (two n_fft x n_bins products) and the mel product.  The plain version is a framed
-    # cuBLAS matmul with elementwise ops around it: it doubles as the library yardstick
-    stft_bytes = nbytes(audio, got) + 4 * (cfg.n_fft + 2 * cfg.n_fft * n_bins + n_bins * cfg.n_mels)
-    stft_flops = b * frames * (4 * cfg.n_fft * n_bins + 2 * n_bins * cfg.n_mels)
-    results["stft_logmel"] = numbers(err, ms, plain_ms, stft_bytes, stft_flops, torch.float32, library_ms=plain_ms)
+    check(kernel64 <= 2 * twin64, "stft_logmel: the kernel lies more than twice as far from float64 as the twin")
+    check(torch.equal(got, again), "stft_logmel is not bit-equal from launch to launch")
+    check(plan["local_bytes"] == 0 and plan["blocks_per_sm"] >= 1, f"stft_logmel plan {plan}")
+    # read once: audio and the kernel's tables (window, the folded basis, mel_fb, bands); written: the log-mel.
+    # The operations the function needs, not the kernel's DFT (3 × 2·(n_fft−1)·(n_fft+1)/2 TF32 products a
+    # frame, ~70× more): a frame's real FFT, 2.5·n·log2(n), and the mel product over the filterbank's
+    # nonzeros, at float32.  The library yardstick is the cuFFT route (four calls: no one PyTorch call
+    # computes the log-mel)
+    window, _, _, mel_fb = F.feature_constants(cfg, dev)
+    tables = (window, *F.kernel_constants(cfg, dev), mel_fb)
+    stft_ops = b * got.shape[1] * (2.5 * cfg.n_fft * math.log2(cfg.n_fft) + 2 * int((mel_fb != 0).sum()))
+    results["stft_logmel"] = numbers(err, ms, plain_ms, nbytes(audio, got, *tables), stft_ops, torch.float32,
+                                     library_ms=library_ms)
 
     lengths = mixed_lengths(gen, b, t, t // 3)
     if inference_attention:
@@ -403,6 +423,18 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
                               nbytes(*xws, *w_hhs) + 2 * 4 * b * t * hidden, 8 * hidden * hidden * steps,
                               torch.float32, library_ms=cudnn[True]["forward"])
     return results
+
+
+def cufft_logmel(audio: torch.Tensor, cfg) -> torch.Tensor:
+    """The log-mel kernel's library yardstick (the port never calls it):
+    ``torch.stft`` (cuFFT) on the centered, reflect-padded frames under the
+    same window, |·|², the mel product and the log of the clamp."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops import features as F
+
+    window, _, _, mel_fb = F.feature_constants(cfg, audio.device)
+    spec = torch.stft(audio, cfg.n_fft, cfg.hop_length, window=window, center=True, pad_mode="reflect",
+                      return_complex=True)
+    return torch.log(torch.clamp_min(spec.abs().square().transpose(1, 2) @ mel_fb, cfg.log_floor))
 
 
 def serial_floor_ms(b: int, hidden: int, steps: int) -> float:

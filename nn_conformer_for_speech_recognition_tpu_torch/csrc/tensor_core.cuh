@@ -1,5 +1,6 @@
-// Shared by the tensor-core kernels (lstm.cu's dW_hh, the bfloat16 paths of
-// attention_bias.cu, attention_relpos_tc.cu and attention_relpos_bwd_tc.cu),
+// Shared by the tensor-core kernels (lstm.cu's dW_hh, stft_logmel.cu, the
+// bfloat16 paths of attention_bias.cu, attention_relpos_tc.cu and
+// attention_relpos_bwd_tc.cu),
 // sm_80 and later:
 // asynchronous global → shared copies, ldmatrix, and the mma.sync products
 // they feed.
@@ -33,6 +34,12 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 // waits for all but the most recent committed group of this thread
 __device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+// waits for all but the N most recent committed groups of this thread
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // x = big + small, both TF32 (round to nearest): the 3xTF32 split
 __device__ __forceinline__ void split_tf32(float x, unsigned& big, unsigned& small) {

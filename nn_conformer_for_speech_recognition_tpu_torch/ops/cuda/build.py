@@ -36,9 +36,12 @@ _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 # launcher name → argument types (every device pointer and the stream as void*)
 SIGNATURES = {
-    # audio, window, dft_re, dft_im, mel_fb, out, batch, samples, n_fft,
-    # hop, n_frames, n_bins, n_mels, log_floor, stream
-    "stft_logmel_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # audio, window, basis, mel_fb, bands, out, batch, samples, n_fft, hop,
+    # n_frames, k_half, nb_pad, n_mels, log_floor, stream
+    "stft_logmel_fwd": (*(_P,) * 6, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # n_fft, frames → frames a block, blocks per SM, registers, local bytes,
+    # shared bytes of the tensor-core log-mel kernel (host only)
+    "stft_logmel_tc_plan": (_I, _I, _IP, _IP, _IP, _IP, _IP),
     # qu, qv, k, v, p, lengths, out, lse | NULL, batch, t, heads, head_dim,
     # scale, is_bf16, stream
     "attention_relpos_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),

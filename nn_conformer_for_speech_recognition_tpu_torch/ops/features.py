@@ -95,8 +95,10 @@ def dft_basis(n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
 def feature_constants(config: FeatureConfig, device: torch.device):
     """(window, dft_real, dft_imag, mel_fb) as contiguous float32 tensors on
     ``device``, made once per (config, device) so a call does not copy them
-    again.  (``mel_filterbank`` returns a transposed, column-major array;
-    the kernel reads every table row-major.)"""
+    again: the plain version's constants (``log_mel_spectrogram``).  The
+    kernel reads the window and ``mel_fb`` row-major from here too
+    (``mel_filterbank`` returns a transposed, column-major array, hence the
+    copy), and its basis and mel bands from `kernel_constants`."""
     real_b, imag_b = dft_basis(config.n_fft)
     arrays = (
         hann_window(config.win_length_, config.n_fft),
@@ -108,6 +110,63 @@ def feature_constants(config: FeatureConfig, device: torch.device):
         ),
     )
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+
+
+# The log-mel kernel's tiles (csrc/stft_logmel.cu: kKTile basis rows, which
+# its ring stages divide, and kBins bins a pass): its basis is zero-padded to them
+STFT_K_TILE, STFT_BIN_TILE = 128, 64
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=16)
+def folded_dft_basis(n_fft: int) -> np.ndarray:
+    """`dft_basis` as the kernel multiplies by it: (2, n_fft // 2, (n_fft + 1) // 2)
+    float32, the cosine rows p = 1 .. n_fft // 2, then the sine rows
+    p = n_fft // 2 + 1 .. n_fft - 1 (one zero row past them for an even
+    n_fft), of the bins below the Nyquist bin.  With the frame folded over
+    its mirror samples, v[p] = x[p] + x[n - p] and v[n - p] = x[n - p] - x[p]
+    for 0 < p < n - p, re_k = v[0] + Σ v[p]·cos and im_k = Σ v[p]·sin over
+    these rows: half the products of the unfolded basis.  The even n_fft's
+    Nyquist bin, Σ (−1)^p v[p] over p ≤ n_fft // 2, is the kernel's own."""
+    real_b, imag_b = dft_basis(n_fft)
+    half, pairs = n_fft // 2, (n_fft + 1) // 2
+    folded = np.zeros((2, half, pairs), np.float32)
+    folded[0] = real_b[1 : half + 1, :pairs]
+    folded[1, : n_fft - 1 - half] = imag_b[half + 1 :, :pairs]
+    return folded
+
+
+def mel_bands(mel_fb: np.ndarray) -> np.ndarray:
+    """(n_mels, 2) int32: each mel's first and last bin with a nonzero weight
+    in ``mel_fb`` (n_bins, n_mels); (1, 0), an empty range, for a mel with
+    none.  Slaney and HTK filters are triangles, so each bin falls in at most
+    two adjacent bands and the kernel's banded sum walks ~2 × n_bins
+    weights a frame instead of n_bins × n_mels."""
+    bands = np.tile(np.array([1, 0], np.int32), (mel_fb.shape[1], 1))
+    for m in range(mel_fb.shape[1]):
+        nz = np.flatnonzero(mel_fb[:, m])
+        if nz.size:
+            bands[m] = nz[0], nz[-1]
+    return bands
+
+
+@functools.lru_cache(maxsize=8)
+def kernel_constants(config: FeatureConfig, device: torch.device):
+    """The log-mel kernel's own tables on ``device``, made once per (config,
+    device): `folded_dft_basis` zero-padded to (2, K, N) with K a multiple of
+    `STFT_K_TILE` and N of `STFT_BIN_TILE`, and the int32 `mel_bands` of the
+    filterbank."""
+    folded = folded_dft_basis(config.n_fft)
+    basis = np.zeros((2, _round_up(folded.shape[1], STFT_K_TILE), _round_up(folded.shape[2], STFT_BIN_TILE)),
+                     np.float32)
+    basis[:, : folded.shape[1], : folded.shape[2]] = folded
+    mel_fb = mel_filterbank(
+        config.sample_rate, config.n_fft, config.n_mels, config.fmin, config.fmax_, config.htk,
+    )
+    return tuple(torch.from_numpy(a).to(device) for a in (basis, mel_bands(mel_fb)))
 
 
 def frame_signal(audio: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:

@@ -42,7 +42,7 @@ GROUPS = (
     ("lstm_bwd", ("lstm_bwd_cluster_kernel", "lstm_bwd_kernel")),
     ("lstm_dwhh (+ reduce)", ("lstm_dwhh_kernel", "lstm_dwhh_reduce_kernel")),
     ("ctc alpha + beta", ("ctc_alpha_kernel", "ctc_beta_kernel")),
-    ("stft_logmel", ("stft_logmel_kernel",)),
+    ("stft_logmel", ("stft_logmel_tc_kernel",)),
     ("depthwise_conv", ("depthwise_conv_kernel",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad")),
     ("GEMMs (cuBLAS)", ("gemm", "cutlass", "cublas", "xmma", "nvjet")),

@@ -5,7 +5,8 @@ imports no jax, so on a machine without it run it without the repo's
 conftest:  python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: float32 log-mel 1e-3 (log of sums of 512-term products taken
-in another order), float32 attention 1e-4 and bfloat16 attention 2e-2 (one
+in another order; the kernel's 3×TF32 products also within twice the twin's
+error against float64, and bit-equal from launch to launch), float32 attention 1e-4 and bfloat16 attention 2e-2 (one
 bf16 rounding of the output and of the probabilities), and the bfloat16
 tensor-core forward also one bf16 ulp at the twin's largest entry, the
 attention lse and backward (dqu, dqv, dk, dv, dp) 5e-4 in float32, the bar
@@ -65,7 +66,22 @@ def _close(got, ref, atol):
 
 
 @pytest.mark.parametrize(
-    "kw, samples", [({}, 480000), ({}, 12345), (dict(n_fft=400, hop_length=160), 16001), ({}, 1920000)]
+    "kw, samples",
+    [
+        ({}, 480000), ({}, 12345), (dict(n_fft=400, hop_length=160), 16001),
+        ({}, 1920000),  # 11,253 frames: the 64-frame tile
+        ({}, 960000),  # 5,628 frames: too few for a 64-frame block on each of 132 SMs, the 32-frame tile
+        ({}, 257),  # one frame, reflected at both ends
+        ({}, 40000),  # 79 frames a row: the 16-frame tiles of a short batch straddle rows, the last ragged
+        (dict(win_length=400), 16000),  # the window zero-padded to n_fft
+        (dict(htk=True, n_mels=80), 16000),
+        (dict(n_fft=1024, hop_length=256, n_mels=128), 400000),  # the 32-frame tile past n_fft = 512
+        (dict(n_fft=401, hop_length=100), 8001),  # odd n_fft: no Nyquist bin, unaligned frames
+        (dict(n_mels=160), 16000),  # a second block of mels (grid.y), 32 of them
+        (dict(n_fft=2048, hop_length=512, n_mels=256), 48000),  # the 16-frame tile past 1024, two mel blocks
+        (dict(n_fft=4096, hop_length=1024, n_mels=128), 48000),  # the 8-frame tile past 2305, 64-row stages
+        (dict(n_fft=5889, hop_length=1500), 20000),  # the longest frame it takes, odd
+    ],
 )
 def test_stft_logmel_kernel(cuda, kw, samples):
     cfg = FeatureConfig(**kw)
@@ -74,6 +90,71 @@ def test_stft_logmel_kernel(cuda, kw, samples):
     got = S.stft_logmel(audio, cfg)
     assert S.stft_logmel.launches == before + 1
     _close(got, S.stft_logmel_plain(audio, cfg), 1e-3)
+
+
+def test_stft_logmel_silence_and_quiet_rows(cuda):
+    """A row of zeros gives log_floor exactly (every split of 0 is 0), as
+    the twin does; a row at 1e-3 amplitude beside rows at 0.1 agrees with the
+    twin as they do."""
+    cfg = FeatureConfig()
+    audio = torch.randn(4, 48000, generator=cuda) * 0.1
+    audio[1] = 0.0
+    audio[2] *= 1e-2
+    audio = audio.cuda()
+    got, ref = S.stft_logmel(audio, cfg), S.stft_logmel_plain(audio, cfg)
+    floor = torch.log(torch.tensor(cfg.log_floor, device="cuda"))
+    assert torch.equal(got[1], torch.full_like(got[1], floor.item())) and torch.equal(got[1], ref[1])
+    _close(got[2], ref[2], 1e-3)
+    _close(got, ref, 1e-3)
+
+
+def test_stft_logmel_kernel_is_as_close_to_float64_as_the_twin(cuda):
+    """Against the same function in float64, the 3×TF32 kernel's largest
+    error is at most twice the float32 twin's (one TF32 pass would be ~100×)."""
+    cfg = FeatureConfig()
+    audio = (torch.randn(4, 160000, generator=cuda) * 0.1).cuda()
+    ref = S.stft_logmel_float64(audio, cfg)
+    kernel = (S.stft_logmel(audio, cfg).double() - ref).abs().max().item()
+    twin = (S.stft_logmel_plain(audio, cfg).double() - ref).abs().max().item()
+    assert kernel <= 2 * twin, (kernel, twin)
+
+
+def test_stft_logmel_kernel_is_bit_equal_from_launch_to_launch(cuda):
+    cfg = FeatureConfig()
+    audio = (torch.randn(3, 100000, generator=cuda) * 0.1).cuda()
+    assert torch.equal(S.stft_logmel(audio, cfg), S.stft_logmel(audio, cfg))
+
+
+def test_stft_logmel_rows_are_bit_equal_whatever_tile_the_batch_takes(cuda):
+    """Every tile sums a frame's products and mels in the same order, so a
+    row's log-mel does not depend on the batch around it: 16 rows of 30 s
+    take the 64-frame tile, 5 the 32-frame one, 1 the 16-frame one."""
+    cfg = FeatureConfig()
+    audio = (torch.randn(16, 480000, generator=cuda) * 0.1).cuda()
+    full = S.stft_logmel(audio, cfg)
+    for rows in (5, 1):
+        assert torch.equal(S.stft_logmel(audio[:rows], cfg), full[:rows]), rows
+
+
+@pytest.mark.parametrize(
+    "n_fft, frames", [(512, 15008), (512, 4690), (512, 896), (1024, 4689), (2048, 282), (4096, 141), (5889, 42)]
+)
+def test_stft_logmel_plan(cuda, n_fft, frames):
+    """No spill, at least one block an SM, and the tile the launch rule picks:
+    the largest whose rows fit (64 frames up to n_fft 513, 32 up to 1031)
+    and that gives every SM a block, else 16 (up to 2305), else 8."""
+    plan = S.stft_logmel_tc_plan(n_fft, frames)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fits = [f for f, most in ((64, 513), (32, 1031)) if n_fft <= most and -(-frames // f) >= sms]
+    assert plan["local_bytes"] == 0 and plan["blocks_per_sm"] >= 1, plan
+    assert plan["frames_per_block"] == (fits[0] if fits else 16 if n_fft <= 2305 else 8), plan
+
+
+def test_stft_logmel_rejects_what_the_kernel_does_not_take(cuda):
+    with pytest.raises(ValueError):
+        S.stft_logmel(torch.zeros(2, 8000, device="cuda"), FeatureConfig(n_fft=5890, hop_length=1024))
+    with pytest.raises(ValueError):
+        S.stft_logmel(torch.zeros(2, 256, device="cuda"), FeatureConfig())
 
 
 @pytest.mark.parametrize("dtype, atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])

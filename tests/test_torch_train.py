@@ -390,6 +390,9 @@ def test_flops_copy_equal_and_peak_by_card_name():
          "attention bwd dband (+ reduce)"),
         ("void dband_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int)", "attention bwd dband (+ reduce)"),
         ("void lstm_fwd_kernel<true>(LstmArgs)", "lstm_fwd"),
+        ("void (anonymous namespace)::stft_logmel_tc_kernel<(anonymous namespace)::Tile<1, 2, 512> >(float const*, "
+         "float const*, float const*, float const*, int const*, float*, int, int, int, int, int, int, int, int, "
+         "float)", "stft_logmel"),
         ("void (anonymous namespace)::lstm_dwhh_kernel<4>(float const*, float const*, float*, int)",
          "lstm_dwhh (+ reduce)"),
         ("void (anonymous namespace)::lstm_dwhh_reduce_kernel(float4 const*, float4*, int, int)", "lstm_dwhh (+ reduce)"),
