@@ -2,6 +2,8 @@
 """Drives the PyTorch/CUDA port once on one NVIDIA GPU and checks its kernels.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``python3 chip_smoke.py --ctc-times [TREE]`` times only the CTC kernels of
+the checkout at TREE, this one by default: see `ctc_times_main`.)
 
 1. Prints the card's name and power limit, then builds the hand-written
    kernels from ``csrc/`` with nvcc, one process per source (the
@@ -12,9 +14,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    buckets of the Noisy Student phase, B=16 clips of 1.8 s and 3.6 s,
    T'=14 and 28, targets of 8 tokens), with mixed lengths, and times both
    with CUDA events after warm-up.  The CTC kernels are also read against
-   the same recursions in float64, and the log-mel kernel against the same
-   function in float64 (at most twice the twin's error), twice for
-   bit-equal launches, beside the cuFFT route.  Beside each time it works
+   the same recursions in float64 beside their twins, launched twice for
+   bit-equal results, timed on the card alone (`device_ms`) beside their
+   serial floor, and their plan's builds must not spill; the log-mel
+   kernel is read against the same function in float64 (at most twice the
+   twin's error), twice for bit-equal launches, beside the cuFFT route.  Beside each time it works
    out the least time the card could take for the same work
    (bytes over the memory rate against operations over the peak rate) and,
    where one PyTorch call computes the same function, times that call (for
@@ -449,6 +453,54 @@ def serial_floor_ms(b: int, hidden: int, steps: int) -> float:
     return steps * (share / (PEAK_FLOPS[torch.float32] / sms) * 1e3 + cluster_barrier_us() * 1e-3)
 
 
+# The CTC kernels' work a state and step: float32 operations (alpha: logaddexp3's four max/min, two differences,
+# two adds and the max's add, then the emit's add; beta the same with eb's add, and the posterior's add, difference,
+# min and product) and special-function operations (two exps and a log; beta's posterior one more exp)
+CTC_STEP_OPS = {"alpha": (10, 3), "beta": (14, 4)}
+SFU_PER_CLOCK = 16  # an SM's special-function results a clock (CUDA's throughput table, compute capability 9.0)
+
+
+def ctc_serial_floor_ms(states: int, steps: int, kernel: str = "alpha") -> float:
+    """The least time of a CTC kernel's chain of ``steps`` dependent steps
+    over ``states`` states, which one SM walks (one block a row): each
+    step's float32 arithmetic at one SM's share of the float32 peak, its
+    exps and logs at the SM's 16 special-function results a clock (the clock
+    the float32 peak implies: 128 FMAs a clock an SM), and one block barrier
+    with one shared-memory round trip at the kernel's plan's threads, as the
+    card times them (`ctc_step_us`)."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
+
+    ops, sfu = CTC_STEP_OPS[kernel]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_flops = PEAK_FLOPS[torch.float32] / sms
+    clock = sm_flops / 256
+    step_s = states * ops / sm_flops + states * sfu / (SFU_PER_CLOCK * clock)
+    return steps * (step_s * 1e3 + ctc_step_us(K.ctc_plan(states, steps + 1, kernel)["threads"]) * 1e-3)
+
+
+@functools.lru_cache(maxsize=None)
+def ctc_step_us(threads: int) -> float:
+    """Microseconds of one block barrier with a shared-memory round trip in a
+    block of ``threads``: events around 10,000 in one launch, less the same
+    launch with 100."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    sink = torch.zeros(1, device="cuda")
+    stream = build.stream_of(sink)
+
+    def run(iters):
+        build.check(build.library().ctc_step_probe(iters, threads, sink.data_ptr(), stream), "ctc_step_probe")
+
+    long_ms, short_ms = cuda_ms(lambda: run(10_000), iters=5), cuda_ms(lambda: run(100), iters=5)
+    return (long_ms - short_ms) / 9_900 * 1e3
+
+
+def kernel_dtypes(can_skip: torch.Tensor, ext_len: torch.Tensor, input_lengths: torch.Tensor):
+    """can_skip as uint8, the lengths as int32: the CTC kernels' own types, which their wrappers then pass on
+    unconverted (in every tree of the port, for `ctc_times`)."""
+    return can_skip.to(torch.uint8), ext_len.to(torch.int32), input_lengths.to(torch.int32)
+
+
 @functools.lru_cache(maxsize=1)
 def cluster_barrier_us() -> float:
     """Microseconds of one barrier of a 16-CTA cluster (two clusters, one CTA
@@ -494,6 +546,30 @@ def cudnn_lstm_ms(b: int, t: int, hidden: int, lengths: torch.Tensor, gen: torch
     return {"forward": cuda_ms(lambda: layer(packed)),
             "backward": cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)),
             "both": cuda_ms(both)}
+
+
+def ctc_inputs(gen: torch.Generator, b: int, t: int, target_len: int):
+    """The CTC kernels' inputs at a train step's shape, on the card: logits (b, t, V) and random labels of
+    ``target_len`` tokens, row 1 of repeated pairs, row 2 an empty label, row 3 shorter than its targets
+    (no alignment), the other rows ragged but long enough for their targets; then the emit gather.
+    Returns logits, labels, label_lengths, input_lengths, emit, can_skip and ext_len."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops import ctc as TC
+
+    dev = torch.device("cuda")
+    labels = torch.randint(3, VOCAB, (b, target_len), generator=gen)
+    labels[1] = labels[1, : target_len // 2].repeat_interleave(2)
+    label_lengths = torch.full((b,), target_len)
+    label_lengths[2] = 0
+    # ragged rows that leave room for the targets and their repeats (row 1 needs a blank between each of its
+    # target_len // 2 pairs); row 3 is shorter than its targets
+    low, need = 2 * target_len + 20, target_len + target_len // 2
+    input_lengths = torch.randint(low if low <= t else (need + t) // 2, t + 1, (b,), generator=gen)
+    input_lengths[0], input_lengths[3] = t, 60 if target_len > 60 else target_len // 2
+    logits = (torch.randn(b, t, VOCAB, generator=gen) * 2).to(dev)
+    labels, label_lengths, input_lengths = labels.to(dev), label_lengths.to(dev), input_lengths.to(dev)
+    ext, can_skip, _, ext_len = TC.extended_labels(labels, label_lengths, 0)
+    emit = TC.emit_log_probs(torch.log_softmax(logits, -1), ext)
+    return logits, labels, label_lengths, input_lengths, emit, can_skip, ext_len
 
 
 def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
@@ -592,19 +668,7 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     # -- CTC alpha/beta: S = 2·target_len + 1 states, V=1024; one row of
     #    repeated pairs, one empty label, one impossible alignment
     s = 2 * target_len + 1
-    labels = torch.randint(3, VOCAB, (b, target_len), generator=gen)
-    labels[1] = labels[1, : target_len // 2].repeat_interleave(2)
-    label_lengths = torch.full((b,), target_len)
-    label_lengths[2] = 0
-    # ragged rows that leave room for the targets and their repeats (row 1 needs a blank between each of its
-    # target_len // 2 pairs); row 3 is shorter than its targets
-    low, need = 2 * target_len + 20, target_len + target_len // 2
-    input_lengths = torch.randint(low if low <= t else (need + t) // 2, t + 1, (b,), generator=gen)
-    input_lengths[0], input_lengths[3] = t, 60 if target_len > 60 else target_len // 2
-    logits = (torch.randn(b, t, VOCAB, generator=gen) * 2).to(dev)
-    labels, label_lengths, input_lengths = labels.to(dev), label_lengths.to(dev), input_lengths.to(dev)
-    ext, can_skip, _, ext_len = TC.extended_labels(labels, label_lengths, 0)
-    emit = TC.emit_log_probs(torch.log_softmax(logits, -1), ext)
+    logits, labels, label_lengths, input_lengths, emit, can_skip, ext_len = ctc_inputs(gen, b, t, target_len)
     alpha = K.ctc_alpha(emit, can_skip, ext_len, input_lengths)
     alpha_ref = K.ctc_alpha_plain(emit, can_skip, ext_len, input_lengths)
     ll, ll_ref = K.final_ll(alpha[:, -1], ext_len), K.final_ll(alpha_ref[:, -1], ext_len)
@@ -630,7 +694,9 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     possible = ll_ref > TC.LOG_EPS / 2
     kernel64 = (demit[possible].double() - demit64[possible]).abs().max().item()
     auto64 = (demit_auto[possible].double() - demit64[possible]).abs().max().item()
-    ll_err64 = ((ll[possible].double() - ll64[possible]).abs() / ll64[possible].abs()).max().item()
+    twin64 = (demit_ref[possible].double() - demit64[possible]).abs().max().item()
+    ll_err64, twin_ll64 = (((x[possible].double() - ll64[possible]).abs() / ll64[possible].abs()).max().item()
+                           for x in (ll, ll_ref))
     tol64 = TOL["ctc_float64"][t]
     x, w = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
     ours = K.ctc_loss_kernel(torch.log_softmax(x, -1), labels, input_lengths, label_lengths, reduction=None)
@@ -646,20 +712,34 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     (ref64 * g).sum().backward()
     ours64, torch64 = max_abs(x.grad, w64.grad), max_abs(w.grad, w64.grad)
     check(bool(ours[3] == 0) and bool((x.grad[3] == 0).all()), "zero_infinity row not zeroed")
-    ams = cuda_ms(lambda: K.ctc_alpha(emit, can_skip, ext_len, input_lengths))
+    # the kernels' own inputs (uint8, int32), converted once as CTCLogLikelihood does, so the times hold no conversion
+    kin = (emit, *kernel_dtypes(can_skip, ext_len, input_lengths))
+    check(torch.equal(alpha, K.ctc_alpha(*kin)), "ctc_alpha: two launches on the same inputs are not bit-equal")
+    check(torch.equal(demit, K.ctc_beta(kin[0], alpha, *kin[1:], ll, g)),
+          "ctc_beta: two launches on the same inputs are not bit-equal")
+    plan = {kernel: K.ctc_plan(s, t, kernel) for kernel in ("alpha", "beta")}
+    built = {kernel: K.ctc_kernel_attributes(p, kernel) for kernel, p in plan.items()}
+    ams, ams_events = device_ms(lambda: K.ctc_alpha(*kin)), cuda_ms(lambda: K.ctc_alpha(*kin))
     aplain_ms = cuda_ms(lambda: K.ctc_alpha_plain(emit, can_skip, ext_len, input_lengths), iters=5)
-    bms = cuda_ms(lambda: K.ctc_beta(emit, alpha, can_skip, ext_len, input_lengths, ll, g))
+    bms, bms_events = (fn(lambda: K.ctc_beta(kin[0], alpha, *kin[1:], ll, g)) for fn in (device_ms, cuda_ms))
     bplain_ms = cuda_ms(lambda: K.ctc_beta_plain(emit, alpha, can_skip, ext_len, input_lengths, ll, g), iters=5)
-    print(f"ctc_alpha ({b}, {t}, {s}) f32: ll max rel|Δ| {ll_err:.3e} (tol {TOL['ctc_alpha']}), "
-          f"kernel {ams:.4f} ms, plain {aplain_ms:.4f} ms  [{card}]")
-    print(f"ctc_beta ({b}, {t}, {s}) f32: demit max|Δ| {demit_err:.3e} (tol {TOL['ctc_beta']}), "
-          f"kernel {bms:.4f} ms, plain {bplain_ms:.4f} ms  [{card}]")
-    print(f"ctc against the float64 recursions ({b}, {t}, {s}): ll max rel|Δ| {ll_err64:.3e}; demit max|Δ| of the "
-          f"kernels {kernel64:.3e} (tol {tol64}), of autograd through the plain recursion {auto64:.3e}")
+    frames = int(input_lengths.max())  # the longest row's chain, which the launch waits for
+    floors = {kernel: ctc_serial_floor_ms(s, frames - 1, kernel) for kernel in ("alpha", "beta")}
+    print(f"ctc plan ({b}, {t}, {s}): {plan}; built: {built}  [{card}]")
+    print(f"ctc_alpha ({b}, {t}, {s}) f32: ll max rel|Δ| {ll_err:.3e} (tol {TOL['ctc_alpha']}), two launches bit-equal, "
+          f"kernel device {ams:.4f} ms ({ams / frames * 1e3:.3f} us a step over {frames} frames; events "
+          f"{ams_events:.4f}), serial floor {floors['alpha']:.4f} ms, plain {aplain_ms:.4f} ms  [{card}]")
+    print(f"ctc_beta ({b}, {t}, {s}) f32: demit max|Δ| {demit_err:.3e} (tol {TOL['ctc_beta']}), two launches bit-equal, "
+          f"kernel device {bms:.4f} ms ({bms / frames * 1e3:.3f} us a step; events {bms_events:.4f}), serial floor "
+          f"{floors['beta']:.4f} ms, plain {bplain_ms:.4f} ms  [{card}]")
+    print(f"ctc against the float64 recursions ({b}, {t}, {s}): ll max rel|Δ| of the kernel {ll_err64:.3e}, of the twin "
+          f"{twin_ll64:.3e}; demit max|Δ| of the kernels {kernel64:.3e} (tol {tol64}), of the twin {twin64:.3e}, of "
+          f"autograd through the plain recursion {auto64:.3e}")
     print(f"ctc_loss_kernel vs torch.nn.functional.ctc_loss: loss max rel|Δ| {witness_loss:.3e} "
           f"(tol {TOL['ctc_witness_loss']}); logit-grad max|Δ| against torch's CTC in float64: the kernels "
           f"{ours64:.3e} (tol {tol64}), torch's float32 CTC {torch64:.3e}; the kernels against torch's "
           f"float32 CTC {witness_grad:.3e}")
+    check(all(v["local_bytes"] == 0 for v in built.values()), f"the CTC kernels spill or keep a stack frame: {built}")
     check(ll_err <= TOL["ctc_alpha"], "ctc_alpha disagrees with its plain twin")
     check(demit_err <= TOL["ctc_beta"], "ctc_beta disagrees with its plain twin")
     check(kernel64 <= tol64, "ctc_beta disagrees with the float64 recursion")
@@ -669,10 +749,11 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     w = torch.log_softmax(logits, -1).transpose(0, 1).contiguous().requires_grad_(True)
     lib_loss = lambda: torch.nn.functional.ctc_loss(  # noqa: E731
         w, labels, input_lengths, label_lengths, reduction="sum", zero_infinity=True)
-    lib_fwd_ms = cuda_ms(lib_loss)
     loss = lib_loss()
-    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss, w, retain_graph=True))
-    print(f"torch.nn.functional.ctc_loss at the same shape: forward {lib_fwd_ms:.4f} ms, backward {lib_bwd_ms:.4f} ms")
+    lib_bwd = lambda: torch.autograd.grad(loss, w, retain_graph=True)  # noqa: E731
+    lib_fwd_ms, lib_bwd_ms = device_ms(lib_loss), device_ms(lib_bwd)
+    print(f"torch.nn.functional.ctc_loss at the same shape: forward device {lib_fwd_ms:.4f} ms (events "
+          f"{cuda_ms(lib_loss):.4f}), backward device {lib_bwd_ms:.4f} ms (events {cuda_ms(lib_bwd):.4f})  [{card}]")
     # about 10 operations per (frame, state): a three-term logsumexp; alpha reads emit and writes alpha,
     # beta reads emit and alpha and writes demit
     cells = int((input_lengths.to(torch.int64) * ext_len.to(torch.int64)).sum())
@@ -681,6 +762,68 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     results["ctc_beta"] = numbers(demit_err, bms, bplain_ms, nbytes(emit, alpha, demit), 10 * cells, torch.float32,
                                   library_ms=lib_bwd_ms)
     return results
+
+
+# (rows, frames, targets a row) of the CTC kernels' launches: the 30 s and the long-form train steps, the NST buckets
+CTC_SHAPES = ((BATCH, T_SUB, TARGET_LEN), (LONG_BATCH, LONG_T_SUB, LONG_TARGET_LEN),
+              *((NST_BATCH, frames, NST_MAX_WORDS) for _, frames in NST_BUCKETS))
+
+
+def ctc_times(card: str) -> None:
+    """Device time of the CTC kernels of whichever checkout's package is
+    imported (`ctc_times_main`), on the same seeded inputs in every tree, at
+    `CTC_SHAPES`.  In a tree with `ctc_plan`, also both kernels under every
+    K (states a thread), each held bit-equal to the plans' launches: how the
+    plans were chosen."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
+
+    print(f"ctc kernels of {Path(K.__file__).resolve().parents[3]}  [{card}]")
+    for b, t, target_len in CTC_SHAPES:
+        gen = torch.Generator().manual_seed(SEED + 12)
+        _, _, _, input_lengths, emit, can_skip, ext_len = ctc_inputs(gen, b, t, target_len)
+        kin = (emit, *kernel_dtypes(can_skip, ext_len, input_lengths))
+        alpha = K.ctc_alpha(*kin)
+        ll = K.final_ll(alpha[:, -1], ext_len)
+        g = torch.randn(b, generator=gen).cuda()
+        demit = K.ctc_beta(kin[0], alpha, *kin[1:], ll, g)
+
+        def timed(plan=None):
+            extra = {} if plan is None else {"plan": plan}
+            return (device_ms(lambda: K.ctc_alpha(*kin, **extra)),
+                    device_ms(lambda: K.ctc_beta(kin[0], alpha, *kin[1:], ll, g, **extra)))
+
+        s = emit.shape[2]
+        frames = int(input_lengths.max())
+        a_ms, b_ms = timed()
+        print(f"ctc ({b}, {t}, {s}): device alpha {a_ms:.4f} ms, beta {b_ms:.4f} ms ({a_ms / frames * 1e3:.3f} / "
+              f"{b_ms / frames * 1e3:.3f} us a step over {frames} frames)  [{card}]", flush=True)
+        if not hasattr(K, "ctc_plan"):
+            continue
+        base = K.ctc_plan(s, t)
+        plans = [dict(base, states_per_thread=k, warps=-(-s // (32 * k)), threads=32 * -(-s // (32 * k)))
+                 for k in K.STATES_PER_THREAD if -(-s // (32 * k)) <= 32]
+        for plan in plans:
+            check(torch.equal(K.ctc_alpha(*kin, plan=plan), alpha)
+                  and torch.equal(K.ctc_beta(kin[0], alpha, *kin[1:], ll, g, plan=plan), demit),
+                  f"ctc launches under {plan} differ from the plans'")
+            a_ms, b_ms = timed(plan)
+            print(f"  K={plan['states_per_thread']} in {plan['warps']} warps: device alpha {a_ms:.4f} ms, beta "
+                  f"{b_ms:.4f} ms, bit-equal to the plans'", flush=True)
+
+
+def ctc_times_main(tree: Path) -> None:
+    """``python3 chip_smoke.py --ctc-times [TREE]``: `ctc_times` for the port
+    in the checkout at TREE (this one by default), built there: for timing a
+    parent commit's kernels against this one's in turns, in one call."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
+    sys.path.insert(0, str(tree.resolve()))
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    card = card_line()
+    print(card)
+    build.build()
+    ctc_times(card)
 
 
 def check_row_route(card: str):
@@ -2266,4 +2409,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ctc-times"]:
+        ctc_times_main(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
+    else:
+        main()

@@ -96,7 +96,7 @@ def alpha_recursion(
     alphas = [alpha]
     for ti in range(1, emit.shape[1]):
         shift1 = torch.cat([eps[:, :1], alpha[:, :-1]], dim=1)
-        shift2 = torch.where(can_skip, torch.cat([eps, alpha[:, :-2]], dim=1), LOG_EPS)
+        shift2 = torch.where(can_skip, torch.cat([eps, alpha[:, :-2]], dim=1)[:, :s], LOG_EPS)
         new = _logaddexp3(alpha, shift1, shift2) + emit[:, ti]
         new = torch.where(valid_pos, new, LOG_EPS)
         alpha = torch.where((ti < input_lengths)[:, None], new, alpha)

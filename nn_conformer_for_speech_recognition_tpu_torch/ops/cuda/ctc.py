@@ -17,10 +17,13 @@ beta recursion starts from the end states at t = T-1 (the JAX kernel at
 its last padded frame; the frames between are padding, where beta
 carries), and carries that init back to each row's len-1.
 
-The CUDA kernels (`csrc/ctc.cu`) give one block to each batch row and one
-thread to each state, so S ≤ 1024 (labels of up to 511 tokens); longer
-labels are rejected.  What bounds them on the H100: T sequential steps of
-a few exp/log per state; with B=16 rows only 16 SMs work.
+The CUDA kernels (`csrc/ctc.cu`) give one block to each batch row: each
+thread owns `ctc_plan`'s K consecutive states and walks the row's T steps
+from inputs staged in shared memory ahead of the chain, so S ≤ 1024
+(labels of up to 511 tokens); longer labels are rejected.  What bounds
+them on the H100: T dependent steps of a few exp/log per state on one SM
+a row (a serial floor, `chip_smoke.ctc_serial_floor_ms`); with B=16 rows
+only 16 SMs work.
 """
 
 from __future__ import annotations
@@ -40,7 +43,42 @@ from nn_conformer_for_speech_recognition_tpu_torch.ops.ctc import (
     state_masks,
 )
 
-MAX_STATES = 1024  # one thread per state
+MAX_STATES = 1024  # the kernels' cap: labels of up to 511 tokens
+STATES_PER_THREAD = (1, 3, 5, 7, 9)  # the kernels' builds: K states a thread
+# the most warps a block takes before K grows, by kernel (chosen by timing every K at S = 201 and 801)
+MAX_WARPS = {"alpha": 9, "beta": 32}
+AHEAD = 8  # as `csrc/ctc.cu`: frames whose inputs a thread copies ahead of the chain
+EDGE_BYTES = 2 * 32 * 2 * 4  # the kernels' static shared memory: two edge values a warp, by frame parity
+
+
+def _smem_bytes(rings: int, threads: int, k: int) -> int:
+    """As `csrc/ctc.cu`: the edge values, and ``rings`` rings (alpha: emit;
+    beta: emit and alpha) of `AHEAD` frames of each thread's K states."""
+    return EDGE_BYTES + 4 * rings * AHEAD * k * threads
+
+
+def ctc_plan(states: int, frames: int, kernel: str = "alpha") -> dict:
+    """The launch of the CTC ``kernel`` ("alpha" or "beta") for rows of
+    ``states`` states and ``frames`` frames: K, the states a thread, is the
+    smallest K built whose threads fit the kernel's `MAX_WARPS`.  Alpha: K =
+    1 up to 288 states (the NST buckets' 17, the 30 s step's 201), 3 up to
+    864 (the long-form step's 801), 5 up to 1024; beta: K = 1 throughout
+    (up to 32 warps).  More warps hide more of a step's latency until the
+    step's barrier and issue slots cost more than fewer states a thread
+    saves, sooner for alpha than for beta, whose posterior fills the wait
+    (`chip_smoke.py --ctc-times` times every K).  Whatever T, each thread
+    copies its own states' inputs `AHEAD` frames ahead into a ring in
+    shared memory (one array for alpha, two for beta)."""
+    if kernel not in MAX_WARPS:
+        raise ValueError(f"ctc_plan: unknown kernel {kernel!r}")
+    if not 1 <= states <= MAX_STATES:
+        raise ValueError(f"ctc_plan: {states} states outside 1..{MAX_STATES}")
+    if frames < 1:
+        raise ValueError(f"ctc_plan: {frames} frames")
+    k = next(k for k in STATES_PER_THREAD if states <= 32 * MAX_WARPS[kernel] * k)
+    warps = -(-states // (32 * k))
+    return dict(threads=32 * warps, warps=warps, states_per_thread=k, ahead=AHEAD,
+                smem_bytes=_smem_bytes(1 if kernel == "alpha" else 2, 32 * warps, k))
 
 
 def ctc_alpha_plain(
@@ -74,7 +112,8 @@ def ctc_beta_plain(
         if ti < t - 1:
             eb = torch.where(valid, emit[:, ti + 1] + beta, LOG_EPS)
             t2 = torch.cat([eb[:, 1:], eps[:, :1]], dim=1)  # eb[s+1]
-            t3 = torch.cat([torch.where(can_skip, eb, LOG_EPS)[:, 2:], eps], dim=1)  # canskip[s+2] ? eb[s+2]
+            # canskip[s+2] ? eb[s+2], LOG_EPS past S (S = 1 takes one pad)
+            t3 = torch.cat([torch.where(can_skip, eb, LOG_EPS)[:, 2:], eps[:, : min(2, s)]], dim=1)
             new = torch.where(valid, _logaddexp3(eb, t2, t3), LOG_EPS)
             # the transition into t+1 exists only while t < len-1
             beta = torch.where(ti < lens - 1, new, beta)
@@ -83,28 +122,40 @@ def ctc_beta_plain(
     return torch.stack(demit, dim=1)
 
 
+def kernel_inputs(can_skip: torch.Tensor, ext_len: torch.Tensor, input_lengths: torch.Tensor, device):
+    """can_skip as uint8, ext_len and input_lengths as int32, contiguous on
+    ``device``: what the kernels read.  Tensors already so come back as
+    they are."""
+    i32 = dict(device=device, dtype=torch.int32)
+    return (can_skip.to(device=device, dtype=torch.uint8).contiguous(), ext_len.to(**i32).contiguous(),
+            input_lengths.to(**i32).contiguous())
+
+
 def _check(emit: torch.Tensor, can_skip: torch.Tensor, ext_len: torch.Tensor, input_lengths: torch.Tensor, what: str):
     if emit.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {emit.device}")
     if emit.dim() != 3 or emit.dtype != torch.float32:
         raise ValueError(f"{what}: emit must be (B, T, S) float32, got {tuple(emit.shape)} {emit.dtype}")
-    b, _, s = emit.shape
+    b, t, s = emit.shape
     if s > MAX_STATES:
         raise ValueError(f"{what}: {s} states exceed {MAX_STATES} (labels longer than 511 tokens)")
+    if t < 1 or s < 1:
+        raise ValueError(f"{what}: emit must have frames and states, got {tuple(emit.shape)}")
     if can_skip.shape != (b, s) or ext_len.shape != (b,) or input_lengths.shape != (b,):
         raise ValueError(f"{what}: can_skip must be (B, S), ext_len and input_lengths (B,)")
-    i32 = dict(device=emit.device, dtype=torch.int32)
-    return (
-        emit.contiguous(), can_skip.to(device=emit.device, dtype=torch.uint8).contiguous(),
-        ext_len.to(**i32).contiguous(), input_lengths.to(**i32).contiguous(),
-    )
+    return (emit.contiguous(), *kernel_inputs(can_skip, ext_len, input_lengths, emit.device))
+
+
+def _plan_args(plan: dict):
+    return plan["threads"], plan["states_per_thread"]
 
 
 def ctc_alpha(
-    emit: torch.Tensor, can_skip: torch.Tensor, ext_len: torch.Tensor, input_lengths: torch.Tensor
+    emit: torch.Tensor, can_skip: torch.Tensor, ext_len: torch.Tensor, input_lengths: torch.Tensor,
+    plan: Optional[dict] = None,
 ) -> torch.Tensor:
     """(B, T, S) alpha.  The kernel for CUDA tensors, the plain twin for
-    CPU ones."""
+    CPU ones.  ``plan`` replaces `ctc_plan`'s launch (a measurement)."""
     if emit.device.type == "cpu":
         return ctc_alpha_plain(emit, can_skip, ext_len, input_lengths)
     emit, can_skip, ext_len, input_lengths = _check(emit, can_skip, ext_len, input_lengths, "ctc_alpha")
@@ -114,7 +165,7 @@ def ctc_alpha(
     alpha = torch.empty_like(emit)
     err = build.library().ctc_alpha(
         emit.data_ptr(), can_skip.data_ptr(), ext_len.data_ptr(), input_lengths.data_ptr(),
-        alpha.data_ptr(), b, t, s, build.stream_of(emit),
+        alpha.data_ptr(), b, t, s, *_plan_args(plan or ctc_plan(s, t, "alpha")), build.stream_of(emit),
     )
     build.check(err, "ctc_alpha")
     ctc_alpha.launches += 1
@@ -129,9 +180,11 @@ def ctc_beta(
     input_lengths: torch.Tensor,
     ll: torch.Tensor,
     g: torch.Tensor,
+    plan: Optional[dict] = None,
 ) -> torch.Tensor:
     """(B, T, S) demit, the cotangent of the emit log-probs.  The kernel for
-    CUDA tensors, the plain twin for CPU ones."""
+    CUDA tensors, the plain twin for CPU ones.  ``plan`` replaces
+    `ctc_plan`'s launch (a measurement)."""
     if emit.device.type == "cpu":
         return ctc_beta_plain(emit, alpha, can_skip, ext_len, input_lengths, ll, g)
     emit, can_skip, ext_len, input_lengths = _check(emit, can_skip, ext_len, input_lengths, "ctc_beta")
@@ -142,17 +195,32 @@ def ctc_beta(
         raise ValueError("ctc_beta: ll and g must be (B,)")
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
-    alpha = alpha.contiguous()
+    alpha = alpha.to(emit.device).contiguous()
     ll, g = (x.to(device=emit.device, dtype=torch.float32).contiguous() for x in (ll, g))
     demit = torch.empty_like(emit)
     err = build.library().ctc_beta(
         emit.data_ptr(), alpha.data_ptr(), can_skip.data_ptr(), ext_len.data_ptr(),
         input_lengths.data_ptr(), ll.data_ptr(), g.data_ptr(), demit.data_ptr(), b, t, s,
-        build.stream_of(emit),
+        *_plan_args(plan or ctc_plan(s, t, "beta")), build.stream_of(emit),
     )
     build.check(err, "ctc_beta")
     ctc_beta.launches += 1
     return demit
+
+
+def ctc_kernel_attributes(plan: dict, kernel: str) -> dict:
+    """What the card made of the build of ``kernel`` ("alpha" or "beta")
+    that ``plan`` launches: registers a thread and local memory a thread
+    (non-zero: spills or a stack frame).  Needs a CUDA device; launches
+    nothing."""
+    import ctypes
+
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    build.check(build.library().ctc_kernel_attributes(int(kernel == "beta"), plan["states_per_thread"],
+                                                      ctypes.byref(regs), ctypes.byref(local)), "ctc_kernel_attributes")
+    return dict(registers=regs.value, local_bytes=local.value)
 
 
 class CTCLogLikelihood(torch.autograd.Function):
@@ -161,6 +229,8 @@ class CTCLogLikelihood(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, emit, can_skip, ext_len, input_lengths):
+        if emit.device.type != "cpu":  # converted once, for both kernels
+            can_skip, ext_len, input_lengths = kernel_inputs(can_skip, ext_len, input_lengths, emit.device)
         alpha = ctc_alpha(emit, can_skip, ext_len, input_lengths)
         ll = final_ll(alpha[:, -1], ext_len)
         ctx.save_for_backward(emit, alpha, can_skip, ext_len, input_lengths, ll)

@@ -99,6 +99,27 @@ def test_matches_torch_ctc_loss(rng):
     torch.testing.assert_close(logits.grad, witness.grad, rtol=0, atol=ATOL)
 
 
+def test_every_label_empty(rng):
+    """Labels all empty (S = 1, the one blank state): the only alignment is
+    blank at every frame, so the loss is −Σ_{t < len} log p_t(blank) and its
+    gradient −1 there, 0 elsewhere, for the plain loss and for the loss
+    through the alpha/beta twins (the JAX package's plain CTC takes no empty
+    label batch, so the closed form is the reference)."""
+    in_len = np.array([7, 4, 1, 2], np.int32)
+    log_probs = np.array(jax.nn.log_softmax(jnp.asarray(rng.standard_normal((4, 7, 5)), jnp.float32), axis=-1))
+    mask = np.arange(7)[None, :] < in_len[:, None]
+    want = -(log_probs[:, :, 0] * mask).sum(axis=1)
+    for fn in (TC.ctc_loss, K.ctc_loss_kernel):
+        lp = torch.from_numpy(log_probs).requires_grad_(True)
+        nll = fn(lp, torch.zeros(4, 0, dtype=torch.int32), torch.from_numpy(in_len), torch.zeros(4, dtype=torch.int32),
+                 reduction=None)
+        nll.sum().backward()
+        np.testing.assert_allclose(nll.detach().numpy(), want, rtol=RTOL, atol=ATOL, err_msg=fn.__name__)
+        grad = np.zeros_like(log_probs)
+        grad[:, :, 0] = -mask.astype(np.float32)
+        np.testing.assert_allclose(lp.grad.numpy(), grad, atol=ATOL, err_msg=fn.__name__)
+
+
 def test_golden_value():
     rng = np.random.default_rng(1234)
     logits = torch.from_numpy(rng.standard_normal((2, 10, 6)).astype(np.float32))
@@ -182,3 +203,40 @@ def test_emit_adjoint_is_the_one_hot_contraction(rng, case):
     onehot = jax.nn.one_hot(jnp.asarray(ext.numpy()), log_probs.shape[2], dtype=jnp.float32)
     _, vjp = jax.vjp(lambda lp: jnp.einsum("btv,bsv->bts", lp, onehot, precision="highest"), jnp.asarray(log_probs))
     np.testing.assert_allclose(got.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), rtol=0, atol=1e-6)
+
+
+def test_ctc_plan_owns_every_state_once_within_the_card():
+    """The CUDA kernels' launch plans for S = 1..1024 and a few T: every
+    state has exactly one owner thread (thread i owns states iK .. iK+K-1),
+    no warp owns none, K is one of the builds, threads and shared memory
+    within an H100 block's 1024 and 232,448 bytes; past the cap, or for
+    another kernel, it raises."""
+    for kernel, rings in (("alpha", 1), ("beta", 2)):
+        for s in range(1, K.MAX_STATES + 1):
+            for t in (1, 14, 28, 37, 235, 938):
+                plan = K.ctc_plan(s, t, kernel)
+                k, threads = plan["states_per_thread"], plan["threads"]
+                owned = (np.arange(threads)[:, None] * k + np.arange(k)[None, :]).ravel()
+                np.testing.assert_array_equal(owned[owned < s], np.arange(s))
+                assert k in K.STATES_PER_THREAD and threads % 32 == 0 and threads == 32 * plan["warps"]
+                assert (threads - 32) * k < s and threads <= 1024 and plan["ahead"] >= 1
+                assert plan["smem_bytes"] == 512 + rings * 4 * plan["ahead"] * k * threads <= 232448
+    for s, t, kernel in ((0, 10, "alpha"), (K.MAX_STATES + 1, 10, "beta"), (17, 0, "alpha"), (17, 10, "gamma")):
+        with pytest.raises(ValueError):
+            K.ctc_plan(s, t, kernel)
+
+
+@pytest.mark.parametrize("states, frames, kernel, want", [
+    (17, 14, "alpha", dict(threads=32, warps=1, states_per_thread=1)),  # the NST buckets: one warp
+    (17, 28, "beta", dict(threads=32, warps=1, states_per_thread=1)),
+    (201, 235, "alpha", dict(threads=224, warps=7, states_per_thread=1)),  # the 30 s step
+    (201, 235, "beta", dict(threads=224, warps=7, states_per_thread=1)),
+    (801, 938, "alpha", dict(threads=288, warps=9, states_per_thread=3)),  # the long-form step
+    (801, 938, "beta", dict(threads=832, warps=26, states_per_thread=1)),
+    (1024, 938, "alpha", dict(threads=224, warps=7, states_per_thread=5)),  # the cap
+    (1024, 938, "beta", dict(threads=1024, warps=32, states_per_thread=1)),
+    (1, 1, "alpha", dict(threads=32, warps=1, states_per_thread=1)),  # every label empty, one frame
+])
+def test_ctc_plan_picks(states, frames, kernel, want):
+    plan = K.ctc_plan(states, frames, kernel)
+    assert {key: plan[key] for key in want} == want

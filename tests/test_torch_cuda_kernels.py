@@ -629,6 +629,113 @@ def test_ctc_kernels(cuda, b, t, length):
     assert torch.isfinite(demit).all()
 
 
+def _ctc_rows(gen, in_len, lab_len, t, vocab=64):
+    """Emit log-probs at the extended labels of random labels: rows of
+    ``in_len`` frames (of ``t``) and ``lab_len`` labels, as the kernels take
+    them, on the card."""
+    labels = torch.randint(1, vocab, (len(in_len), max(lab_len)), generator=gen)
+    lab_len, in_len = torch.tensor(lab_len), torch.tensor(in_len)
+    ext, can_skip, _, ext_len = TC.extended_labels(labels, lab_len, 0)
+    logits = torch.randn(len(in_len), t, vocab, generator=gen) * 2
+    emit = TC.emit_log_probs(torch.log_softmax(logits, -1), ext)
+    return [x.cuda() for x in (emit, can_skip, ext_len, in_len)]
+
+
+def _ctc_against_twins(gen, emit, can_skip, ext_len, in_len):
+    """Both kernels against their twins at the bars of `test_ctc_kernels`,
+    and each bit-equal over two launches."""
+    alpha = K.ctc_alpha(emit, can_skip, ext_len, in_len)
+    alpha_ref = K.ctc_alpha_plain(emit, can_skip, ext_len, in_len)
+    torch.cuda.synchronize()
+    finite = alpha_ref > TC.LOG_EPS / 2
+    assert torch.equal(alpha > TC.LOG_EPS / 2, finite)
+    assert torch.all((alpha - alpha_ref).abs()[finite] <= 1e-3 + 1e-5 * alpha_ref.abs()[finite])
+    ll, ll_ref = K.final_ll(alpha[:, -1], ext_len), K.final_ll(alpha_ref[:, -1], ext_len)
+    torch.testing.assert_close(ll, ll_ref, rtol=1e-5, atol=0)
+    g = torch.randn(emit.shape[0], generator=gen).cuda()
+    demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
+    _close(demit, K.ctc_beta_plain(emit, alpha, can_skip, ext_len, in_len, ll, g), 5e-4)
+    assert torch.isfinite(demit).all()
+    assert torch.equal(alpha, K.ctc_alpha(emit, can_skip, ext_len, in_len))
+    assert torch.equal(demit, K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g))
+    return alpha, demit
+
+
+@pytest.mark.parametrize("b, t, length", [(16, 235, 100), (4, 938, 400)])  # the 30 s and the 120 s train step
+def test_ctc_launches_bit_equal(cuda, b, t, length):
+    """Each state has one owner thread and nothing is atomic: two launches on
+    the same inputs give the same bits, at both train shapes."""
+    logits, labels, in_len, lab_len = _ctc_case(cuda, b, t, length)
+    ext, can_skip, _, ext_len = TC.extended_labels(labels, lab_len, 0)
+    emit = TC.emit_log_probs(torch.log_softmax(logits, -1), ext)
+    alpha = K.ctc_alpha(emit, can_skip, ext_len, in_len)
+    assert torch.equal(alpha, K.ctc_alpha(emit, can_skip, ext_len, in_len))
+    ll = K.final_ll(alpha[:, -1], ext_len)
+    g = torch.randn(b, generator=cuda).cuda()
+    demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
+    assert torch.equal(demit, K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g))
+
+
+@pytest.mark.parametrize("in_len, lab_len, t", [
+    ([14, 7, 1, 0], [0, 0, 0, 0], 14),  # S = 1: every label empty
+    ([1, 1, 0], [1, 0, 1], 1),  # T = 1: the init alone
+    ([14, 12, 10, 9, 14, 11, 13, 8] * 2, [8, 5, 7, 3, 8, 2, 6, 4] * 2, 14),  # the NST buckets' T' = 14 and 28, S = 17
+    ([28, 20, 25, 9, 28, 17, 26, 14] * 2, [8, 5, 7, 3, 8, 2, 6, 4] * 2, 28),
+    ([37, 30, 5, 37, 21], [6, 6, 4, 1, 6], 37),  # T odd, not a multiple of the frames loaded ahead (4); S = 13
+    ([235, 0, 235, 180], [100, 100, 60, 90], 235),  # a row of input length 0 between full rows
+    ([1100, 1060], [511, 500], 1100),  # S = 1023, the most states below the cap (K = 9 in 4 warps, 3 stages)
+])
+def test_ctc_kernels_at_the_edges(cuda, in_len, lab_len, t):
+    _ctc_against_twins(cuda, *_ctc_rows(cuda, in_len, lab_len, t))
+
+
+def test_ctc_kernels_on_unaligned_rows(cuda):
+    """Emit at an offset of one float, so no chunk starts 16-byte aligned and
+    the outputs' rows start elsewhere in their 16 bytes than the inputs' (the
+    scalar copy out); and an even S, which no label gives, with skips drawn
+    at random."""
+    emit, can_skip, ext_len, in_len = _ctc_rows(cuda, [235, 200, 120, 235], [100, 90, 40, 7], 235)
+    shifted = torch.empty(emit.numel() + 1, device="cuda")[1:].view(emit.shape)
+    shifted.copy_(emit)
+    assert shifted.data_ptr() % 16 == 4
+    alpha, demit = _ctc_against_twins(cuda, shifted, can_skip, ext_len, in_len)
+    assert torch.equal(alpha, K.ctc_alpha(emit, can_skip, ext_len, in_len))
+    b, t, s = 3, 21, 12
+    emit = torch.log_softmax(torch.randn(b, t, s, generator=cuda), -1).cuda()
+    can_skip = (torch.rand(b, s, generator=cuda) < 0.5).cuda()
+    _ctc_against_twins(cuda, emit, can_skip, torch.tensor([12, 9, 5]).cuda(), torch.tensor([21, 15, 2]).cuda())
+
+
+def test_ctc_kernels_refuse_past_the_cap(cuda):
+    """S = 1025 (512 labels) is past the kernels' cap: a ValueError, never
+    the twin."""
+    emit, can_skip, ext_len, in_len = _ctc_rows(cuda, [1100], [512], 1100)
+    assert emit.shape[2] == K.MAX_STATES + 1
+    with pytest.raises(ValueError, match="exceed"):
+        K.ctc_alpha(emit, can_skip, ext_len, in_len)
+    with pytest.raises(ValueError, match="exceed"):
+        K.ctc_beta(emit, emit, can_skip, ext_len, in_len, torch.zeros(1).cuda(), torch.ones(1).cuda())
+
+
+def test_ctc_every_build_agrees_bit_for_bit(cuda):
+    """A state's arithmetic does not depend on how many states its thread
+    owns: every build of K gives the plans' bits, and no build spills."""
+    emit, can_skip, ext_len, in_len = _ctc_rows(cuda, [120, 97, 120, 60], [40, 31, 40, 20], 120)
+    alpha, demit = _ctc_against_twins(cuda, emit, can_skip, ext_len, in_len)
+    ll = K.final_ll(alpha[:, -1], ext_len)
+    g = torch.randn(4, generator=cuda).cuda()
+    demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
+    s = emit.shape[2]
+    base = K.ctc_plan(s, 120)
+    for k in K.STATES_PER_THREAD:
+        warps = -(-s // (32 * k))
+        plan = dict(base, states_per_thread=k, warps=warps, threads=32 * warps)
+        assert torch.equal(K.ctc_alpha(emit, can_skip, ext_len, in_len, plan=plan), alpha), plan
+        assert torch.equal(K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g, plan=plan), demit), plan
+        built = {kernel: K.ctc_kernel_attributes(plan, kernel) for kernel in ("alpha", "beta")}
+        assert all(v["local_bytes"] == 0 for v in built.values()), (k, built)
+
+
 def test_ctc_loss_kernel_matches_torch_ctc(cuda):
     logits, labels, in_len, lab_len = _ctc_case(cuda)
     x, w = logits.clone().requires_grad_(True), logits.clone().requires_grad_(True)
