@@ -475,7 +475,7 @@ def ctc_serial_floor_ms(states: int, steps: int, kernel: str = "alpha") -> float
     sm_flops = PEAK_FLOPS[torch.float32] / sms
     clock = sm_flops / 256
     step_s = states * ops / sm_flops + states * sfu / (SFU_PER_CLOCK * clock)
-    return steps * (step_s * 1e3 + ctc_step_us(K.ctc_plan(states, steps + 1, kernel)["threads"]) * 1e-3)
+    return steps * (step_s * 1e3 + ctc_step_us(K.ctc_plan(states, kernel)["threads"]) * 1e-3)
 
 
 @functools.lru_cache(maxsize=None)
@@ -717,8 +717,10 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     check(torch.equal(alpha, K.ctc_alpha(*kin)), "ctc_alpha: two launches on the same inputs are not bit-equal")
     check(torch.equal(demit, K.ctc_beta(kin[0], alpha, *kin[1:], ll, g)),
           "ctc_beta: two launches on the same inputs are not bit-equal")
-    plan = {kernel: K.ctc_plan(s, t, kernel) for kernel in ("alpha", "beta")}
-    built = {kernel: K.ctc_kernel_attributes(p, kernel) for kernel, p in plan.items()}
+    plan = {kernel: K.ctc_plan(s, kernel) for kernel in ("alpha", "beta")}
+    # every build, the plan's among them
+    built = {f"{kernel} K={k}": K.ctc_kernel_attributes(kernel, k) for kernel, ks in K.STATES_PER_THREAD.items()
+             for k in ks}
     ams, ams_events = device_ms(lambda: K.ctc_alpha(*kin)), cuda_ms(lambda: K.ctc_alpha(*kin))
     aplain_ms = cuda_ms(lambda: K.ctc_alpha_plain(emit, can_skip, ext_len, input_lengths), iters=5)
     bms, bms_events = (fn(lambda: K.ctc_beta(kin[0], alpha, *kin[1:], ll, g)) for fn in (device_ms, cuda_ms))
@@ -772,9 +774,7 @@ CTC_SHAPES = ((BATCH, T_SUB, TARGET_LEN), (LONG_BATCH, LONG_T_SUB, LONG_TARGET_L
 def ctc_times(card: str) -> None:
     """Device time of the CTC kernels of whichever checkout's package is
     imported (`ctc_times_main`), on the same seeded inputs in every tree, at
-    `CTC_SHAPES`.  In a tree with `ctc_plan`, also both kernels under every
-    K (states a thread), each held bit-equal to the plans' launches: how the
-    plans were chosen."""
+    `CTC_SHAPES`."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
 
     print(f"ctc kernels of {Path(K.__file__).resolve().parents[3]}  [{card}]")
@@ -785,30 +785,12 @@ def ctc_times(card: str) -> None:
         alpha = K.ctc_alpha(*kin)
         ll = K.final_ll(alpha[:, -1], ext_len)
         g = torch.randn(b, generator=gen).cuda()
-        demit = K.ctc_beta(kin[0], alpha, *kin[1:], ll, g)
-
-        def timed(plan=None):
-            extra = {} if plan is None else {"plan": plan}
-            return (device_ms(lambda: K.ctc_alpha(*kin, **extra)),
-                    device_ms(lambda: K.ctc_beta(kin[0], alpha, *kin[1:], ll, g, **extra)))
-
+        a_ms = device_ms(lambda: K.ctc_alpha(*kin))
+        b_ms = device_ms(lambda: K.ctc_beta(kin[0], alpha, *kin[1:], ll, g))
         s = emit.shape[2]
         frames = int(input_lengths.max())
-        a_ms, b_ms = timed()
         print(f"ctc ({b}, {t}, {s}): device alpha {a_ms:.4f} ms, beta {b_ms:.4f} ms ({a_ms / frames * 1e3:.3f} / "
               f"{b_ms / frames * 1e3:.3f} us a step over {frames} frames)  [{card}]", flush=True)
-        if not hasattr(K, "ctc_plan"):
-            continue
-        base = K.ctc_plan(s, t)
-        plans = [dict(base, states_per_thread=k, warps=-(-s // (32 * k)), threads=32 * -(-s // (32 * k)))
-                 for k in K.STATES_PER_THREAD if -(-s // (32 * k)) <= 32]
-        for plan in plans:
-            check(torch.equal(K.ctc_alpha(*kin, plan=plan), alpha)
-                  and torch.equal(K.ctc_beta(kin[0], alpha, *kin[1:], ll, g, plan=plan), demit),
-                  f"ctc launches under {plan} differ from the plans'")
-            a_ms, b_ms = timed(plan)
-            print(f"  K={plan['states_per_thread']} in {plan['warps']} warps: device alpha {a_ms:.4f} ms, beta "
-                  f"{b_ms:.4f} ms, bit-equal to the plans'", flush=True)
 
 
 def ctc_times_main(tree: Path) -> None:

@@ -46,14 +46,16 @@
 //   (-inf, 0], where their errors (~1e-7 absolute in the log-sum) sit far
 //   below the float32 rounding of log-space values of ~1e3 (6e-5); the
 //   agreement gates against the plain twin and float64 are unchanged.
-// - Fewer, fuller warps: a thread owns K consecutive states (K = 1, 3, 5, 7
-//   or 9), its neighbours come from registers and __shfl_up/down_sync, and
-//   only each warp's two edge values pass through shared memory, published
-//   at the end of a step and double-buffered by frame parity, so a step has
-//   one block barrier, and none with one warp.  ops/cuda/ctc.py::ctc_plan
-//   picks K and the warps by S and kernel (timed: alpha K = 1 in 7 warps at
-//   S = 201 and K = 3 in 9 at 801, beta K = 1 in 7 and 26); the launchers
-//   check what it hands them.
+// - Fewer, fuller warps: an alpha thread owns K consecutive states (K = 1,
+//   3 or 5), a beta thread one; neighbours come from registers and
+//   __shfl_up/down_sync, and only each warp's two edge values pass through
+//   shared memory, published at the end of a step and double-buffered by
+//   frame parity, so a step has one block barrier, and none with one warp.
+//   ops/cuda/ctc.py::ctc_plan picks K and the warps by S and kernel (timed
+//   over K = 1..9: alpha K = 1 in 7 warps at S = 201 and K = 3 in 9 at 801;
+//   beta K = 1 won at every S, so it is the only beta build), and the
+//   frames copied ahead and the shared bytes; the launchers check all of
+//   it against the layout below and launch with the plan's bytes.
 // Each state has one owner thread and nothing is atomic: launches are
 // bit-equal.
 
@@ -71,6 +73,19 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxStates = 1024;
 constexpr int kMaxWarps = 32;
 constexpr int kAhead = 8;  // frames whose inputs are copied ahead of the chain
+
+// A block's shared memory, all of it dynamic: each warp's two edge values of either frame parity, [parity][warp][2]
+// with the parities `stride` warps apart, then `rings` rings (alpha: emit; beta: emit, alpha) of kAhead frames of
+// each thread's K states.  The stride is kMaxWarps, but the block's warps in alpha's builds of K > 1: each timed
+// the faster (the K = 3 build also spills at the fixed stride).
+__host__ __device__ constexpr int alpha_edge_stride(int k, int warps) { return k > 1 ? warps : kMaxWarps; }
+__host__ __device__ constexpr int edge_floats(int stride) { return 2 * stride * 2; }
+size_t shared_bytes(int stride, int rings, int threads, int k) {
+  return sizeof(float) * (edge_floats(stride) + static_cast<size_t>(rings) * kAhead * k * threads);
+}
+
+// the offset in the shared memory of warp w's two edge values of a frame of parity p
+__device__ __forceinline__ int edge_at(int stride, int p, int w) { return 2 * (p * stride + w); }
 
 // The most threads a launch with K states a thread can need for S <= kMaxStates.
 __host__ __device__ constexpr int max_threads(int k) { return 32 * ((kMaxStates + 32 * k - 1) / (32 * k)); }
@@ -117,6 +132,14 @@ __device__ __forceinline__ void logaddexp3(const float (&a)[K], const float (&b)
   for (int k = FROM; k < TO; ++k) out[k] = m[k] <= LOG_EPS ? LOG_EPS : fmaf(u[k], kLn2, m[k]);
 }
 
+// the same for one state
+__device__ __forceinline__ float logaddexp3(float a, float b, float c) {
+  const float a1[1] = {a}, b1[1] = {b}, c1[1] = {c};
+  float out[1];
+  logaddexp3<0, 1, 1>(a1, b1, c1, out);
+  return out[0];
+}
+
 // A thread's ring of frames in shared memory: its K states of kAhead frames, laid out [frame slot][k][thread] so
 // that a warp's k-th states are 32 consecutive floats.  The thread copies and reads only its own states, so its
 // own cp.async.wait_group, and no barrier, makes a frame visible.
@@ -151,12 +174,13 @@ __global__ void __launch_bounds__(max_threads(K))
     ctc_alpha_kernel(const float* __restrict__ emit, const uint8_t* __restrict__ can_skip,
                      const int* __restrict__ ext_len, const int* __restrict__ input_len, float* __restrict__ alpha,
                      int seq, int states) {
-  __shared__ float edge[2][kMaxWarps][2];  // each warp's last two states of a frame, by frame parity
-  extern __shared__ float ring_smem[];
+  extern __shared__ float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  // smem[edge_at(stride, p, w)]: warp w's last two states of a frame of parity p
+  const int stride = alpha_edge_stride(K, warps);
   const int b = blockIdx.x, s0 = tid * K;
   const int len = input_len[b], elen = ext_len[b];
-  const Ring<K> ring{ring_smem + tid, static_cast<int>(blockDim.x)};
+  const Ring<K> ring{smem + edge_floats(stride) + tid, static_cast<int>(blockDim.x)};
   const int own = max(0, min(K, states - s0));  // states of this thread inside the row
   unsigned valid = 0;
   float skip[K];  // 0 where the skip from s-2 is allowed, LOG_EPS where not: added, it rounds that term to a
@@ -194,12 +218,12 @@ __global__ void __launch_bounds__(max_threads(K))
         float p1 = __shfl_up_sync(kFull, a[K - 1], 1);
         float p2 = K >= 2 ? __shfl_up_sync(kFull, a[K >= 2 ? K - 2 : 0], 1) : __shfl_up_sync(kFull, a[0], 2);
         if (warps > 1) __syncthreads();
-        const float(&ed)[kMaxWarps][2] = edge[(t - 1) & 1];
+        const int below = edge_at(stride, (t - 1) & 1, max(warp - 1, 0));
         if (lane == 0) {
-          p1 = warp > 0 ? ed[warp - 1][1] : LOG_EPS;
-          p2 = warp > 0 ? ed[warp - 1][0] : LOG_EPS;
+          p1 = warp > 0 ? smem[below + 1] : LOG_EPS;
+          p2 = warp > 0 ? smem[below] : LOG_EPS;
         }
-        if (K == 1 && lane == 1) p2 = warp > 0 ? ed[warp - 1][1] : LOG_EPS;
+        if (K == 1 && lane == 1) p2 = warp > 0 ? smem[below + 1] : LOG_EPS;
         constexpr int kEdge = K < 2 ? K : 2;  // states whose neighbours s-1, s-2 lie with the lanes below
         float x1[K], x2[K], na[K];
 #pragma unroll
@@ -220,8 +244,9 @@ __global__ void __launch_bounds__(max_threads(K))
       }
       store_states<K>(out + static_cast<size_t>(t) * states, a, own);
       if (t + 1 < len) {  // the next step reads them (a carried frame's would race a slower warp's last read)
-        if (lane == 31) edge[t & 1][warp][1] = a[K - 1];
-        if (lane == (K >= 2 ? 31 : 30)) edge[t & 1][warp][0] = a[K >= 2 ? K - 2 : 0];
+        const int mine = edge_at(stride, t & 1, warp);
+        if (lane == 31) smem[mine + 1] = a[K - 1];
+        if (lane == (K >= 2 ? 31 : 30)) smem[mine] = a[K >= 2 ? K - 2 : 0];
       }
       ring.copy(j, e, t + kAhead, seq, states, own);
       tc::cp_async_commit();
@@ -230,45 +255,36 @@ __global__ void __launch_bounds__(max_threads(K))
   tc::cp_async_wait<0>();
 }
 
-// g·exp(min(alpha + beta - ll, 0)) on a live frame's valid states, else 0
-template <int K>
-__device__ __forceinline__ void posterior(float* dst, const float (&al)[K], const float (&beta)[K], bool live,
-                                          unsigned valid, int own, float llb, float gb) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float v = gb * fast_exp2(fminf(al[k] + beta[k] - llb, 0.f) * kLog2e);
-    if (k < own) dst[k] = live && ((valid >> k) & 1) ? v : 0.f;
-  }
+// g·exp(min(alpha + beta - ll, 0)) on a live frame's valid state, else 0; every thread computes it, whether or not
+// it owns a state (so that it is scheduled as the chain's neighbour, not behind a branch), and an owner stores it
+__device__ __forceinline__ void posterior(float* dst, float al, float beta, bool live, bool valid, bool own,
+                                          float llb, float gb) {
+  const float v = gb * fast_exp2(fminf(al + beta - llb, 0.f) * kLog2e);
+  if (own) *dst = live && valid ? v : 0.f;
 }
 
-template <int K>
-__global__ void __launch_bounds__(max_threads(K))
+// One state a thread (ctc_plan: timed faster than several at every S).
+__global__ void __launch_bounds__(max_threads(1))
     ctc_beta_kernel(const float* __restrict__ emit, const float* __restrict__ alpha,
                     const uint8_t* __restrict__ can_skip, const int* __restrict__ ext_len,
                     const int* __restrict__ input_len, const float* __restrict__ ll, const float* __restrict__ g,
                     float* __restrict__ demit, int seq, int states) {
-  __shared__ float edge[2][kMaxWarps][2];  // each warp's first two eb values, by frame parity
-  extern __shared__ float ring_smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
-  const int ring_floats = kAhead * K * static_cast<int>(blockDim.x);
-  const Ring<K> ering{ring_smem + tid, static_cast<int>(blockDim.x)};                // emit
-  const Ring<K> aring{ring_smem + ring_floats + tid, static_cast<int>(blockDim.x)};  // alpha
-  const int b = blockIdx.x, s0 = tid * K;
+  extern __shared__ float smem[];
+  const int s = threadIdx.x, lane = s & 31, warp = s >> 5, warps = blockDim.x >> 5;
+  // smem[edge_at(kMaxWarps, p, w)]: warp w's first two eb values of a frame of parity p
+  const int ring_floats = kAhead * static_cast<int>(blockDim.x);
+  const Ring<1> ering{smem + edge_floats(kMaxWarps) + s, static_cast<int>(blockDim.x)};                // emit
+  const Ring<1> aring{smem + edge_floats(kMaxWarps) + ring_floats + s, static_cast<int>(blockDim.x)};  // alpha
+  const int b = blockIdx.x;
   const int len = min(input_len[b], seq), elen = ext_len[b];
-  const int own = max(0, min(K, states - s0));
-  unsigned valid = 0;
-  float beta[K], skip2[K];  // skip2: 0 where the skip into s+2 is allowed, LOG_EPS where not (as alpha's skip)
-  const uint8_t* cs = can_skip + static_cast<size_t>(b) * states;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int s = s0 + k;
-    if (s < states && s < elen) valid |= 1u << k;
-    skip2[k] = s + 2 < states && cs[s + 2] ? 0.f : LOG_EPS;
-    // t = T-1 is the init step: the end states
-    beta[k] = s < states && (s == elen - 1 || (s == elen - 2 && elen >= 2)) ? 0.f : LOG_EPS;
-  }
+  const int own = s < states;
+  const bool valid = s < states && s < elen;
+  // 0 where the skip into s+2 is allowed, LOG_EPS where not (as alpha's skip)
+  const float skip2 = s + 2 < states && can_skip[static_cast<size_t>(b) * states + s + 2] ? 0.f : LOG_EPS;
+  // t = T-1 is the init step: the end states
+  float beta = s < states && (s == elen - 1 || (s == elen - 2 && elen >= 2)) ? 0.f : LOG_EPS;
   const float llb = ll[b], gb = g[b];
-  const size_t row0 = static_cast<size_t>(b) * seq * states + s0;
+  const size_t row0 = static_cast<size_t>(b) * seq * states + s;
   const float* e = emit + row0;
   const float* al = alpha + row0;
   float* out = demit + row0;
@@ -282,62 +298,43 @@ __global__ void __launch_bounds__(max_threads(K))
     tc::cp_async_commit();
   }
 
-  float eb[K];  // emit_{t+1} + beta_{t+1} on valid states, for the step from t+1 into t
+  float eb;  // emit_{t+1} + beta_{t+1} on a valid state, for the step from t+1 into t
   for (int i0 = 0; i0 < seq; i0 += kAhead) {
 #pragma unroll
     for (int j = 0; j < kAhead; ++j) {
       const int t = seq - 1 - (i0 + j);
       if (t < 0) break;  // block-uniform
       const int up = (j + kAhead - 1) % kAhead;  // the slot of frame t+1
-      float ev[K], av[K];  // emit of frame t, alpha of frame t+1
       tc::cp_async_wait<kAhead - 1>();
-      ering.read(j, ev);
-      aring.read(up, av);
+      const float ev = *ering.at(j, 0), av = *aring.at(up, 0);  // emit of frame t, alpha of frame t+1
       if (t < len - 1) {  // block-uniform: a transition into t+1 exists
-        // neighbours s0+K and s0+K+1 from the lanes above, and across a warp's edge through shared memory,
+        // neighbours s+1 and s+2 from the lanes above, and across a warp's edge through shared memory,
         // published at the end of the last step
-        float n1 = __shfl_down_sync(kFull, eb[0], 1);
-        float n2 = K >= 2 ? __shfl_down_sync(kFull, eb[K >= 2 ? 1 : 0], 1) : __shfl_down_sync(kFull, eb[0], 2);
+        float n1 = __shfl_down_sync(kFull, eb, 1);
+        float n2 = __shfl_down_sync(kFull, eb, 2);
         if (warps > 1) __syncthreads();
-        const float(&ed)[kMaxWarps][2] = edge[t & 1];
+        // the warp above's (past the last warp: the other parity's or the ring's first, read and not used)
+        const float* ed = smem + edge_at(kMaxWarps, t & 1, warp + 1);
         const bool above = warp + 1 < warps;
         if (lane == 31) {
-          n1 = above ? ed[warp + 1][0] : LOG_EPS;
-          n2 = above ? ed[warp + 1][1] : LOG_EPS;
+          n1 = above ? ed[0] : LOG_EPS;
+          n2 = above ? ed[1] : LOG_EPS;
         }
-        if (K == 1 && lane == 30) n2 = above ? ed[warp + 1][0] : LOG_EPS;
+        if (lane == 30) n2 = above ? ed[0] : LOG_EPS;
         // off the chain: demit of frame t+1 from beta_{t+1}
-        posterior<K>(out + static_cast<size_t>(t + 1) * states, av, beta, true, valid, own, llb, gb);
-        constexpr int kInner = K < 2 ? 0 : K - 2;  // states whose neighbours s+1, s+2 are this thread's own
-        float x1[K], x2[K], nb[K];
-#pragma unroll
-        for (int k = 0; k < kInner; ++k) {
-          x1[k] = eb[k + 1 < K ? k + 1 : 0];
-          x2[k] = eb[k + 2 < K ? k + 2 : 0] + skip2[k];
-        }
-        if (K >= 2) {
-          x1[kInner] = eb[K - 1];
-          x2[kInner] = n1 + skip2[kInner];
-        }
-        x1[K - 1] = n1;
-        x2[K - 1] = n2 + skip2[K - 1];
-        logaddexp3<0, kInner>(eb, x1, x2, nb);
-        logaddexp3<kInner, K>(eb, x1, x2, nb);
-#pragma unroll
-        for (int k = 0; k < K; ++k) beta[k] = (valid >> k) & 1 ? nb[k] : LOG_EPS;
+        posterior(out + static_cast<size_t>(t + 1) * states, av, beta, true, valid, own, llb, gb);
+        const float nb = logaddexp3(eb, n1, n2 + skip2);
+        beta = valid ? nb : LOG_EPS;
       } else if (t + 1 < seq) {  // beta carries the end-state init
-        posterior<K>(out + static_cast<size_t>(t + 1) * states, av, beta, t + 1 < len, valid, own, llb, gb);
+        posterior(out + static_cast<size_t>(t + 1) * states, av, beta, t + 1 < len, valid, own, llb, gb);
       }
       if (t == 0) {  // alpha of frame 0 came in the group after the one the step waited for
-        float a0[K];
         tc::cp_async_wait<0>();
-        aring.read(j, a0);
-        posterior<K>(out, a0, beta, 0 < len, valid, own, llb, gb);
+        posterior(out, *aring.at(j, 0), beta, 0 < len, valid, own, llb, gb);
       } else {  // eb for the step into t-1, and the warp's first two for the warp below
-#pragma unroll
-        for (int k = 0; k < K; ++k) eb[k] = (valid >> k) & 1 ? ev[k] + beta[k] : LOG_EPS;
-        if (lane == 0) edge[(t - 1) & 1][warp][0] = eb[0];
-        if (lane == (K >= 2 ? 0 : 1)) edge[(t - 1) & 1][warp][1] = eb[K >= 2 ? 1 : 0];
+        eb = valid ? ev + beta : LOG_EPS;
+        if (lane == 0) smem[edge_at(kMaxWarps, (t - 1) & 1, warp)] = eb;
+        if (lane == 1) smem[edge_at(kMaxWarps, (t - 1) & 1, warp) + 1] = eb;
       }
       ering.copy(j, e, t - kAhead, seq, states, own);
       aring.copy(up, al, t + 1 - kAhead, seq, states, own);
@@ -371,107 +368,86 @@ int smem_optin() {
   return bytes;
 }
 
-// The frame rings: kAhead frames of K states a thread, one ring (alpha: emit) or two (beta: emit, alpha).
-size_t ring_bytes(int rings, int threads, int k) { return sizeof(float) * rings * kAhead * k * threads; }
-
-// Sets each kernel's shared-memory opt-in once, to the device's maximum.
-template <int K>
+// Sets a kernel's shared-memory opt-in once, to the device's maximum.
+template <auto Kernel>
 cudaError_t configure() {
-  static cudaError_t status = [] {
-    const cudaError_t a = cudaFuncSetAttribute(ctc_alpha_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_optin() - static_cast<int>(sizeof(float) * 2 * kMaxWarps * 2));
-    const cudaError_t b = cudaFuncSetAttribute(ctc_beta_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_optin() - static_cast<int>(sizeof(float) * 2 * kMaxWarps * 2));
-    return a != cudaSuccess ? a : b;
-  }();
+  static const cudaError_t status =
+      cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());
   return status;
 }
 
-// What ctc_plan hands a launch, checked: S in [1, 1024], T >= 1, whole warps (at most 32) covering S at K states
-// a thread (K = 1, 3, 5, 7 or 9), and the rings within the shared memory a block may opt into.
-bool plan_ok(int seq, int states, int threads, int k) {
+// What ctc_plan hands a launch, checked: S in [1, 1024], T >= 1, whole warps (at most 32) covering S at K states a
+// thread, kAhead frames copied ahead, and the plan's shared bytes those of the kernel's layout above (`layout`
+// bytes) and within what a block may opt into.
+bool plan_ok(int seq, int states, int threads, int k, int ahead, int smem, size_t layout) {
   return states >= 1 && states <= kMaxStates && seq >= 1 && threads >= 32 && threads % 32 == 0 &&
-         threads <= 32 * kMaxWarps && k >= 1 && k <= 9 && k % 2 == 1 && threads <= max_threads(k) &&
-         threads * k >= states && ring_bytes(2, threads, k) + sizeof(float) * 2 * kMaxWarps * 2 <=
-                                      static_cast<size_t>(smem_optin());
+         threads <= 32 * kMaxWarps && k >= 1 && threads <= max_threads(k) && threads * k >= states &&
+         ahead == kAhead && static_cast<size_t>(smem) == layout && smem <= smem_optin();
 }
 
-template <int K>
-cudaError_t alpha_launch(const float* emit, const uint8_t* can_skip, const int* ext_len, const int* input_len,
-                         float* alpha, int batch, int seq, int states, int threads, cudaStream_t stream) {
-  const cudaError_t err = configure<K>();
-  if (err != cudaSuccess) return err;
-  ctc_alpha_kernel<K><<<batch, threads, ring_bytes(1, threads, K), stream>>>(
-      emit, can_skip, ext_len, input_len, alpha, seq, states);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t beta_launch(const float* emit, const float* alpha, const uint8_t* can_skip, const int* ext_len,
-                        const int* input_len, const float* ll, const float* g, float* demit, int batch, int seq,
-                        int states, int threads, cudaStream_t stream) {
-  const cudaError_t err = configure<K>();
-  if (err != cudaSuccess) return err;
-  ctc_beta_kernel<K><<<batch, threads, ring_bytes(2, threads, K), stream>>>(
-      emit, alpha, can_skip, ext_len, input_len, ll, g, demit, seq, states);
-  return cudaGetLastError();
-}
-
-template <int K>
-cudaError_t attributes(int beta, int* registers, int* local_bytes) {
-  cudaError_t err = configure<K>();
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = beta ? cudaFuncGetAttributes(&attr, ctc_beta_kernel<K>) : cudaFuncGetAttributes(&attr, ctc_alpha_kernel<K>);
-  if (err != cudaSuccess) return err;
-  *registers = attr.numRegs;
-  *local_bytes = static_cast<int>(attr.localSizeBytes);
-  return cudaSuccess;
-}
-
-// f(std::integral_constant<int, K>) for the K states a thread that the kernels are built for
+// f(std::integral_constant<int, K>) for the K states a thread that the alpha kernel is built for
 template <class F>
 cudaError_t by_states_per_thread(int k, F&& f) {
   switch (k) {
     case 1: return f(std::integral_constant<int, 1>{});
     case 3: return f(std::integral_constant<int, 3>{});
     case 5: return f(std::integral_constant<int, 5>{});
-    case 7: return f(std::integral_constant<int, 7>{});
-    case 9: return f(std::integral_constant<int, 9>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <class Kernel>
+cudaError_t attributes(Kernel* kernel, int* registers, int* local_bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// threads and states_per_thread: ops/cuda/ctc.py::ctc_plan(states, seq, kernel)
+// threads, states_per_thread, ahead and smem_bytes: ops/cuda/ctc.py::ctc_plan(states, "alpha")
 extern "C" int ctc_alpha(const float* emit, const uint8_t* can_skip, const int* ext_len, const int* input_len,
-                         float* alpha, int batch, int seq, int states, int threads, int states_per_thread,
-                         void* stream) {
-  if (!plan_ok(seq, states, threads, states_per_thread)) return cudaErrorInvalidValue;
-  if (batch < 1) return cudaSuccess;
+                         float* alpha, int batch, int seq, int states, int threads, int states_per_thread, int ahead,
+                         int smem_bytes, void* stream) {
+  if (!plan_ok(seq, states, threads, states_per_thread, ahead, smem_bytes,
+               shared_bytes(alpha_edge_stride(states_per_thread, threads / 32), 1, threads, states_per_thread))) {
+    return cudaErrorInvalidValue;
+  }
   return by_states_per_thread(states_per_thread, [&](auto k) {
-    return alpha_launch<decltype(k)::value>(emit, can_skip, ext_len, input_len, alpha, batch, seq, states, threads,
-                                            static_cast<cudaStream_t>(stream));
+    const cudaError_t err = configure<ctc_alpha_kernel<decltype(k)::value>>();
+    if (err != cudaSuccess || batch < 1) return err;
+    ctc_alpha_kernel<decltype(k)::value><<<batch, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+        emit, can_skip, ext_len, input_len, alpha, seq, states);
+    return cudaGetLastError();
   });
 }
 
+// threads, ahead and smem_bytes: ops/cuda/ctc.py::ctc_plan(states, "beta") (one state a thread)
 extern "C" int ctc_beta(const float* emit, const float* alpha, const uint8_t* can_skip, const int* ext_len,
                         const int* input_len, const float* ll, const float* g, float* demit, int batch, int seq,
-                        int states, int threads, int states_per_thread, void* stream) {
-  if (!plan_ok(seq, states, threads, states_per_thread)) return cudaErrorInvalidValue;
-  if (batch < 1) return cudaSuccess;
-  return by_states_per_thread(states_per_thread, [&](auto k) {
-    return beta_launch<decltype(k)::value>(emit, alpha, can_skip, ext_len, input_len, ll, g, demit, batch, seq,
-                                           states, threads, static_cast<cudaStream_t>(stream));
-  });
+                        int states, int threads, int ahead, int smem_bytes, void* stream) {
+  if (!plan_ok(seq, states, threads, 1, ahead, smem_bytes, shared_bytes(kMaxWarps, 2, threads, 1))) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = configure<ctc_beta_kernel>();
+  if (err != cudaSuccess || batch < 1) return err;
+  ctc_beta_kernel<<<batch, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      emit, alpha, can_skip, ext_len, input_len, ll, g, demit, seq, states);
+  return cudaGetLastError();
 }
 
-// beta (0: the alpha kernel), states a thread → registers a thread and local memory a thread (non-zero:
-// spills or a stack frame) of that build (host only; no launch)
+// beta (0: the alpha kernel), states a thread (1 for beta) → registers a thread and local memory a thread
+// (non-zero: spills or a stack frame) of that build (host only; no launch)
 extern "C" int ctc_kernel_attributes(int beta, int states_per_thread, int* registers, int* local_bytes) {
-  return by_states_per_thread(states_per_thread,
-                              [&](auto k) { return attributes<decltype(k)::value>(beta, registers, local_bytes); });
+  if (beta) {
+    return states_per_thread == 1 ? attributes(ctc_beta_kernel, registers, local_bytes) : cudaErrorInvalidValue;
+  }
+  return by_states_per_thread(states_per_thread, [&](auto k) {
+    return attributes(ctc_alpha_kernel<decltype(k)::value>, registers, local_bytes);
+  });
 }
 
 // iters passes of ctc_step_probe_kernel in one block of `threads` (a measurement)

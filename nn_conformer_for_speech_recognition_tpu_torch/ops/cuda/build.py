@@ -85,11 +85,11 @@ SIGNATURES = {
     # rows, hidden, SMs → slices, rows per slice (host only; no launch)
     "lstm_dwhh_plan": (_I, _I, _I, _IP, _IP),
     # emit, can_skip, ext_len, input_len, alpha, batch, t, states, then
-    # ctc_plan's threads and states a thread; stream
-    "ctc_alpha": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # ctc_plan's threads, states a thread, frames ahead, shared bytes; stream
+    "ctc_alpha": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # emit, alpha, can_skip, ext_len, input_len, ll, g, demit, batch, t,
-    # states, threads, states a thread, stream
-    "ctc_beta": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # states, then ctc_plan's threads, frames ahead, shared bytes; stream
+    "ctc_beta": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # beta (0, 1), states a thread → registers, local bytes (host only)
     "ctc_kernel_attributes": (_I, _I, _IP, _IP),
     # iterations, threads, sink, stream: block barriers with a shared-memory

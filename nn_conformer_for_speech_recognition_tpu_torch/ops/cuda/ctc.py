@@ -18,7 +18,8 @@ its last padded frame; the frames between are padding, where beta
 carries), and carries that init back to each row's len-1.
 
 The CUDA kernels (`csrc/ctc.cu`) give one block to each batch row: each
-thread owns `ctc_plan`'s K consecutive states and walks the row's T steps
+thread owns `ctc_plan`'s K consecutive states (alpha) or one state (beta)
+and walks the row's T steps
 from inputs staged in shared memory ahead of the chain, so S ≤ 1024
 (labels of up to 511 tokens); longer labels are rejected.  What bounds
 them on the H100: T dependent steps of a few exp/log per state on one SM
@@ -44,41 +45,38 @@ from nn_conformer_for_speech_recognition_tpu_torch.ops.ctc import (
 )
 
 MAX_STATES = 1024  # the kernels' cap: labels of up to 511 tokens
-STATES_PER_THREAD = (1, 3, 5, 7, 9)  # the kernels' builds: K states a thread
-# the most warps a block takes before K grows, by kernel (chosen by timing every K at S = 201 and 801)
+# by kernel, the states a thread it is built for, and the most warps a block takes before K grows (chosen by
+# timing K = 1..9 at S = 17, 201 and 801: the K sweep in PERF.md)
+STATES_PER_THREAD = {"alpha": (1, 3, 5), "beta": (1,)}
 MAX_WARPS = {"alpha": 9, "beta": 32}
-AHEAD = 8  # as `csrc/ctc.cu`: frames whose inputs a thread copies ahead of the chain
-EDGE_BYTES = 2 * 32 * 2 * 4  # the kernels' static shared memory: two edge values a warp, by frame parity
+AHEAD = 8  # frames whose inputs a thread copies ahead of the chain (the kernels' kAhead, checked at launch)
 
 
-def _smem_bytes(rings: int, threads: int, k: int) -> int:
-    """As `csrc/ctc.cu`: the edge values, and ``rings`` rings (alpha: emit;
-    beta: emit and alpha) of `AHEAD` frames of each thread's K states."""
-    return EDGE_BYTES + 4 * rings * AHEAD * k * threads
-
-
-def ctc_plan(states: int, frames: int, kernel: str = "alpha") -> dict:
+def ctc_plan(states: int, kernel: str = "alpha") -> dict:
     """The launch of the CTC ``kernel`` ("alpha" or "beta") for rows of
-    ``states`` states and ``frames`` frames: K, the states a thread, is the
+    ``states`` states, whatever their frames: K, the states a thread, is the
     smallest K built whose threads fit the kernel's `MAX_WARPS`.  Alpha: K =
     1 up to 288 states (the NST buckets' 17, the 30 s step's 201), 3 up to
     864 (the long-form step's 801), 5 up to 1024; beta: K = 1 throughout
     (up to 32 warps).  More warps hide more of a step's latency until the
     step's barrier and issue slots cost more than fewer states a thread
-    saves, sooner for alpha than for beta, whose posterior fills the wait
-    (`chip_smoke.py --ctc-times` times every K).  Whatever T, each thread
-    copies its own states' inputs `AHEAD` frames ahead into a ring in
-    shared memory (one array for alpha, two for beta)."""
+    saves, sooner for alpha than for beta, whose posterior fills the wait.
+    Each thread copies its own states' inputs `AHEAD` frames ahead into a
+    ring in shared memory (one array for alpha, two for beta); the block's
+    shared bytes, all passed to the launch, are each warp's two edge values
+    for either frame parity (the parities 32 warps apart, or the block's
+    warps in alpha's launches of K > 1), then the rings.  The launch checks
+    ``ahead`` and ``smem_bytes`` against its own layout."""
     if kernel not in MAX_WARPS:
         raise ValueError(f"ctc_plan: unknown kernel {kernel!r}")
     if not 1 <= states <= MAX_STATES:
         raise ValueError(f"ctc_plan: {states} states outside 1..{MAX_STATES}")
-    if frames < 1:
-        raise ValueError(f"ctc_plan: {frames} frames")
-    k = next(k for k in STATES_PER_THREAD if states <= 32 * MAX_WARPS[kernel] * k)
+    k = next(k for k in STATES_PER_THREAD[kernel] if states <= 32 * MAX_WARPS[kernel] * k)
     warps = -(-states // (32 * k))
+    rings = 1 if kernel == "alpha" else 2
+    stride = warps if kernel == "alpha" and k > 1 else 32
     return dict(threads=32 * warps, warps=warps, states_per_thread=k, ahead=AHEAD,
-                smem_bytes=_smem_bytes(1 if kernel == "alpha" else 2, 32 * warps, k))
+                smem_bytes=4 * (2 * stride * 2 + rings * AHEAD * k * 32 * warps))
 
 
 def ctc_alpha_plain(
@@ -146,26 +144,22 @@ def _check(emit: torch.Tensor, can_skip: torch.Tensor, ext_len: torch.Tensor, in
     return (emit.contiguous(), *kernel_inputs(can_skip, ext_len, input_lengths, emit.device))
 
 
-def _plan_args(plan: dict):
-    return plan["threads"], plan["states_per_thread"]
-
-
 def ctc_alpha(
-    emit: torch.Tensor, can_skip: torch.Tensor, ext_len: torch.Tensor, input_lengths: torch.Tensor,
-    plan: Optional[dict] = None,
+    emit: torch.Tensor, can_skip: torch.Tensor, ext_len: torch.Tensor, input_lengths: torch.Tensor
 ) -> torch.Tensor:
     """(B, T, S) alpha.  The kernel for CUDA tensors, the plain twin for
-    CPU ones.  ``plan`` replaces `ctc_plan`'s launch (a measurement)."""
+    CPU ones."""
     if emit.device.type == "cpu":
         return ctc_alpha_plain(emit, can_skip, ext_len, input_lengths)
     emit, can_skip, ext_len, input_lengths = _check(emit, can_skip, ext_len, input_lengths, "ctc_alpha")
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
     b, t, s = emit.shape
+    plan = ctc_plan(s, "alpha")
     alpha = torch.empty_like(emit)
     err = build.library().ctc_alpha(
-        emit.data_ptr(), can_skip.data_ptr(), ext_len.data_ptr(), input_lengths.data_ptr(),
-        alpha.data_ptr(), b, t, s, *_plan_args(plan or ctc_plan(s, t, "alpha")), build.stream_of(emit),
+        emit.data_ptr(), can_skip.data_ptr(), ext_len.data_ptr(), input_lengths.data_ptr(), alpha.data_ptr(),
+        b, t, s, plan["threads"], plan["states_per_thread"], plan["ahead"], plan["smem_bytes"], build.stream_of(emit),
     )
     build.check(err, "ctc_alpha")
     ctc_alpha.launches += 1
@@ -180,11 +174,9 @@ def ctc_beta(
     input_lengths: torch.Tensor,
     ll: torch.Tensor,
     g: torch.Tensor,
-    plan: Optional[dict] = None,
 ) -> torch.Tensor:
     """(B, T, S) demit, the cotangent of the emit log-probs.  The kernel for
-    CUDA tensors, the plain twin for CPU ones.  ``plan`` replaces
-    `ctc_plan`'s launch (a measurement)."""
+    CUDA tensors, the plain twin for CPU ones."""
     if emit.device.type == "cpu":
         return ctc_beta_plain(emit, alpha, can_skip, ext_len, input_lengths, ll, g)
     emit, can_skip, ext_len, input_lengths = _check(emit, can_skip, ext_len, input_lengths, "ctc_beta")
@@ -197,29 +189,30 @@ def ctc_beta(
 
     alpha = alpha.to(emit.device).contiguous()
     ll, g = (x.to(device=emit.device, dtype=torch.float32).contiguous() for x in (ll, g))
+    plan = ctc_plan(s, "beta")
     demit = torch.empty_like(emit)
     err = build.library().ctc_beta(
         emit.data_ptr(), alpha.data_ptr(), can_skip.data_ptr(), ext_len.data_ptr(),
         input_lengths.data_ptr(), ll.data_ptr(), g.data_ptr(), demit.data_ptr(), b, t, s,
-        *_plan_args(plan or ctc_plan(s, t, "beta")), build.stream_of(emit),
+        plan["threads"], plan["ahead"], plan["smem_bytes"], build.stream_of(emit),
     )
     build.check(err, "ctc_beta")
     ctc_beta.launches += 1
     return demit
 
 
-def ctc_kernel_attributes(plan: dict, kernel: str) -> dict:
+def ctc_kernel_attributes(kernel: str, states_per_thread: int = 1) -> dict:
     """What the card made of the build of ``kernel`` ("alpha" or "beta")
-    that ``plan`` launches: registers a thread and local memory a thread
-    (non-zero: spills or a stack frame).  Needs a CUDA device; launches
-    nothing."""
+    for ``states_per_thread`` (one of `STATES_PER_THREAD`): registers a
+    thread and local memory a thread (non-zero: spills or a stack frame).
+    Needs a CUDA device; launches nothing."""
     import ctypes
 
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
     regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    build.check(build.library().ctc_kernel_attributes(int(kernel == "beta"), plan["states_per_thread"],
-                                                      ctypes.byref(regs), ctypes.byref(local)), "ctc_kernel_attributes")
+    build.check(build.library().ctc_kernel_attributes(int(kernel == "beta"), states_per_thread, ctypes.byref(regs),
+                                                      ctypes.byref(local)), "ctc_kernel_attributes")
     return dict(registers=regs.value, local_bytes=local.value)
 
 

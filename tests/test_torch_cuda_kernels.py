@@ -627,6 +627,9 @@ def test_ctc_kernels(cuda, b, t, length):
     demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
     _close(demit, K.ctc_beta_plain(emit, alpha, can_skip, ext_len, in_len, ll, g), 5e-4)
     assert torch.isfinite(demit).all()
+    # each state has one owner thread and nothing is atomic: two launches give the same bits
+    assert torch.equal(alpha, K.ctc_alpha(emit, can_skip, ext_len, in_len))
+    assert torch.equal(demit, K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g))
 
 
 def _ctc_rows(gen, in_len, lab_len, t, vocab=64):
@@ -661,39 +664,24 @@ def _ctc_against_twins(gen, emit, can_skip, ext_len, in_len):
     return alpha, demit
 
 
-@pytest.mark.parametrize("b, t, length", [(16, 235, 100), (4, 938, 400)])  # the 30 s and the 120 s train step
-def test_ctc_launches_bit_equal(cuda, b, t, length):
-    """Each state has one owner thread and nothing is atomic: two launches on
-    the same inputs give the same bits, at both train shapes."""
-    logits, labels, in_len, lab_len = _ctc_case(cuda, b, t, length)
-    ext, can_skip, _, ext_len = TC.extended_labels(labels, lab_len, 0)
-    emit = TC.emit_log_probs(torch.log_softmax(logits, -1), ext)
-    alpha = K.ctc_alpha(emit, can_skip, ext_len, in_len)
-    assert torch.equal(alpha, K.ctc_alpha(emit, can_skip, ext_len, in_len))
-    ll = K.final_ll(alpha[:, -1], ext_len)
-    g = torch.randn(b, generator=cuda).cuda()
-    demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
-    assert torch.equal(demit, K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g))
-
-
 @pytest.mark.parametrize("in_len, lab_len, t", [
     ([14, 7, 1, 0], [0, 0, 0, 0], 14),  # S = 1: every label empty
     ([1, 1, 0], [1, 0, 1], 1),  # T = 1: the init alone
     ([14, 12, 10, 9, 14, 11, 13, 8] * 2, [8, 5, 7, 3, 8, 2, 6, 4] * 2, 14),  # the NST buckets' T' = 14 and 28, S = 17
     ([28, 20, 25, 9, 28, 17, 26, 14] * 2, [8, 5, 7, 3, 8, 2, 6, 4] * 2, 28),
-    ([37, 30, 5, 37, 21], [6, 6, 4, 1, 6], 37),  # T odd, not a multiple of the frames loaded ahead (4); S = 13
+    ([37, 30, 5, 37, 21], [6, 6, 4, 1, 6], 37),  # T odd, not a multiple of the 8 frames copied ahead; S = 13
     ([235, 0, 235, 180], [100, 100, 60, 90], 235),  # a row of input length 0 between full rows
-    ([1100, 1060], [511, 500], 1100),  # S = 1023, the most states below the cap (K = 9 in 4 warps, 3 stages)
+    ([1100, 1060], [511, 500], 1100),  # S = 1023, below the cap: alpha K = 5 in 7 warps, beta 32 warps
 ])
 def test_ctc_kernels_at_the_edges(cuda, in_len, lab_len, t):
     _ctc_against_twins(cuda, *_ctc_rows(cuda, in_len, lab_len, t))
 
 
 def test_ctc_kernels_on_unaligned_rows(cuda):
-    """Emit at an offset of one float, so no chunk starts 16-byte aligned and
-    the outputs' rows start elsewhere in their 16 bytes than the inputs' (the
-    scalar copy out); and an even S, which no label gives, with skips drawn
-    at random."""
+    """Emit at an offset of one float, so no frame starts 16-byte aligned and
+    the outputs' rows (stored straight from registers) start elsewhere in
+    their 16 bytes than the inputs'; and an even S, which no label gives,
+    with skips drawn at random."""
     emit, can_skip, ext_len, in_len = _ctc_rows(cuda, [235, 200, 120, 235], [100, 90, 40, 7], 235)
     shifted = torch.empty(emit.numel() + 1, device="cuda")[1:].view(emit.shape)
     shifted.copy_(emit)
@@ -717,23 +705,46 @@ def test_ctc_kernels_refuse_past_the_cap(cuda):
         K.ctc_beta(emit, emit, can_skip, ext_len, in_len, torch.zeros(1).cuda(), torch.ones(1).cuda())
 
 
-def test_ctc_every_build_agrees_bit_for_bit(cuda):
-    """A state's arithmetic does not depend on how many states its thread
-    owns: every build of K gives the plans' bits, and no build spills."""
-    emit, can_skip, ext_len, in_len = _ctc_rows(cuda, [120, 97, 120, 60], [40, 31, 40, 20], 120)
-    alpha, demit = _ctc_against_twins(cuda, emit, can_skip, ext_len, in_len)
-    ll = K.final_ll(alpha[:, -1], ext_len)
-    g = torch.randn(4, generator=cuda).cuda()
-    demit = K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g)
-    s = emit.shape[2]
-    base = K.ctc_plan(s, 120)
-    for k in K.STATES_PER_THREAD:
-        warps = -(-s // (32 * k))
-        plan = dict(base, states_per_thread=k, warps=warps, threads=32 * warps)
-        assert torch.equal(K.ctc_alpha(emit, can_skip, ext_len, in_len, plan=plan), alpha), plan
-        assert torch.equal(K.ctc_beta(emit, alpha, can_skip, ext_len, in_len, ll, g, plan=plan), demit), plan
-        built = {kernel: K.ctc_kernel_attributes(plan, kernel) for kernel in ("alpha", "beta")}
-        assert all(v["local_bytes"] == 0 for v in built.values()), (k, built)
+def test_ctc_launch_refuses_a_plan_off_its_layout(cuda):
+    """The launch takes `ctc_plan`'s frames ahead and shared bytes and checks
+    them against the kernels' own layout: the plan's are taken, and one
+    float more or less of shared memory, another count of frames ahead or a
+    K with no build is refused; no build spills."""
+    import ctypes
+
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    emit, can_skip, ext_len, in_len = _ctc_rows(cuda, [40, 33], [15, 12], 40)
+    can_skip, ext_len, in_len = K.kernel_inputs(can_skip, ext_len, in_len, emit.device)
+    b, t, s = emit.shape
+    out = torch.empty_like(emit)
+    lib, stream = build.library(), build.stream_of(emit)
+
+    def alpha(threads, k, ahead, smem):
+        return lib.ctc_alpha(emit.data_ptr(), can_skip.data_ptr(), ext_len.data_ptr(), in_len.data_ptr(),
+                             out.data_ptr(), b, t, s, threads, k, ahead, smem, stream)
+
+    def beta(threads, ahead, smem):
+        ones = torch.ones(b, device="cuda")
+        return lib.ctc_beta(emit.data_ptr(), emit.data_ptr(), can_skip.data_ptr(), ext_len.data_ptr(),
+                            in_len.data_ptr(), ones.data_ptr(), ones.data_ptr(), out.data_ptr(), b, t, s, threads,
+                            ahead, smem, stream)
+
+    pa, pb = K.ctc_plan(s, "alpha"), K.ctc_plan(s, "beta")
+    assert alpha(pa["threads"], pa["states_per_thread"], pa["ahead"], pa["smem_bytes"]) == 0
+    assert beta(pb["threads"], pb["ahead"], pb["smem_bytes"]) == 0
+    torch.cuda.synchronize()
+    for off in (-4, 4):
+        assert alpha(pa["threads"], pa["states_per_thread"], pa["ahead"], pa["smem_bytes"] + off) != 0
+        assert beta(pb["threads"], pb["ahead"], pb["smem_bytes"] + off) != 0
+    assert alpha(pa["threads"], pa["states_per_thread"], pa["ahead"] // 2, pa["smem_bytes"]) != 0
+    assert beta(pb["threads"], pb["ahead"] * 2, pb["smem_bytes"]) != 0
+    assert alpha(pa["threads"], 2, pa["ahead"], 4 * (4 * pa["warps"] + K.AHEAD * 2 * pa["threads"])) != 0  # no K = 2
+    for kernel, ks in K.STATES_PER_THREAD.items():
+        for k in ks:
+            assert K.ctc_kernel_attributes(kernel, k)["local_bytes"] == 0, (kernel, k)
+    with pytest.raises(RuntimeError):
+        K.ctc_kernel_attributes("beta", 3)
 
 
 def test_ctc_loss_kernel_matches_torch_ctc(cuda):
