@@ -26,9 +26,12 @@ the checkout at TREE, this one by default: see `ctc_times_main`.)
    and bidirectional).  The LSTM recurrences run both directions in one
    launch of the cluster kernels: that launch is held to the twin of each
    direction and to each direction alone, bit for bit, and timed beside one
-   direction alone and the row kernel; then the row route, which
-   Conformer-L's H = 640 takes, against its twins and through Conformer-L's
-   BiLSTM head forward and backward, counted.
+   direction alone; then the grid route, which Conformer-L's H = 640 takes
+   (both directions in one cooperative launch), at both train shapes
+   against its twins, bit-equal across launches and to each direction
+   alone, free of spills, timed beside cuDNN's LSTM at that width and its
+   serial floor (a grid barrier timed alone), and a grid too large to be
+   resident refused.
 3. Serving path: the Noisy Student pseudo-label pass (``make_predict_step``:
    log-mel → Conformer-M forward → greedy decode → ``WordVocab.decode_ids``)
    with weights and audio made from a seed.  The kernel path and the plain
@@ -51,6 +54,11 @@ the checkout at TREE, this one by default: see `ctc_times_main`.)
    under ``remat`` (the attention forward then runs twice per block), and
    the peak memory of the einsum route at the same shape beside the kernel
    route's.
+   Then Conformer-L (``conformer_l(use_pallas=True)``: 17 blocks, d_model
+   512, 8 heads, BiLSTM H = 640) at full width and depth: the pass of
+   phase 3 and the 30 s step of phase 4, the same checks, its BiLSTM
+   through the grid kernels (one forward a pass; one forward and one
+   backward a step; no cluster launch).
 6. The configuration whose depthwise conv is the hand-written kernel
    (``conformer_m(use_pallas=True, conv_impl='pallas')``): the kernel
    against its twin (forward and the gradient with respect to x, float32
@@ -109,6 +117,7 @@ CUDA device the script exits non-zero before printing any result.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import io
@@ -284,7 +293,7 @@ def counters() -> dict:
         "attention_relpos_bwd_dband": A.flash_relpos_attention_bwd_dband,
         "depthwise_conv": D.depthwise_conv1d_forward,
         "attention_bias": A.flash_attention_forward,
-        "lstm_rows": L.lstm_forward_rows, "lstm_backward_rows": L.lstm_backward_rows,
+        "lstm_grid": L.lstm_forward_grid, "lstm_backward_grid": L.lstm_backward_grid,
     }
 
 
@@ -308,9 +317,8 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
     shapes of one main path (``b`` clips of ``seconds``, ``t`` frames
     after subsampling), and the inference attention forward where that
     path runs it."""
-    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, conformer_m
     from nn_conformer_for_speech_recognition_tpu_torch.ops import features as F
-    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import stft_logmel as S
 
@@ -358,36 +366,10 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
 
     lengths = mixed_lengths(gen, b, t, t // 3)
     if inference_attention:
-        # -- rel-pos attention: (16, 235, 4, 64), p (469, 4, 64)
-        h, dh = 4, 64
-        qu, qv, k, v = (torch.randn(b, t, h, dh, generator=gen) * 0.5 for _ in range(4))
-        p = torch.randn(2 * t - 1, h, dh, generator=gen) * 0.5
-        args32 = [x.to(dev) for x in (qu, qv, k, v, p)] + [lengths.to(dev), dh ** -0.5]
-        args16 = [x.to(torch.bfloat16) for x in args32[:5]] + args32[5:]
-        err32 = max_abs(A.flash_relpos_attention(*args32), A.flash_relpos_attention_plain(*args32))
-        ref16 = A.flash_relpos_attention_plain(*args16)
-        err16 = max_abs(A.flash_relpos_attention(*args16), ref16)
-        bar16 = bf16_bar(ref16, floor=TOL["attention_f32"])  # the bf16 kernel: the tensor-core one
-        torch.cuda.synchronize()
-        ms32 = cuda_ms(lambda: A.flash_relpos_attention(*args32))
-        plain_ms32 = cuda_ms(lambda: A.flash_relpos_attention_plain(*args32))
-        ms = cuda_ms(lambda: A.flash_relpos_attention(*args16))
-        plain_ms = cuda_ms(lambda: A.flash_relpos_attention_plain(*args16))
-        dev_ms = device_ms(lambda: A.flash_relpos_attention(*args16))
-        print(f"attention_relpos ({b}, {t}, {h}, {dh}), lengths {lengths.tolist()[:4]}…: f32 max|Δ| {err32:.3e} "
-              f"(tol {TOL['attention_f32']}), kernel {ms32:.4f} ms, plain {plain_ms32:.4f} ms; bf16 max|Δ| "
-              f"{err16:.3e} (tol {bar16:.3e}, one bf16 ulp at the largest entry; and {TOL['attention_bf16']}), "
-              f"kernel {ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
-        check(err32 <= TOL["attention_f32"], "attention (f32) disagrees with its plain twin")
-        check(err16 <= min(bar16, TOL["attention_bf16"]), "attention (bf16) disagrees with its plain twin")
-        # 6·H·dh operations for each (query, valid key) pair; no one PyTorch call computes rel-pos attention
-        pairs = t * int(lengths.sum())
-        results["attention_relpos"] = numbers(err16, ms, plain_ms, nbytes(*args16[:5], args16[0]), 6 * h * dh * pairs,
-                                              torch.bfloat16)
+        results["attention_relpos"] = check_attention_kernel(card, b, t, conformer_m().encoder.num_heads, lengths, gen)
 
     # -- the LSTM forward recurrence, H=320: a direction's xw (16, 235, 1280) or (4, 938, 1280) f32 and w_hh
-    #    (320, 1280); both directions in one cluster launch (the model's call), each direction alone, and the
-    #    row kernel (one block a batch row: the route past the cluster's H) one direction at the same shape
+    #    (320, 1280); both directions in one cluster launch (the model's call) and each direction alone
     hidden = 320
     xws = [torch.randn(b, t, 4 * hidden, generator=gen).to(dev) for _ in DIRECTIONS]
     w_hhs = [(torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev) for _ in DIRECTIONS]
@@ -400,11 +382,9 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
               "lstm: the two-direction launch and one direction alone differ")
     torch.cuda.synchronize()
     err = max(errs)
-    n32 = lengths.to(torch.int32)
     times = {
         "both directions, one launch": lambda: L.lstm_directions(xws, w_hhs, lengths, DIRECTIONS),
         "one direction": lambda: L.lstm(xws[1], w_hhs[1], lengths, reverse=True),
-        "row kernel, one direction": lambda: L.lstm_forward_rows(xws[1], w_hhs[1], n32, True, False),
     }
     events = {k: cuda_ms(fn) for k, fn in times.items()}
     device = {k: device_ms(fn) for k, fn in times.items()}
@@ -427,6 +407,42 @@ def check_kernels(card: str, b: int, seconds: float, t: int, inference_attention
                               nbytes(*xws, *w_hhs) + 2 * 4 * b * t * hidden, 8 * hidden * hidden * steps,
                               torch.float32, library_ms=cudnn[True]["forward"])
     return results
+
+
+def check_attention_kernel(card: str, b: int, t: int, heads: int, lengths: torch.Tensor,
+                           gen: torch.Generator) -> dict:
+    """The inference rel-pos attention forward against its plain twin at
+    ``b`` rows of ``t`` frames and ``heads`` heads of 64 (a model's pass:
+    Conformer-M's 4, Conformer-L's 8), in float32 (the CUDA-core kernel)
+    and bf16 (the tensor-core kernel, the main path's type); returns the
+    bf16 kernel's numbers."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
+
+    dev = torch.device("cuda")
+    dh = 64
+    qu, qv, k, v = (torch.randn(b, t, heads, dh, generator=gen) * 0.5 for _ in range(4))
+    p = torch.randn(2 * t - 1, heads, dh, generator=gen) * 0.5
+    args32 = [x.to(dev) for x in (qu, qv, k, v, p)] + [lengths.to(dev), dh ** -0.5]
+    args16 = [x.to(torch.bfloat16) for x in args32[:5]] + args32[5:]
+    err32 = max_abs(A.flash_relpos_attention(*args32), A.flash_relpos_attention_plain(*args32))
+    ref16 = A.flash_relpos_attention_plain(*args16)
+    err16 = max_abs(A.flash_relpos_attention(*args16), ref16)
+    bar16 = bf16_bar(ref16, floor=TOL["attention_f32"])  # the bf16 kernel: the tensor-core one
+    torch.cuda.synchronize()
+    ms32 = cuda_ms(lambda: A.flash_relpos_attention(*args32))
+    plain_ms32 = cuda_ms(lambda: A.flash_relpos_attention_plain(*args32))
+    ms = cuda_ms(lambda: A.flash_relpos_attention(*args16))
+    plain_ms = cuda_ms(lambda: A.flash_relpos_attention_plain(*args16))
+    dev_ms = device_ms(lambda: A.flash_relpos_attention(*args16))
+    print(f"attention_relpos ({b}, {t}, {heads}, {dh}), lengths {lengths.tolist()[:4]}…: f32 max|Δ| {err32:.3e} "
+          f"(tol {TOL['attention_f32']}), kernel {ms32:.4f} ms, plain {plain_ms32:.4f} ms; bf16 max|Δ| "
+          f"{err16:.3e} (tol {bar16:.3e}, one bf16 ulp at the largest entry; and {TOL['attention_bf16']}), "
+          f"kernel {ms:.4f} ms, device {dev_ms:.4f} ms, plain {plain_ms:.4f} ms  [{card}]")
+    check(err32 <= TOL["attention_f32"], f"attention (f32, {heads} heads) disagrees with its plain twin")
+    check(err16 <= min(bar16, TOL["attention_bf16"]), f"attention (bf16, {heads} heads) disagrees with its plain twin")
+    # 6·H·dh operations for each (query, valid key) pair; no one PyTorch call computes rel-pos attention
+    pairs = t * int(lengths.sum())
+    return numbers(err16, ms, plain_ms, nbytes(*args16[:5], args16[0]), 6 * heads * dh * pairs, torch.bfloat16)
 
 
 def cufft_logmel(audio: torch.Tensor, cfg) -> torch.Tensor:
@@ -515,6 +531,41 @@ def cluster_barrier_us() -> float:
 
     long_ms, short_ms = cuda_ms(lambda: run(10_000), iters=5), cuda_ms(lambda: run(100), iters=5)
     return (long_ms - short_ms) / 9_900 * 1e3
+
+
+@functools.lru_cache(maxsize=1)
+def grid_barrier_us() -> float:
+    """Microseconds of one grid barrier of the grid recurrences (64 CTAs a
+    direction, two directions, one CTA an SM with the forward's shared memory
+    at Conformer-L's H = 640, as they run): events around 10,000 barriers in
+    one cooperative launch, less the same launch with 100."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
+
+    plan = L.grid_plan(BATCH, 640, torch.cuda.get_device_properties(0).multi_processor_count, L.smem_optin(0))
+    counters = torch.zeros(2, device="cuda", dtype=torch.int32)
+    stream = build.stream_of(counters)
+
+    def run(iters):
+        counters.zero_()
+        build.check(build.library().lstm_grid_barrier_probe(iters, plan["ctas"], 2, plan["smem_bytes"],
+                                                            counters.data_ptr(), stream), "lstm_grid_barrier_probe")
+
+    long_ms, short_ms = cuda_ms(lambda: run(10_000), iters=5), cuda_ms(lambda: run(100), iters=5)
+    return (long_ms - short_ms) / 9_900 * 1e3
+
+
+def grid_serial_floor_ms(b: int, hidden: int, steps: int) -> float:
+    """The least time of the grid recurrence's chain of ``steps`` dependent
+    steps: each one CTA's share of the step's product (the plan's rows by H
+    by its 4·units columns) at one SM's share of the float32 peak, plus one
+    grid barrier as the card times it (`grid_barrier_us`)."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = L.grid_plan(b, hidden, sms, L.smem_optin(0))
+    share = 2 * plan["rows"] * hidden * 4 * plan["units"]
+    return steps * (share / (PEAK_FLOPS[torch.float32] / sms) * 1e3 + grid_barrier_us() * 1e-3)
 
 
 def cudnn_lstm_ms(b: int, t: int, hidden: int, lengths: torch.Tensor, gen: torch.Generator,
@@ -610,11 +661,9 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
         werrs.append(max_abs(dw, dw_ref) / dw_ref.abs().max().item())
     torch.cuda.synchronize()
     fwd_err, bwd_err = max(errs[0], errs[2]), max(errs[1], errs[3])
-    n32 = lengths.to(torch.int32)
     times = {
         "both directions, one launch": lambda: L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS),
         "one direction": lambda: L.lstm_backward(gouts[1], gates[1], cs[1], w_hhs[1], lengths, reverse=True),
-        "row kernel, one direction": lambda: L.lstm_backward_rows(gouts[1], gates[1], cs[1], w_hhs[1], n32, True),
     }
     events = {k: cuda_ms(fn) for k, fn in times.items()}
     device = {k: device_ms(fn) for k, fn in times.items()}
@@ -623,7 +672,6 @@ def check_train_kernels(card: str, b: int, t: int, target_len: int) -> dict:
     fwd_times = {
         "both directions, one launch": lambda: L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True),
         "one direction": lambda: L.lstm_forward(xws[1], w_hhs[1], lengths, reverse=True, save=True),
-        "row kernel, one direction": lambda: L.lstm_forward_rows(xws[1], w_hhs[1], n32, True, True),
     }
     fwd_device = {k: device_ms(fn) for k, fn in fwd_times.items()}
     h, dxw = hs[1], dxws[1]
@@ -808,74 +856,129 @@ def ctc_times_main(tree: Path) -> None:
     ctc_times(card)
 
 
-def check_row_route(card: str):
-    """The route past the cluster's shared memory: Conformer-L's BiLSTM (H =
-    640, input 512) at the 30 s shapes (B=16, T'=235).  The row kernels
-    (inference and training forward, backward) against their twins for each
-    direction, timed beside cuDNN's LSTM at that width; then their own path,
-    the model's `BiLSTM` module under Conformer-L's decoder widths forward
-    and backward, counted: one launch of each a direction, none of the
-    cluster kernels.  Returns the kernels' numbers and the path's launches."""
+# the grid kernels' builds: (kernel index of `lstm_grid_kernel_attributes`, name)
+GRID_BUILDS = ((0, "forward"), (1, "training forward"), (2, "backward"))
+
+
+def check_grid_route(card: str, b: int, t: int) -> dict:
+    """The route past the cluster's shared memory at Conformer-L's H = 640
+    (input 512) and ``b`` rows of ``t`` frames (the 30 s and the long-form
+    shapes): the grid kernels (inference and training forward, backward),
+    both directions in one cooperative launch, against their twins for each
+    direction, each direction alone and a second launch bit-equal, timed
+    beside cuDNN's LSTM at that width (one direction and bidirectional) and
+    their serial floor; every build free of spills; a grid the card cannot
+    hold resident refused with a `RuntimeError`; and dW_hh at H = 640 (the
+    `lstm_dwhh` GEMM kernel on the grid's h and dxw, as Conformer-L's step
+    runs it) against its twin, two launches bit-equal.  Returns the
+    kernels' numbers, dW_hh's as ``lstm_weight_grad_conformer_l``."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_l
-    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import BiLSTM, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 11)
     dec = conformer_l().decoder
-    b, t, hidden = BATCH, T_SUB, dec.lstm_hidden
+    hidden, sms = dec.lstm_hidden, torch.cuda.get_device_properties(0).multi_processor_count
+    plan = L.grid_plan(b, hidden, sms, L.smem_optin(0))
     check(not L.cluster_plan(b, hidden, L.smem_optin(0))[0], f"H={hidden} fits the cluster's shared memory")
+    check(L.route(b, hidden, dev) == ("grid", plan) and plan["directions"] == 2, f"grid plan {plan}")
     xws = [torch.randn(b, t, 4 * hidden, generator=gen).to(dev) for _ in DIRECTIONS]
     w_hhs = [(torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev) for _ in DIRECTIONS]
     gouts = [torch.randn(b, t, hidden, generator=gen).to(dev) for _ in DIRECTIONS]
     lengths = mixed_lengths(gen, b, t, t // 3).to(dev)
-    fwd_errs, bwd_errs, saved = [], [], []
-    for xw, w, gout, reverse in zip(xws, w_hhs, gouts, DIRECTIONS):
-        got, ref = L.lstm_forward(xw, w, lengths, reverse=reverse, save=True), L.lstm_forward_plain(xw, w, lengths, reverse)
-        fwd_errs += [max_abs(x, y) for x, y in zip(got, ref)] + [max_abs(L.lstm(xw, w, lengths, reverse=reverse), ref[0])]
-        dxw = L.lstm_backward(gout, got[2], got[1], w, lengths, reverse=reverse)
-        bwd_errs.append(max_abs(dxw, L.lstm_backward_plain(gout, ref[2], ref[1], w, lengths, reverse)))
-        saved.append((got, dxw))
+    before = read_counters()
+    saved = L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True)
+    hs = L.lstm_directions(xws, w_hhs, lengths, DIRECTIONS)
+    refs = [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, DIRECTIONS)]
+    gates, cs = [s[2] for s in saved], [s[1] for s in saved]
+    dxws = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS)
+    again = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS)
+    fwd_again = L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True)
+    alone = [L.lstm_forward(xw, w, lengths, reverse=r, save=True) for xw, w, r in zip(xws, w_hhs, DIRECTIONS)]
     torch.cuda.synchronize()
-    (_, c, gates), dxw = saved[1]
-    fms = cuda_ms(lambda: L.lstm(xws[1], w_hhs[1], lengths, reverse=True))
-    fdev = device_ms(lambda: L.lstm(xws[1], w_hhs[1], lengths, reverse=True))
-    fplain = cuda_ms(lambda: L.lstm_plain(xws[1], w_hhs[1], lengths, True), iters=5)
-    bms = cuda_ms(lambda: L.lstm_backward(gouts[1], gates, c, w_hhs[1], lengths, reverse=True))
-    bdev = device_ms(lambda: L.lstm_backward(gouts[1], gates, c, w_hhs[1], lengths, reverse=True))
-    bplain = cuda_ms(lambda: L.lstm_backward_plain(gouts[1], gates, c, w_hhs[1], lengths, True), iters=5)
-    cudnn = cudnn_lstm_ms(b, t, hidden, lengths, gen, width=dec.projection_dim)
-    print(f"lstm row route ({b}, {t}, 4x{hidden}) f32, per direction: forward (h; h, c, gates) max|Δ| "
-          f"{max(fwd_errs):.3e} (tol {TOL['lstm']}), kernel {fms:.4f} ms (device {fdev:.4f}), plain {fplain:.4f} ms; "
-          f"backward dxw max|Δ| {max(bwd_errs):.3e} (tol {TOL['lstm_backward']}), kernel {bms:.4f} ms (device "
-          f"{bdev:.4f}), plain {bplain:.4f} ms; cuDNN's LSTM, one direction (input {dec.projection_dim}): forward "
-          f"{cudnn['forward']:.4f} ms, backward {cudnn['backward']:.4f} ms  [{card}]")
-    check(max(fwd_errs) <= TOL["lstm"], "the row forward disagrees with its plain twin")
-    check(max(bwd_errs) <= TOL["lstm_backward"], "the row backward disagrees with its plain twin")
-    steps = int(lengths.sum())
-    results = {
-        "lstm_rows": numbers(max(fwd_errs), fms, fplain, nbytes(xws[1], w_hhs[1]) + 4 * b * t * hidden,
-                             8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["forward"]),
-        "lstm_backward_rows": numbers(max(bwd_errs), bms, bplain, nbytes(gouts[1], gates, c, w_hhs[1], dxw),
-                                      8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["backward"]),
+    launches = {k: v - before[k] for k, v in read_counters().items()}
+    check(launches == {**dict.fromkeys(launches, 0), "lstm_grid": 5, "lstm_backward_grid": 2},
+          f"grid-route launch counts {launches}")
+    fwd_errs, bwd_errs, werrs = [], [], []
+    for i, reverse in enumerate(DIRECTIONS):
+        fwd_errs += [max_abs(x, y) for x, y in zip(saved[i], refs[i])] + [max_abs(hs[i], refs[i][0])]
+        dxw_ref = L.lstm_backward_plain(gouts[i], refs[i][2], refs[i][1], w_hhs[i], lengths, reverse)
+        bwd_errs.append(max_abs(dxws[i], dxw_ref))
+        dw = L.lstm_weight_grad(saved[i][0], dxws[i], reverse=reverse)
+        dw_ref = L.lstm_weight_grad_plain(refs[i][0], dxw_ref, reverse)
+        werrs.append(max_abs(dw, dw_ref) / dw_ref.abs().max().item())
+        check(torch.equal(dw, L.lstm_weight_grad(saved[i][0], dxws[i], reverse=reverse)),
+              "lstm_weight_grad at the grid route's H: two launches are not bit-equal")
+        check(torch.equal(dxws[i], again[i]), "the grid backward: two launches are not bit-equal")
+        check(all(map(torch.equal, saved[i], fwd_again[i])), "the grid forward: two launches are not bit-equal")
+        check(all(map(torch.equal, saved[i], alone[i])), "the grid forward: both directions and one alone differ")
+    check(torch.equal(dxws[1], L.lstm_backward(gouts[1], gates[1], cs[1], w_hhs[1], lengths, reverse=True)),
+          "the grid backward: both directions and one alone differ")
+    built = {}
+    for kernel, name in GRID_BUILDS:
+        for groups in range(1, 5):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            build.check(build.library().lstm_grid_kernel_attributes(kernel, groups, ctypes.byref(regs),
+                                                                    ctypes.byref(local)), "lstm_grid_kernel_attributes")
+            built[f"{name} rows {4 * groups}"] = (regs.value, local.value)
+    # a grid no card holds resident: 1,000 CTAs a direction, passed through the C entry, is refused, not run
+    forced = {**plan, "ctas": 1000, "units": 1}
+    layout = L.grid_layout(hidden, 1000, plan["rows"])
+    forced["smem_bytes"] = 4 * max(layout["fwd_floats"], layout["bwd_floats"])
+    try:
+        L.lstm_forward_grid(xws, w_hhs, lengths.to(torch.int32), DIRECTIONS, False, forced)
+        refused = False
+    except RuntimeError as err:
+        refused = "cannot be resident" in str(err)
+    check(refused, "a grid over the co-resident limit was not refused")
+    steps_live = int(lengths.max())
+    fwd = lambda: L.lstm_directions(xws, w_hhs, lengths, DIRECTIONS)  # noqa: E731
+    fwd_save = lambda: L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True)  # noqa: E731
+    bwd = lambda: L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS)  # noqa: E731
+    fms, bms = cuda_ms(fwd), cuda_ms(bwd)
+    fdev, fsave_dev, bdev = device_ms(fwd), device_ms(fwd_save), device_ms(bwd)
+    fplain = cuda_ms(lambda: [L.lstm_plain(*a, lengths, r) for *a, r in zip(xws, w_hhs, DIRECTIONS)], iters=3)
+    bplain = cuda_ms(lambda: [L.lstm_backward_plain(*a, lengths, r)
+                              for *a, r in zip(gouts, gates, cs, w_hhs, DIRECTIONS)], iters=3)
+    h, dxw = saved[1][0], dxws[1]
+    wms = cuda_ms(lambda: L.lstm_weight_grad(h, dxw, reverse=True))
+    wplain_ms = cuda_ms(lambda: L.lstm_weight_grad_plain(h, dxw, True))
+    wdev = device_ms(lambda: L.lstm_weight_grad(h, dxw, reverse=True))
+    wplain_dev = device_ms(lambda: L.lstm_weight_grad_plain(h, dxw, True))
+    cudnn = {k: cudnn_lstm_ms(b, t, hidden, lengths, gen, bidirectional=k, width=dec.projection_dim)
+             for k in (False, True)}
+    floor = grid_serial_floor_ms(b, hidden, steps_live)
+    print(f"lstm grid route ({b}, {t}, 4x{hidden}) f32, plan {plan}, builds (registers, local bytes) {built}  [{card}]")
+    print(f"lstm grid route ({b}, {t}, 4x{hidden}), both directions in one launch: forward (h; h, c, gates) max|Δ| "
+          f"{max(fwd_errs):.3e} (tol {TOL['lstm']}), kernel {fms:.4f} ms (device {fdev:.4f}; saving c and gates "
+          f"{fsave_dev:.4f}), plain {fplain:.4f} ms; backward dxw max|Δ| {max(bwd_errs):.3e} (tol "
+          f"{TOL['lstm_backward']}), kernel {bms:.4f} ms (device {bdev:.4f}), plain {bplain:.4f} ms; two launches "
+          f"bit-equal, each direction alone bit-equal; {fdev / steps_live * 1e3:.2f} / {bdev / steps_live * 1e3:.2f} "
+          f"us a step over {steps_live} steps, serial floor {floor:.4f} ms (a grid barrier {grid_barrier_us():.3f} us); "
+          f"a grid of 1,000 CTAs a direction refused; cuDNN's LSTM (input {dec.projection_dim}), one direction: "
+          f"forward {cudnn[False]['forward']:.4f} ms, backward {cudnn[False]['backward']:.4f} ms; bidirectional: "
+          f"forward {cudnn[True]['forward']:.4f} ms, backward {cudnn[True]['backward']:.4f} ms  [{card}]")
+    print(f"lstm_weight_grad ({hidden} x {b * t})·({b * t} x {4 * hidden}) f32 on the grid route's h and dxw: dW_hh "
+          f"max|Δ|/max|dW| fwd {werrs[0]:.3e} bwd {werrs[1]:.3e} (tol {TOL['lstm_weight_grad']}), two launches "
+          f"bit-equal, kernel {wms:.4f} ms ({L.dwhh_plan(b * t, hidden, sms)[0]} slices), plain (the float32 einsum) "
+          f"{wplain_ms:.4f} ms; device time (calls queued back to back): kernel and reduce {wdev:.4f} ms, einsum "
+          f"{wplain_dev:.4f} ms  [{card}]")
+    check(all(local == 0 for _, local in built.values()), f"the grid kernels spill or keep a stack frame: {built}")
+    check(max(fwd_errs) <= TOL["lstm"], "the grid forward disagrees with its plain twin")
+    check(max(bwd_errs) <= TOL["lstm_backward"], "the grid backward disagrees with its plain twin")
+    check(max(werrs) <= TOL["lstm_weight_grad"], "lstm_weight_grad at the grid route's H disagrees with its plain twin")
+    # both directions: per valid step h·W_hh (or dgates·W_hhᵀ), 2·H·4H operations
+    steps = 2 * int(lengths.sum())
+    return {
+        "lstm_grid": numbers(max(fwd_errs), fms, fplain, nbytes(*xws, *w_hhs) + 2 * 4 * b * t * hidden,
+                             8 * hidden * hidden * steps, torch.float32, library_ms=cudnn[True]["forward"]),
+        "lstm_backward_grid": numbers(max(bwd_errs), bms, bplain, nbytes(*gouts, *gates, *cs, *w_hhs, *dxws),
+                                      8 * hidden * hidden * steps, torch.float32, library_ms=cudnn[True]["backward"]),
+        # as check_train_kernels' lstm_weight_grad: the einsum is the library yardstick too
+        "lstm_weight_grad_conformer_l": numbers(max(werrs), wms, wplain_ms, nbytes(h, dxw, w_hhs[1]),
+                                                3 * 8 * hidden * hidden * b * t, "tf32", library_ms=wplain_ms),
     }
-
-    # -- the path: Conformer-L's BiLSTM head, forward and backward
-    module = init_params(BiLSTM(dec.projection_dim, hidden, dec.lstm_layers, dec.bidirectional), gen).to(dev)
-    x = torch.randn(b, t, dec.projection_dim, generator=gen).to(dev).requires_grad_(True)
-    r = torch.randn(b, t, 2 * hidden, generator=gen).to(dev)
-    torch.cuda.synchronize()
-    reset_counters()
-    (module(x, lengths) * r).sum().backward()
-    torch.cuda.synchronize()
-    launches = read_counters()
-    expected = {"lstm_rows": 2, "lstm_backward_rows": 2, "lstm_weight_grad": 2}
-    print(f"Conformer-L's BiLSTM head (B={b}, T'={t}, H={hidden}) forward and backward, launches: {launches}")
-    check(launches == {**dict.fromkeys(launches, 0), **expected}, f"row-route launch counts, want {expected}")
-    for name, p in [("x", x), *module.named_parameters()]:
-        check(p.grad is not None and bool(torch.isfinite(p.grad).all()) and p.grad.abs().max().item() > 0,
-              f"Conformer-L's BiLSTM: the gradient of {name} is missing, non-finite or zero")
-    return results, launches
 
 
 def check_attention_backward_kernels(card: str) -> dict:
@@ -1245,11 +1348,24 @@ def weights_for(model, state: dict) -> dict:
     )
 
 
-def check_slice(card: str, conv_impl: str = "auto") -> dict:
-    """The pseudo-label pass.  ``conv_impl='pallas'``: the configuration
-    whose depthwise conv is the hand-written kernel; its plain path is the
+def lstm_route_counters(preset: str, batch: int) -> tuple:
+    """The counters of the forward and backward recurrence that ``preset``'s
+    BiLSTM takes at ``batch`` rows on this card: the cluster kernels' or the
+    grid kernels'."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as C
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
+
+    kind, _ = L.route(batch, getattr(C, preset)().decoder.lstm_hidden, torch.device("cuda"))
+    return ("lstm", "lstm_backward") if kind == "cluster" else ("lstm_grid", "lstm_backward_grid")
+
+
+def check_slice(card: str, conv_impl: str = "auto", preset: str = "conformer_m") -> dict:
+    """The pseudo-label pass of ``preset`` (a `config` preset at full width
+    and depth).  ``conv_impl='pallas'``: the configuration whose depthwise
+    conv is the hand-written kernel; its plain path is the
     ``use_pallas=False`` model (grouped conv1d) with the same taps."""
-    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch import config as C
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig
     from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
     from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import greedy_decode
@@ -1258,15 +1374,16 @@ def check_slice(card: str, conv_impl: str = "auto") -> dict:
 
     vocab = build_vocab("word", [" ".join(f"w{i}" for i in range(VOCAB - 3))])
     check(len(vocab) == VOCAB, "vocabulary size")
+    make_config = getattr(C, preset)
     gen = torch.Generator().manual_seed(SEED)
-    base = init_params(ConformerCTC(conformer_m(use_pallas=True, conv_impl=conv_impl), VOCAB), gen)
+    base = init_params(ConformerCTC(make_config(use_pallas=True, conv_impl=conv_impl), VOCAB), gen)
     for name, buf in base.named_buffers():  # non-trivial running statistics
         buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
     state = base.state_dict()
-    tag = f"conv_impl={conv_impl!r}"
+    tag = f"{preset}, conv_impl={conv_impl!r}"
 
     def model(**cfg):
-        m = ConformerCTC(conformer_m(**cfg), VOCAB)
+        m = ConformerCTC(make_config(**cfg), VOCAB)
         m.load_state_dict(weights_for(m, state))
         return m.cuda().eval()
 
@@ -1329,8 +1446,10 @@ def check_slice(card: str, conv_impl: str = "auto") -> dict:
         texts += [vocab.decode_ids(row.tolist()) for row in ids.cpu()]
     print(f"pseudo-labels: {len(texts)} strings, first: {texts[0][:80]!r}")
     print(f"launch counts over {N_BATCHES} pseudo-label batches: {launches}")
-    expected = {"stft_logmel": N_BATCHES, "attention_relpos": 16 * N_BATCHES, "lstm": N_BATCHES,
-                "depthwise_conv": 16 * N_BATCHES if conv_impl == "pallas" else 0}
+    blocks = make_config().encoder.num_blocks
+    expected = {"stft_logmel": N_BATCHES, "attention_relpos": blocks * N_BATCHES,
+                lstm_route_counters(preset, BATCH)[0]: N_BATCHES,
+                "depthwise_conv": blocks * N_BATCHES if conv_impl == "pallas" else 0}
     check(launches == {**dict.fromkeys(launches, 0), **expected}, f"pseudo-label launch counts, want {expected}")
     per_batch = dt / N_BATCHES
     print(f"bf16 pseudo-label pass ({tag}): {per_batch * 1e3:.2f} ms/batch (B={BATCH}, {SECONDS:.0f} s clips), "
@@ -1343,16 +1462,18 @@ def relative_error(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def check_train(card: str, batch: int, seconds: float, target_len: int, long_form: bool,
-                conv_impl: str = "auto") -> dict:
-    """The supervised train step: float32 kernel path vs plain path, then
-    the bf16 step as a user runs it.  ``long_form``: the subsampled length
-    is at least 768, so 'auto' trains the attention through the flash
-    kernels; the einsum route's peak memory and one step under remat are
-    measured too.  ``conv_impl='pallas'``: the depthwise conv is the
-    hand-written kernel (its plain path the grouped conv1d with the same
-    taps), and one step under remat is counted at this shape too."""
+                conv_impl: str = "auto", preset: str = "conformer_m") -> dict:
+    """The supervised train step of ``preset`` (a `config` preset at full
+    width and depth): float32 kernel path vs plain path, then the bf16 step
+    as a user runs it.  ``long_form``: the subsampled length is at least
+    768, so 'auto' trains the attention through the flash kernels; the
+    einsum route's peak memory and one step under remat are measured too.
+    ``conv_impl='pallas'``: the depthwise conv is the hand-written kernel
+    (its plain path the grouped conv1d with the same taps), and one step
+    under remat is counted at this shape too."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as C
     from nn_conformer_for_speech_recognition_tpu_torch.config import (
-        ATTENTION_KERNEL_MIN_T_TRAINING, FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
+        ATTENTION_KERNEL_MIN_T_TRAINING, FeatureConfig, OptimizerConfig, SpecAugmentConfig,
     )
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
     from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_augment_step, make_feature_train_step
@@ -1360,16 +1481,17 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
     from nn_conformer_for_speech_recognition_tpu_torch.utils.flops import peak_bf16_flops, train_step_flops
 
+    make_config = getattr(C, preset)
     n_samples = round(seconds * 16000)
     frames = FeatureConfig().num_frames(n_samples)
-    t_sub = conformer_m().subsampled_length(frames)
+    t_sub = make_config().subsampled_length(frames)
     check((t_sub >= ATTENTION_KERNEL_MIN_T_TRAINING) == long_form, f"T'={t_sub} is on the wrong side of the switch")
     check((batch, t_sub) in KERNEL_SHAPES_CHECKED, f"B={batch}, T'={t_sub}: the kernel phase ran at no such shape")
-    what = f"B={batch}, {seconds:g} s clips, T'={t_sub}, {target_len} targets, conv_impl={conv_impl!r}"
-    blocks = conformer_m().encoder.num_blocks
+    what = f"{preset}, B={batch}, {seconds:g} s clips, T'={t_sub}, {target_len} targets, conv_impl={conv_impl!r}"
+    blocks = make_config().encoder.num_blocks
 
     gen = torch.Generator().manual_seed(SEED + 3)
-    base = init_params(ConformerCTC(conformer_m(use_pallas=True, conv_impl=conv_impl), VOCAB), gen)
+    base = init_params(ConformerCTC(make_config(use_pallas=True, conv_impl=conv_impl), VOCAB), gen)
     for name, buf in base.named_buffers():  # non-trivial running statistics
         buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
     weights = base.state_dict()
@@ -1387,7 +1509,7 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     # -- float32, kernel path vs plain path: one step from the same weights
     #    and the same (augmented) features, dropout 0
     def f32(use_pallas: bool):
-        cfg = conformer_m(use_pallas=use_pallas, conv_impl=conv_impl if use_pallas else "auto", compute_dtype="float32")
+        cfg = make_config(use_pallas=use_pallas, conv_impl=conv_impl if use_pallas else "auto", compute_dtype="float32")
         return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.0),
                                    decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
 
@@ -1462,7 +1584,7 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
 
     # -- bf16, as a user runs it: augment, then the train step; full-length
     #    clips, the same count of targets in every row
-    cfg16 = conformer_m(use_pallas=True, conv_impl=conv_impl)  # compute 'auto': bfloat16 on CUDA
+    cfg16 = make_config(use_pallas=True, conv_impl=conv_impl)  # compute 'auto': bfloat16 on CUDA
     audio = make_batches(n_samples, batch, 2)[1][0]
     alen = torch.full((batch,), n_samples, device="cuda")
     tlen = torch.full((batch,), target_len, device="cuda")
@@ -1497,11 +1619,13 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     print(f"launch counts over {N_TRAIN_STEPS} bf16 train steps: {launches}")
     n, attn = N_TRAIN_STEPS, blocks * N_TRAIN_STEPS if long_form else 0
     conv = 2 * blocks * N_TRAIN_STEPS if conv_impl == "pallas" else 0  # forward and dx in every block
-    # one launch of each recurrence serves both directions; dW_hh is one launch a direction
-    expected = {"stft_logmel": n, "attention_relpos": 0, "lstm": n, "lstm_backward": n,
+    # one launch of each recurrence serves both directions (the cluster's, or past its H the grid's); dW_hh is one
+    # launch a direction
+    lstm_fwd, lstm_bwd = lstm_route_counters(preset, batch)
+    expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, lstm_fwd: n, lstm_bwd: n,
                 "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
                 "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn,
-                "depthwise_conv": conv, "attention_bias": 0, "lstm_rows": 0, "lstm_backward_rows": 0}
+                "depthwise_conv": conv}
     check(launches == expected, f"train-step launch counts, want {expected}")
     del state
 
@@ -2297,6 +2421,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
     sys.path.insert(0, str(REPO))
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_l
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2311,6 +2436,13 @@ def main() -> None:
     results.update(check_train_kernels(card, BATCH, T_SUB, TARGET_LEN))
     long_results = check_kernels(card, LONG_BATCH, LONG_SECONDS, LONG_T_SUB, inference_attention=False)
     long_results.update(check_train_kernels(card, LONG_BATCH, LONG_T_SUB, LONG_TARGET_LEN))
+    # the LSTM route past the cluster's shared memory (Conformer-L's H = 640) at both train shapes
+    results.update(check_grid_route(card, BATCH, T_SUB))
+    long_results.update(check_grid_route(card, LONG_BATCH, LONG_T_SUB))
+    # the bf16 rel-pos forward at the shape of Conformer-L's pass: 8 heads of 64
+    gen = torch.Generator().manual_seed(SEED + 13)
+    results["attention_relpos_conformer_l"] = check_attention_kernel(
+        card, BATCH, T_SUB, conformer_l().encoder.num_heads, mixed_lengths(gen, BATCH, T_SUB, T_SUB // 3), gen)
     print("at the long-form shapes, kernel ms against bound ms (and the library call's): " + ", ".join(
         f"{name} {r['ms']:.4f} / {r['bound_ms']:.4f} ({r['bound_by']}" + (
             f"; library {r['library_ms']:.4f})" if r["library_ms"] is not None else ")") for name, r in long_results.items()))
@@ -2321,12 +2453,12 @@ def main() -> None:
         check_train_kernels(card, NST_BATCH, frames, NST_MAX_WORDS)
     results.update(check_attention_backward_kernels(card))
     results.update(check_depthwise_conv_kernel(card))
-    # the LSTM route past the cluster's shared memory (Conformer-L's H = 640) and its own path
-    row_results, row_path = check_row_route(card)
-    results.update(row_results)
     serve = check_slice(card)
     train = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False)
     long_train = check_train(card, LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN, long_form=True)
+    # Conformer-L at full width and depth: the pass and the 30 s step, whose BiLSTM (H = 640) takes the grid kernels
+    serve_l = check_slice(card, preset="conformer_l")
+    train_l = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False, preset="conformer_l")
     # the same pass and the same 30 s step where the depthwise conv is the hand-written kernel, then the NST generation
     serve_conv = check_slice(card, conv_impl="pallas")
     train_conv = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False, conv_impl="pallas")
@@ -2357,30 +2489,46 @@ def main() -> None:
         "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd_tc.cu", f"{pallas}/attention.py:590"),
         "depthwise_conv": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
         "attention_bias": ("csrc/attention_bias.cu", f"{pallas}/attention.py:64"),
-        "lstm_rows": ("csrc/lstm.cu", f"{pallas}/lstm.py:69"),
-        "lstm_backward_rows": ("csrc/lstm.cu", f"{pallas}/lstm.py:107"),
+        "lstm_grid": ("csrc/lstm_grid.cu", f"{pallas}/lstm.py:69"),
+        "lstm_backward_grid": ("csrc/lstm_grid.cu", f"{pallas}/lstm.py:107"),
+        "attention_relpos_conformer_l": ("csrc/attention_relpos_tc.cu", f"{pallas}/attention.py:281"),
+        "lstm_weight_grad_conformer_l": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
     }
-    model_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli)
-    paths = (*model_paths, op, row_path)
+    m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli)
+    l_paths = (serve_l, train_l)
+    paths = (*m_paths, *l_paths, op)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
-          "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line + the bias-input "
-          f"op + Conformer-L's BiLSTM head: { {k: tuple(path.get(k, 0) for path in paths) for k in sources} }")
-    # no model routes through the bias-input attention, here as in the JAX package: its path is its own op; the
-    # Conformer-M paths run the cluster LSTM kernels, Conformer-L's head the row kernels
-    own_path = {"attention_bias": op, "lstm_rows": row_path, "lstm_backward_rows": row_path}
-    for name, path in own_path.items():
-        check(not any(p.get(name, 0) for p in model_paths), f"a Conformer-M path launched {name}")
-        check(path[name] > 0, f"{name}'s own path did not launch it")
+          "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line, then "
+          "Conformer-L's pass + 30 s train steps, then the bias-input op: "
+          f"{ {k: tuple(path.get(k, 0) for path in paths) for k in read_counters()} }")
+    # (counter, paths counted) of each entry.  Conformer-L runs two kernels at other shapes than Conformer-M's,
+    # the rel-pos forward at 8 heads and dW_hh at H = 640: their Conformer-L launches go under names of their own,
+    # beside the numbers measured at those shapes
+    counted = {name: (name, paths) for name in sources}
+    for name in ("attention_relpos", "lstm_weight_grad"):
+        counted[name] = (name, (*m_paths, op))
+        counted[f"{name}_conformer_l"] = (name, l_paths)
+
+    def launches(name: str, models_only: bool = False) -> int:
+        counter, counted_paths = counted[name]
+        return sum(path.get(counter, 0) for path in counted_paths if not (models_only and path is op))
+
+    # no model routes through the bias-input attention, here as in the JAX package: its path is its own op.  The
+    # Conformer-M paths (H = 320) run the cluster LSTM kernels, Conformer-L's (H = 640) the grid kernels
+    check(op["attention_bias"] > 0, "the bias-input attention's own path did not launch it")
+    for name, other in (("attention_bias", (*m_paths, *l_paths)), ("lstm_grid", m_paths), ("lstm_backward_grid", m_paths),
+                        ("lstm", l_paths), ("lstm_backward", l_paths)):
+        check(not any(p.get(name, 0) for p in other), f"a path that should not have launched {name}")
     for name in sources:
-        if name not in own_path:
-            check(sum(path.get(name, 0) for path in model_paths) > 0, f"no model path launched {name}")
+        if name != "attention_bias":
+            check(launches(name, models_only=True) > 0, f"no model path launched {name}")
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": f"nn_conformer_for_speech_recognition_tpu_torch/{src}",
             "replaces": f"nn_conformer_for_speech_recognition_tpu/{tpu}",
-            "launches": sum(path.get(name, 0) for path in paths),
+            "launches": launches(name),
             **results[name],
         }
         for name, (src, tpu) in sources.items()

@@ -1,7 +1,8 @@
 // The LSTM recurrence over a padded batch, forward and backward, for sm_90a.
 //
-// lstm_fwd_cluster and lstm_fwd replace nn_conformer_for_speech_recognition_tpu/
-// ops/pallas/lstm.py:_fwd_kernel.  For each step t (t = T-1..0 when reverse):
+// lstm_fwd_cluster replaces nn_conformer_for_speech_recognition_tpu/
+// ops/pallas/lstm.py:_fwd_kernel for H up to 385 on an H100 (lstm_grid.cu
+// past it).  For each step t (t = T-1..0 when reverse):
 //   gates = xw[b][t] + h @ w_hh        (i, f, g, o blocks of H columns)
 //   c' = sigmoid(f) * c + sigmoid(i) * tanh(g);  h' = sigmoid(o) * tanh(c')
 // Rows freeze once t >= length: a padded step emits the carried h (and c),
@@ -11,9 +12,9 @@
 // reads).  It is a separate template instantiation: with null pointers the
 // inference path stores h only, with no added traffic or branch.
 //
-// lstm_bwd_cluster, lstm_bwd and lstm_dwhh replace ops/pallas/lstm.py:
-// _bwd_kernel (BPTT from the saved gates, c and h), walking the steps in the
-// opposite order of the forward:
+// lstm_bwd_cluster (lstm_grid.cu past the cluster) and lstm_dwhh replace
+// ops/pallas/lstm.py:_bwd_kernel (BPTT from the saved gates, c and h),
+// walking the steps in the opposite order of the forward:
 //   dh_tot = dh + gout_t;  do = dh_tot tanh(c_t) o(1-o)
 //   dc_t = dc + dh_tot o (1 - tanh(c_t)^2)
 //   di = dc_t g i(1-i);  df = dc_t c_prev f(1-f);  dg = dc_t i (1-g^2)
@@ -63,19 +64,6 @@
 // us for each 4-row group of the product, against a serial floor of ~2.1 us
 // a step at B=16; time any edit to these loops against the parent.
 //
-// lstm_fwd and lstm_bwd (the route for H past the cluster's shared memory,
-// e.g. Conformer-L's H = 640): one block per batch row runs all T steps,
-// thread j owning hidden unit j and computing the four gate columns j, H+j,
-// 2H+j, 3H+j, so the cell update needs no exchange of gates; only h goes
-// through shared memory (double-buffered: one barrier per step).  Every step
-// reads all of w_hh from L2 (w_hh^T, 4H x H, in the backward, so thread j's
-// loads are coalesced); the reads are latency-bound (B blocks of H/32
-// warps), so the inner loops keep many loads in flight: unrolled 16 times,
-// the forward took 6.8 ms per direction at B=16, T=235, H=320 on an H100
-// (12.6 ms unrolled 4 times); the backward's product is split into four
-// partial sums for the same reason (6.4 ms against 12.8).  Small changes to
-// these loops can halve their speed: time them again.
-//
 // The TPU kernel accumulates dW_hh = sum_t h_prev^T dgates_t inside the
 // recurrence.  Here it is hoisted out of it: once dxw is complete it is one
 // (H x B*T) . (B*T x 4H) product, lstm_dwhh, whose A-tile loader reads
@@ -115,129 +103,6 @@ namespace {
 using namespace tc;
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
-
-// kSave: the training variant, which also stores c_t and the gates
-template <bool kSave>
-__global__ void lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh,
-                                const int* __restrict__ lengths, float* __restrict__ h_out,
-                                float* __restrict__ c_out, float* __restrict__ gates_out,
-                                int seq, int hidden, int reverse) {
-  extern __shared__ float h_buf[];  // [2][hidden]
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const int len = lengths[b];
-  const int h4 = 4 * hidden;
-  float h = 0.f, c = 0.f;
-  if (j < hidden) h_buf[j] = 0.f;
-  __syncthreads();
-
-  int cur = 0;
-  for (int step = 0; step < seq; ++step) {
-    const int t = reverse ? seq - 1 - step : step;
-    if (j < hidden) {
-      const size_t row = static_cast<size_t>(b) * seq + t;
-      if (t < len) {  // uniform across the block
-        const float* hp = h_buf + cur * hidden;
-        float gi = 0.f, gf = 0.f, gg = 0.f, go = 0.f;
-#pragma unroll 16  // 64 loads in flight
-        for (int kk = 0; kk < hidden; ++kk) {
-          const float hk = hp[kk];
-          const float* w = w_hh + static_cast<size_t>(kk) * h4 + j;
-          gi = fmaf(hk, __ldg(w), gi);
-          gf = fmaf(hk, __ldg(w + hidden), gf);
-          gg = fmaf(hk, __ldg(w + 2 * hidden), gg);
-          go = fmaf(hk, __ldg(w + 3 * hidden), go);
-        }
-        const float* x = xw + row * h4 + j;
-        const float ig = sigmoidf(x[0] + gi);
-        const float fg = sigmoidf(x[hidden] + gf);
-        const float cg = tanhf(x[2 * hidden] + gg);
-        const float og = sigmoidf(x[3 * hidden] + go);
-        c = fg * c + ig * cg;
-        h = og * tanhf(c);
-        if constexpr (kSave) {
-          float* gt = gates_out + row * h4 + j;
-          gt[0] = ig;
-          gt[hidden] = fg;
-          gt[2 * hidden] = cg;
-          gt[3 * hidden] = og;
-        }
-      } else if constexpr (kSave) {
-        float* gt = gates_out + row * h4 + j;
-        gt[0] = gt[hidden] = gt[2 * hidden] = gt[3 * hidden] = 0.f;
-      }
-      h_buf[(cur ^ 1) * hidden + j] = h;
-      h_out[row * hidden + j] = h;
-      if constexpr (kSave) c_out[row * hidden + j] = c;
-    }
-    cur ^= 1;
-    __syncthreads();
-  }
-}
-
-__global__ void lstm_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ gates,
-                                const float* __restrict__ c_all, const float* __restrict__ w_hh_t,
-                                const int* __restrict__ lengths, float* __restrict__ dxw, int seq,
-                                int hidden, int reverse) {
-  extern __shared__ float dg_buf[];  // [2][4 * hidden]
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const int len = lengths[b];
-  const int h4 = 4 * hidden;
-  float dh = 0.f, dc = 0.f;
-
-  int cur = 0;
-  for (int step = 0; step < seq; ++step) {
-    // the forward visited t = step (t = seq-1-step when reverse): walk it back
-    const int t = reverse ? step : seq - 1 - step;
-    const bool active = t < len;  // uniform across the block
-    const size_t row = static_cast<size_t>(b) * seq + t;
-    if (j < hidden) {
-      const float dh_tot = dh + gout[row * hidden + j];
-      float* dx = dxw + row * h4 + j;
-      if (active) {
-        const float* gt = gates + row * h4 + j;
-        const float ig = gt[0], fg = gt[hidden], cg = gt[2 * hidden], og = gt[3 * hidden];
-        const int tp = reverse ? t + 1 : t - 1;  // previous step in sequence order
-        const float cp = (tp >= 0 && tp < seq) ? c_all[(static_cast<size_t>(b) * seq + tp) * hidden + j] : 0.f;
-        const float th = tanhf(c_all[row * hidden + j]);
-        const float d_o = dh_tot * th * og * (1.f - og);
-        const float dct = dc + dh_tot * og * (1.f - th * th);
-        const float d_i = dct * cg * ig * (1.f - ig);
-        const float d_f = dct * cp * fg * (1.f - fg);
-        const float d_g = dct * ig * (1.f - cg * cg);
-        float* sh = dg_buf + cur * h4 + j;
-        dx[0] = sh[0] = d_i;
-        dx[hidden] = sh[hidden] = d_f;
-        dx[2 * hidden] = sh[2 * hidden] = d_g;
-        dx[3 * hidden] = sh[3 * hidden] = d_o;
-        dc = dct * fg;
-      } else {  // h_t = h_{t-1} and c_t = c_{t-1}: the cotangents pass through
-        dx[0] = dx[hidden] = dx[2 * hidden] = dx[3 * hidden] = 0.f;
-        dh = dh_tot;
-      }
-    }
-    if (active) {
-      __syncthreads();
-      if (j < hidden) {
-        const float* d = dg_buf + cur * h4;
-        const float* w = w_hh_t + j;
-        // four partial sums (4H is a multiple of 4), unrolled 8 times: 32
-        // loads in flight
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll 8
-        for (int k = 0; k < h4; k += 4) {
-          a0 = fmaf(d[k], __ldg(w + static_cast<size_t>(k) * hidden), a0);
-          a1 = fmaf(d[k + 1], __ldg(w + static_cast<size_t>(k + 1) * hidden), a1);
-          a2 = fmaf(d[k + 2], __ldg(w + static_cast<size_t>(k + 2) * hidden), a2);
-          a3 = fmaf(d[k + 3], __ldg(w + static_cast<size_t>(k + 3) * hidden), a3);
-        }
-        dh = a0 + a1 + a2 + a3;
-      }
-      cur ^= 1;
-    }
-  }
-}
 
 // lstm_dwhh: the tile shape, two warps along M and four along N, each warp
 // 32 x 32 outputs (2 x 4 mma tiles of 16 x 8); the most slices of the rows
@@ -849,31 +714,7 @@ int cluster_shape_check(int batch, int seq, int hidden, int dirs, ClusterLayout*
 
 int row_groups(int batch) { return (std::min(batch, kTileRows) + 3) / 4; }
 
-int threads_for(int hidden) { return ((hidden + 31) / 32) * 32; }
-
 }  // namespace
-
-extern "C" int lstm_fwd(const float* xw, const float* w_hh, const int* lengths, float* h_out,
-                        float* c_out, float* gates_out, int batch, int seq, int hidden, int reverse,
-                        void* stream) {
-  if (hidden < 1 || hidden > 1024) return cudaErrorInvalidValue;
-  if ((c_out == nullptr) != (gates_out == nullptr)) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 2 * hidden;
-  const auto kernel = c_out != nullptr ? lstm_fwd_kernel<true> : lstm_fwd_kernel<false>;
-  kernel<<<batch, threads_for(hidden), smem, static_cast<cudaStream_t>(stream)>>>(
-      xw, w_hh, lengths, h_out, c_out, gates_out, seq, hidden, reverse);
-  return cudaGetLastError();
-}
-
-extern "C" int lstm_bwd(const float* gout, const float* gates, const float* c_all,
-                        const float* w_hh_t, const int* lengths, float* dxw, int batch, int seq,
-                        int hidden, int reverse, void* stream) {
-  if (hidden < 1 || hidden > 1024) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 2 * 4 * hidden;  // 32 KB at H = 1024
-  lstm_bwd_kernel<<<batch, threads_for(hidden), smem, static_cast<cudaStream_t>(stream)>>>(
-      gout, gates, c_all, w_hh_t, lengths, dxw, seq, hidden, reverse);
-  return cudaGetLastError();
-}
 
 // The split of lstm_dwhh over the B*T rows: enough slices that the grid holds
 // two blocks for each of the card's `sms` SMs, at most kMaxSlices and at most

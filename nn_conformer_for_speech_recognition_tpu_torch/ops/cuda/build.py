@@ -59,11 +59,6 @@ SIGNATURES = {
     # qu, k, v, bias, lengths, out, batch, t, heads, head_dim, scale, is_bf16,
     # bias_is_bf16, stream
     "attention_bias_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # the row route (H past the cluster's): xw, w_hh, lengths, h_out,
-    # c_out | NULL, gates_out | NULL, batch, t, hidden, reverse, stream
-    "lstm_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # gout, gates, c, w_hh_t, lengths, dxw, batch, t, hidden, reverse, stream
-    "lstm_bwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # xw0, xw1 | NULL, w_hh0, w_hh1 | NULL, lengths, h0, h1 | NULL, c0, c1,
     # gates0, gates1 (c and gates NULL: the inference variant), directions,
     # reverse0, reverse1, batch, t, hidden, stream
@@ -79,6 +74,20 @@ SIGNATURES = {
     "lstm_smem_optin": (_I, _IP),
     # iterations, threads, stream: cluster barriers alone (a measurement)
     "lstm_cluster_barrier_probe": (_I, _I, _P),
+    # the grid route (H past the cluster's): xw0, xw1 | NULL, w_hh0, w_hh1 | NULL, lengths, h0, h1 | NULL, c0,
+    # c1, gates0, gates1 (NULL: the inference variant), exchange, counters, directions, reverse0, reverse1,
+    # batch, t, hidden, then grid_plan's ctas, units, rows, shared bytes; the exchange's floats; stream
+    "lstm_fwd_grid": (*(_P,) * 13, *(_I,) * 11, _P),
+    # gout0, gout1, gates0, gates1, c0, c1, w_hh0, w_hh1, lengths, dxw0, dxw1, exchange, counters, directions,
+    # reverse0, reverse1, batch, t, hidden, then grid_plan's ctas, units, rows, shared bytes; the exchange's
+    # floats; stream
+    "lstm_bwd_grid": (*(_P,) * 13, *(_I,) * 11, _P),
+    # kernel (0 inference forward, 1 training forward, 2 backward), row groups → registers, local bytes
+    # (host only)
+    "lstm_grid_kernel_attributes": (_I, _I, _IP, _IP),
+    # iterations, CTAs a direction, directions, shared bytes, counters, stream: grid barriers alone (a
+    # measurement)
+    "lstm_grid_barrier_probe": (_I, _I, _I, _I, _P, _P),
     # h, dxw, part | NULL, dw, batch, t, hidden, reverse, rows_per_slice,
     # slices, stream
     "lstm_dwhh": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

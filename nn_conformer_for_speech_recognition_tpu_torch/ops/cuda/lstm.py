@@ -12,31 +12,37 @@ len-1.  The input projection x·W_ih + b and its gradient stay torch ops
 outside, as they are XLA outside the ``custom_vjp`` in the JAX package.
 
 The recurrences take one or more directions (a BiLSTM's two) that share
-the lengths, and run them in one launch.  Two routes (`csrc/lstm.cu`),
-chosen by shape through `cluster_plan`, which the CUDA source owns:
-- the cluster route (H up to 385 on an H100: Conformer-S and -M's H = 320):
+the lengths, and run them in one launch.  Two routes, chosen by shape before
+the launch (`route`):
+- the cluster route (H up to 385 on an H100: Conformer-S and -M's H = 320;
+  `csrc/lstm.cu`, whose `cluster_plan` owns the layout):
   `lstm_forward_cluster` and `lstm_backward_cluster`.  W_hh is split by
   hidden unit over the shared memory of a 16-CTA thread-block cluster, one
   cluster per direction and 16-row batch tile; each step exchanges h
   (forward) or each unit's partial dh (backward) through distributed shared
-  memory and one cluster barrier.  W_hh is read from memory once per launch,
-  not once per step.
-- the row route (H past it, e.g. Conformer-L's 640): `lstm_forward_rows`
-  and `lstm_backward_rows`, one block per batch row and direction reading
-  all of W_hh from L2 at every step (the backward W_hhᵀ, a transposed copy
-  made per call).
+  memory and one cluster barrier.
+- the grid route (every H past it up to 1024, Conformer-L's 640 among them;
+  `csrc/lstm_grid.cu`, laid out by `grid_plan`): `lstm_forward_grid` and
+  `lstm_backward_grid`.  W_hh is split by hidden unit over the shared memory
+  of one cooperative grid, one CTA an SM (64 a direction at H = 640, both
+  directions in one launch); each step exchanges h or the partial dh
+  through L2 and meets at one grid barrier of the direction's CTAs.  A
+  launch the card cannot hold resident at once is refused and raises.
+Either way W_hh is read from memory once per launch, not once per step.
 Either way dW_hh = Σ_t h_prevᵀ·dgates_t, which the TPU kernel accumulates
 inside its recurrence, is hoisted out of it into one product over all B·T
 rows on the tensor cores (`lstm_weight_grad`: TF32 with the 3×TF32 split,
 float32 accumulation), split over the rows into slices whose float32
 partials a second kernel sums in slice order: no atomics, bit-equal from run
 to run.  Each route's wrapper counts its launches (``wrapper.launches``);
-one launch serves every direction of the call.
+one launch serves every direction of the call, except where `grid_plan`
+gives one direction a launch (on an H100 past H = 836 at B = 16, past 901
+at B = 4).
 
 What bounds the recurrences on the H100: the chain of T dependent steps,
-each a (B × H)·(H × 4H) product, so the latency of one step; the cluster
-route's step is one CTA's 1/16 share of the product on the CUDA cores, the
-cell update and one exchange and barrier.
+each a (B × H)·(H × 4H) product, so the latency of one step: one CTA's
+share of the product on the CUDA cores, the cell update and one exchange
+and barrier.
 """
 
 from __future__ import annotations
@@ -127,9 +133,11 @@ def lstm_weight_grad_plain(h: torch.Tensor, dxw: torch.Tensor, reverse: bool = F
     return torch.einsum("bth,btg->hg", _previous_in_sequence(h, reverse), dxw)
 
 
-
-
 CLUSTER_UNPLACEABLE = -2  # csrc/lstm.cu::kClusterUnplaceable
+GRID_NOT_CO_RESIDENT = -3  # csrc/lstm_grid.cu::kNotCoResident
+# csrc/lstm_grid.cu's constants: threads a CTA, the backward's dgates column stride, the largest H
+GRID_THREADS, GRID_LD_DG, GRID_MAX_HIDDEN = 256, 20, 1024
+GRID_TILE_ROWS = (16, 8, 4)  # the rows a grid tile may hold, most first
 
 
 def _lengths_i32(lengths: torch.Tensor, b: int, device: torch.device) -> torch.Tensor:
@@ -140,8 +148,9 @@ def _lengths_i32(lengths: torch.Tensor, b: int, device: torch.device) -> torch.T
 
 def _check_hidden(w_hh: torch.Tensor, h4: int, what: str) -> int:
     hidden = h4 // 4
-    if w_hh.shape != (hidden, h4) or h4 % 4 or not 1 <= hidden <= 1024 or w_hh.dtype != torch.float32:
-        raise ValueError(f"{what}: w_hh must be (H, 4H) float32 with H <= 1024, got {tuple(w_hh.shape)}")
+    if (w_hh.shape != (hidden, h4) or h4 % 4 or not 1 <= hidden <= GRID_MAX_HIDDEN
+            or w_hh.dtype != torch.float32):
+        raise ValueError(f"{what}: w_hh must be (H, 4H) float32 with H <= {GRID_MAX_HIDDEN}, got {tuple(w_hh.shape)}")
     return hidden
 
 
@@ -169,12 +178,17 @@ def _flags(reverse) -> list:
     return [int(r) for r in reverse] + [0] * (2 - len(reverse))
 
 
-def _check_launch(err: int, kernel: str) -> None:
+def _check_launch(err: int, kernel: str, what: str = "") -> None:
+    """Raises for a launch the C entry refused or that failed; ``what``
+    names the shape and plan of a grid launch."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
     if err == CLUSTER_UNPLACEABLE:
         raise RuntimeError(f"{kernel}: no thread-block cluster of 16 CTAs with this shared memory can be placed "
                            "on the device")
+    if err == GRID_NOT_CO_RESIDENT:
+        raise RuntimeError(f"{kernel}: the cooperative grid for {what} cannot be resident on the device at once; "
+                           "the launch was refused")
     build.check(err, kernel)
 
 
@@ -193,7 +207,7 @@ def cluster_plan(batch: int, hidden: int, max_smem: int) -> Tuple[bool, int, int
     CTA) of the cluster route at (batch, hidden) on a device whose blocks may
     have ``max_smem`` bytes of shared memory, as
     `csrc/lstm.cu::lstm_cluster_plan`, which owns the layout, works it out.
-    Past ``fits`` the row route runs."""
+    Past ``fits`` the grid route runs."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
     fits, cluster, rows, smem = (ctypes.c_int() for _ in range(4))
@@ -202,9 +216,76 @@ def cluster_plan(batch: int, hidden: int, max_smem: int) -> Tuple[bool, int, int
     return bool(fits.value), cluster.value, rows.value, smem.value
 
 
-def _uses_cluster(batch: int, hidden: int, device: torch.device) -> bool:
+def grid_layout(hidden: int, ctas: int, rows: int) -> dict:
+    """One grid CTA's shared memory, as `csrc/lstm_grid.cu::grid_layout`
+    lays it out for ``ctas`` CTAs a direction and tiles of ``rows`` batch
+    rows: ``units`` hidden units a CTA and their 4·units gate columns; the
+    forward's floats (W_hh's slice [H][cols], h [H][rows], the partial
+    gates of `kslices` slices of K, each of 256 threads a column quad), the
+    backward's (W_hh's slice [H][cols + 1], dgates [cols][20], every
+    sender's partial dh of this CTA's units [ctas][rows][units]), and the
+    exchange buffers' floats a direction (double-buffered).  The launchers
+    work out the same layout and refuse a plan's shared bytes or an exchange
+    buffer of another size than theirs, so the two cannot drift apart
+    unseen."""
+    units = -(-hidden // ctas)
+    cols = 4 * units
+    kslices = max(1, GRID_THREADS // units)
+    fwd = hidden * cols + hidden * rows + kslices * rows * cols
+    bwd = (hidden * (cols + 1) + 3) // 4 * 4 + cols * GRID_LD_DG + ctas * rows * units
+    return dict(units=units, fwd_floats=fwd, bwd_floats=bwd,
+                fwd_exchange=2 * hidden * rows, bwd_exchange=2 * ctas * ctas * rows * units)
+
+
+def grid_plan(batch: int, hidden: int, sms: int, max_smem: int) -> dict:
+    """The grid route's launch at (batch, hidden) on a card of ``sms`` SMs
+    whose blocks may have ``max_smem`` bytes of shared memory: ``ctas`` a
+    direction (one an SM: at most ``sms`` // directions, each holding
+    ``units`` hidden units), ``rows`` a tile (at most 16, 8 or 4, the batch's
+    rows rounded up to 4 where fewer), ``directions`` a launch (2 or 1), the
+    shared bytes a CTA (the larger of the forward's and the backward's
+    `grid_layout`) and ``fits``.  Of the layouts that fit, the one that walks a BiLSTM's
+    chain the fewest times (tiles a launch × launches for two directions),
+    both directions in one launch where that ties.  Conformer-L's H = 640
+    takes 64 CTAs of 10 units a direction, both directions in one launch,
+    tiles of 16 rows at B = 16 and of 4 at B = 4, on an H100's 132 SMs and
+    232,448 bytes.  The launchers check ctas, units, rows, the shared bytes
+    and the exchange buffer's floats against their own layout; the card
+    checks that the grid can be resident at once."""
+    best, refused = None, dict(fits=False)
+    if not 1 <= hidden <= GRID_MAX_HIDDEN or batch < 1:
+        return refused
+    for directions in (2, 1):
+        if sms // directions < 1:
+            continue
+        units = -(-hidden // (sms // directions))
+        ctas = -(-hidden // units)
+        for cap in GRID_TILE_ROWS:
+            rows = 4 * -(-min(batch, cap) // 4)
+            layout = grid_layout(hidden, ctas, rows)
+            plan = dict(fits=True, ctas=ctas, units=units, rows=rows, directions=directions,
+                        smem_bytes=4 * max(layout["fwd_floats"], layout["bwd_floats"]))
+            if plan["smem_bytes"] > max_smem or rows * units > GRID_THREADS:
+                refused = {**plan, "fits": False}
+                continue
+            passes = -(-batch // rows) * (2 // directions)
+            if best is None or passes < best[0]:
+                best = (passes, plan)
+    return best[1] if best else refused
+
+
+def route(batch: int, hidden: int, device: torch.device) -> Tuple[str, Optional[dict]]:
+    """The route of the recurrences at (batch, hidden) on ``device``:
+    ("cluster", None) where `cluster_plan` fits, else ("grid", `grid_plan`);
+    raises where neither does."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return cluster_plan(batch, hidden, smem_optin(index))[0]
+    optin = smem_optin(index)
+    if cluster_plan(batch, hidden, optin)[0]:
+        return "cluster", None
+    plan = grid_plan(batch, hidden, torch.cuda.get_device_properties(index).multi_processor_count, optin)
+    if not plan["fits"]:
+        raise ValueError(f"lstm: (B, H) = ({batch}, {hidden}) fits neither the cluster nor the grid route: {plan}")
+    return "grid", plan
 
 
 def lstm_forward_cluster(xws, w_hhs, lengths, reverse, save: bool) -> List[Tuple[torch.Tensor, ...]]:
@@ -226,24 +307,38 @@ def lstm_forward_cluster(xws, w_hhs, lengths, reverse, save: bool) -> List[Tuple
     return list(zip(hs, cs, gates))
 
 
-def lstm_forward_rows(xw, w_hh, lengths, reverse: bool, save: bool) -> Tuple[torch.Tensor, ...]:
-    """The row forward (one block per batch row) of one direction, for H
-    past the cluster route's shared memory; checked operands as
-    `lstm_forward_cluster`'s."""
+def _plan_args(plan: dict) -> tuple:
+    return plan["ctas"], plan["units"], plan["rows"], plan["smem_bytes"]
+
+
+def lstm_forward_grid(xws, w_hhs, lengths, reverse, save: bool, plan: dict) -> List[Tuple[torch.Tensor, ...]]:
+    """The grid forward under ``plan`` (`grid_plan`'s): one cooperative
+    launch for every ``plan['directions']`` directions; operands and result
+    as `lstm_forward_cluster`'s.  Raises `RuntimeError` where the card
+    cannot hold the grid resident (the launch is refused, nothing runs)."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
-    b, t, h4 = xw.shape
-    h = torch.empty(b, t, h4 // 4, device=xw.device, dtype=torch.float32)
-    c = torch.empty_like(h) if save else None
-    gates = torch.empty_like(xw) if save else None
-    err = build.library().lstm_fwd(
-        xw.data_ptr(), w_hh.data_ptr(), lengths.data_ptr(), h.data_ptr(),
-        None if c is None else c.data_ptr(), None if gates is None else gates.data_ptr(),
-        b, t, h4 // 4, int(reverse), build.stream_of(xw),
-    )
-    build.check(err, "lstm_fwd")
-    lstm_forward_rows.launches += 1
-    return h, c, gates
+    b, t, h4 = xws[0].shape
+    hidden, dev = h4 // 4, xws[0].device
+    per = plan["directions"]
+    exchange_floats = grid_layout(hidden, plan["ctas"], plan["rows"])["fwd_exchange"]
+    outs = []
+    for i in range(0, len(xws), per):
+        part, rev = xws[i:i + per], reverse[i:i + per]
+        hs = [torch.empty(b, t, hidden, device=dev, dtype=torch.float32) for _ in part]
+        cs = [torch.empty_like(h) if save else None for h in hs]
+        gates = [torch.empty_like(xw) if save else None for xw in part]
+        exchange = torch.empty(len(part) * exchange_floats, device=dev, dtype=torch.float32)
+        counters = torch.zeros(len(part), device=dev, dtype=torch.int32)
+        err = build.library().lstm_fwd_grid(
+            *_pair(part), *_pair(w_hhs[i:i + per]), lengths.data_ptr(), *_pair(hs), *_pair(cs), *_pair(gates),
+            exchange.data_ptr(), counters.data_ptr(), len(part), *_flags(rev), b, t, hidden, *_plan_args(plan),
+            exchange.numel(), build.stream_of(xws[0]),
+        )
+        _check_launch(err, "lstm_fwd_grid", f"(B, T, H) = {(b, t, hidden)} ({plan})")
+        lstm_forward_grid.launches += 1
+        outs += zip(hs, cs, gates)
+    return outs
 
 
 def lstm_forward_directions(
@@ -254,9 +349,9 @@ def lstm_forward_directions(
     and reverse), each its own (B, T, 4H) float32 xw and (H, 4H) w_hh →
     per direction (h, c, gates): (B, T, H) float32 hidden states, and with
     ``save`` the cell states and the post-activation gates the backward
-    needs (else None).  For CUDA tensors one launch of the cluster kernel
-    runs every direction (the row kernel, once per direction, where H is
-    past the cluster's shared memory); CPU tensors run the plain twin."""
+    needs (else None).  For CUDA tensors one launch of the cluster kernel,
+    or past the cluster's shared memory of the grid kernel, runs every
+    direction (`route`); CPU tensors run the plain twin."""
     _check_directions("lstm_forward", xws, w_hhs, reverse)
     if xws[0].device.type == "cpu":
         outs = [lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, reverse)]
@@ -270,9 +365,10 @@ def lstm_forward_directions(
     xws = [xw.contiguous() for xw in xws]
     w_hhs = [w.to(xws[0].device).contiguous() for w in w_hhs]
     lengths = _lengths_i32(lengths, b, xws[0].device)
-    if _uses_cluster(b, hidden, xws[0].device):
+    kind, plan = route(b, hidden, xws[0].device)
+    if kind == "cluster":
         return lstm_forward_cluster(xws, w_hhs, lengths, reverse, save)
-    return [lstm_forward_rows(xw, w, lengths, r, save) for xw, w, r in zip(xws, w_hhs, reverse)]
+    return lstm_forward_grid(xws, w_hhs, lengths, reverse, save, plan)
 
 
 def lstm_forward(
@@ -299,21 +395,32 @@ def lstm_backward_cluster(gouts, gates, cs, w_hhs, lengths, reverse) -> List[tor
     return dxws
 
 
-def lstm_backward_rows(gout, gates, c, w_hh, lengths, reverse: bool) -> torch.Tensor:
-    """The row BPTT (one block per batch row) of one direction; its product
-    reads a transposed copy of W_hh, (4H, H), for coalesced loads."""
+def lstm_backward_grid(gouts, gates, cs, w_hhs, lengths, reverse, plan: dict) -> List[torch.Tensor]:
+    """The grid BPTT under ``plan``: one cooperative launch for every
+    ``plan['directions']`` directions, W_hh as it is (each CTA reads its
+    slice by rows) → per direction dxw; operands as `lstm_forward_cluster`'s,
+    refusals as `lstm_forward_grid`'s."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
 
-    b, t, h4 = gates.shape
-    w_hh_t = w_hh.t().contiguous()
-    dxw = torch.empty_like(gates)
-    err = build.library().lstm_bwd(
-        gout.data_ptr(), gates.data_ptr(), c.data_ptr(), w_hh_t.data_ptr(), lengths.data_ptr(),
-        dxw.data_ptr(), b, t, h4 // 4, int(reverse), build.stream_of(gout),
-    )
-    build.check(err, "lstm_bwd")
-    lstm_backward_rows.launches += 1
-    return dxw
+    b, t, h4 = gates[0].shape
+    hidden, dev = h4 // 4, gates[0].device
+    per = plan["directions"]
+    exchange_floats = grid_layout(hidden, plan["ctas"], plan["rows"])["bwd_exchange"]
+    dxws = []
+    for i in range(0, len(gouts), per):
+        sl = slice(i, i + per)
+        out = [torch.empty_like(g) for g in gates[sl]]
+        exchange = torch.empty(len(out) * exchange_floats, device=dev, dtype=torch.float32)
+        counters = torch.zeros(len(out), device=dev, dtype=torch.int32)
+        err = build.library().lstm_bwd_grid(
+            *_pair(gouts[sl]), *_pair(gates[sl]), *_pair(cs[sl]), *_pair(w_hhs[sl]), lengths.data_ptr(), *_pair(out),
+            exchange.data_ptr(), counters.data_ptr(), len(out), *_flags(reverse[sl]), b, t, hidden,
+            *_plan_args(plan), exchange.numel(), build.stream_of(gates[0]),
+        )
+        _check_launch(err, "lstm_bwd_grid", f"(B, T, H) = {(b, t, hidden)} ({plan})")
+        lstm_backward_grid.launches += 1
+        dxws += out
+    return dxws
 
 
 def lstm_backward_directions(
@@ -326,8 +433,8 @@ def lstm_backward_directions(
 ) -> List[torch.Tensor]:
     """BPTT recurrence of one or two directions → per direction dxw (B, T,
     4H) float32, from the upstream dL/dh (B, T, H) and the forward's saved
-    gates and c.  One cluster launch for CUDA tensors (the row kernel per
-    direction past the cluster's H), the plain twin for CPU ones."""
+    gates and c.  One cluster launch for CUDA tensors (one grid launch past
+    the cluster's H; `route`), the plain twin for CPU ones."""
     _check_directions("lstm_backward", gouts, gates, cs, w_hhs, reverse)
     if gouts[0].device.type == "cpu":
         return [lstm_backward_plain(*args) for args in zip(gouts, gates, cs, w_hhs, [lengths] * len(gouts), reverse)]
@@ -342,9 +449,10 @@ def lstm_backward_directions(
     gouts, gates, cs = ([x.contiguous() for x in xs] for xs in (gouts, gates, cs))
     w_hhs = [w.to(gouts[0].device).contiguous() for w in w_hhs]
     lengths = _lengths_i32(lengths, b, gouts[0].device)
-    if _uses_cluster(b, hidden, gouts[0].device):
+    kind, plan = route(b, hidden, gouts[0].device)
+    if kind == "cluster":
         return lstm_backward_cluster(gouts, gates, cs, w_hhs, lengths, reverse)
-    return [lstm_backward_rows(*args) for args in zip(gouts, gates, cs, w_hhs, [lengths] * len(gouts), reverse)]
+    return lstm_backward_grid(gouts, gates, cs, w_hhs, lengths, reverse, plan)
 
 
 def lstm_backward(
@@ -458,7 +566,7 @@ def lstm(
 
 
 lstm_forward_cluster.launches = 0
-lstm_forward_rows.launches = 0
+lstm_forward_grid.launches = 0
 lstm_backward_cluster.launches = 0
-lstm_backward_rows.launches = 0
+lstm_backward_grid.launches = 0
 lstm_weight_grad.launches = 0

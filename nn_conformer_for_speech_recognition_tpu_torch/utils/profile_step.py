@@ -5,10 +5,13 @@ time, by kernel group.
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short   # B=16 × 30 s, 100 targets
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step pass    # pseudo-labels, B=16 × 30 s
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short pallas   # conv_impl='pallas'
+    python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short conformer_l
 
-A second word ``pallas`` profiles the configuration whose depthwise conv is
+A further word ``pallas`` profiles the configuration whose depthwise conv is
 the hand-written kernel (``conv_impl='pallas'``) instead of the grouped
-conv1d.  Builds the hand-written kernels, warms Conformer-M's train step
+conv1d; ``conformer_l`` profiles Conformer-L (its BiLSTM, H = 640, on the
+grid kernels) instead of Conformer-M.  Builds the hand-written kernels,
+warms the preset's train step
 (`train.loop.make_train_step`: log-mel, SpecAugment, forward, CTC,
 backward, Adafactor) or its pseudo-label pass (`train.loop.make_predict_step`:
 log-mel, forward, greedy decode), weights and audio from a seed, up over
@@ -37,9 +40,10 @@ GROUPS = (
     ("attention bwd dq", ("bwd_dq_kernel", "bwd_dq_tc_kernel")),
     ("attention bwd dkv", ("bwd_dkv_kernel", "bwd_dkv_tc_kernel")),
     ("attention bwd dband (+ reduce)", ("bwd_dband_kernel", "bwd_dband_tc_kernel", "dband_reduce_kernel")),
-    # the cluster route (lstm_fwd_cluster_kernel, both directions in one launch) and the row route (lstm_fwd_kernel)
-    ("lstm_fwd", ("lstm_fwd_cluster_kernel", "lstm_fwd_kernel")),
-    ("lstm_bwd", ("lstm_bwd_cluster_kernel", "lstm_bwd_kernel")),
+    # every LSTM recurrence: the cluster route (lstm_fwd_cluster_kernel, both directions in one launch) and the
+    # grid route past it (lstm_fwd_grid_kernel)
+    ("lstm_fwd", ("lstm_fwd_",)),
+    ("lstm_bwd", ("lstm_bwd_",)),
     ("lstm_dwhh (+ reduce)", ("lstm_dwhh_kernel", "lstm_dwhh_reduce_kernel")),
     ("ctc alpha + beta", ("ctc_alpha_kernel", "ctc_beta_kernel")),
     ("stft_logmel", ("stft_logmel_tc_kernel",)),
@@ -55,15 +59,15 @@ def group_of(kernel_name: str) -> str:
 
 
 def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: str = "auto",
-                       predict: bool = False) -> None:
-    """Profiles the bf16 train step at (batch, seconds, target_len), or with
-    ``predict`` the pseudo-label pass at (batch, seconds)."""
+                       predict: bool = False, preset: str = "conformer_m") -> None:
+    """Profiles ``preset``'s bf16 train step at (batch, seconds,
+    target_len), or with ``predict`` its pseudo-label pass at (batch,
+    seconds)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from nn_conformer_for_speech_recognition_tpu_torch.config import (
-        FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
-    )
+    from nn_conformer_for_speech_recognition_tpu_torch import config as C
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, OptimizerConfig, SpecAugmentConfig
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
     from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predict_step, make_train_step
@@ -74,7 +78,7 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build.build()
     gen = torch.Generator().manual_seed(SEED)
-    model = init_params(ConformerCTC(conformer_m(use_pallas=True, conv_impl=conv_impl), VOCAB), gen).cuda()
+    model = init_params(ConformerCTC(getattr(C, preset)(use_pallas=True, conv_impl=conv_impl), VOCAB), gen).cuda()
     n_samples = int(seconds * FeatureConfig().sample_rate)
     freqs = 100.0 + 3000.0 * torch.rand(batch, 1, generator=gen)
     tones = torch.sin(2 * torch.pi * freqs * torch.arange(n_samples) / 16000.0)
@@ -84,7 +88,7 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
         model.eval()
         predict_step = make_predict_step(model, FeatureConfig(), pad_id=0)
         call = lambda: predict_step(audio, audio_lengths)  # noqa: E731
-        what = f"bf16 pseudo-label pass (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips"
+        what = f"{preset} bf16 pseudo-label pass (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips"
     else:
         state = TrainState.create(model, make_optimizer(OptimizerConfig(), model.named_parameters()), SEED)
         train_step = make_train_step(model, FeatureConfig(), SpecAugmentConfig(), blank_id=0)
@@ -95,7 +99,8 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
             nonlocal state
             state, _ = train_step(state, *args)
 
-        what = f"bf16 train step (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips, {target_len} targets"
+        what = (f"{preset} bf16 train step (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips, {target_len} "
+                "targets")
 
     def run(n: int) -> float:
         """Milliseconds per call over ``n`` calls, host clock around a synchronise."""
@@ -127,9 +132,11 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] not in (["long"], ["short"], ["pass"]) or sys.argv[2:] not in ([], ["pallas"]):
+    words = sys.argv[2:]
+    if sys.argv[1:2] not in (["long"], ["short"], ["pass"]) or any(w not in ("pallas", "conformer_l") for w in words):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     shape = SHAPES["short" if sys.argv[1] == "pass" else sys.argv[1]]
-    profile_main_path(*shape, conv_impl="pallas" if sys.argv[2:] else "auto", predict=sys.argv[1] == "pass")
+    profile_main_path(*shape, conv_impl="pallas" if "pallas" in words else "auto", predict=sys.argv[1] == "pass",
+                      preset="conformer_l" if "conformer_l" in words else "conformer_m")

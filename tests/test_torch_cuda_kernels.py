@@ -383,9 +383,9 @@ def test_attention_dkv_tensor_core_kernel(cuda, dh, t):
         _close(x, r, _bf16_bar(r))
 
 
-# the cluster route's forward and backward, dW_hh, then the row route's forward and backward
-LSTM_COUNTERS = (L.lstm_forward_cluster, L.lstm_backward_cluster, L.lstm_weight_grad, L.lstm_forward_rows,
-                 L.lstm_backward_rows)
+# the cluster route's forward and backward, dW_hh, then the grid route's forward and backward
+LSTM_COUNTERS = (L.lstm_forward_cluster, L.lstm_backward_cluster, L.lstm_weight_grad, L.lstm_forward_grid,
+                 L.lstm_backward_grid)
 
 
 def _lstm_case(gen, hidden, reverse, t=235):
@@ -559,25 +559,152 @@ def test_lstm_two_directions_differentiate_in_one_launch_each(cuda):
         _close(g, ref, 1e-4 * max(1.0, ref.abs().max().item()))
 
 
-@pytest.mark.parametrize("reverse", [False, True])
+def _counts(before):
+    return [k.launches - n for k, n in zip(LSTM_COUNTERS, before)]
+
+
 @pytest.mark.parametrize("save", [False, True])
-def test_lstm_row_route_past_the_cluster(cuda, reverse, save):
-    """H = 640 (Conformer-L) does not fit the cluster's shared memory: the
-    plan sends it to the row kernels, one launch per direction, which agree
-    with their twins; the cluster kernels are not launched."""
-    xws, w_hhs, lengths = _bilstm_case(cuda, 4, 235, 640)
+@pytest.mark.parametrize("b", [1, 4, 16, 17, 33])
+@pytest.mark.parametrize("hidden", [386, 513, 640, 1024])
+def test_lstm_grid_forward_kernel(cuda, hidden, b, save):
+    """The grid forward (H past the cluster's shared memory), both template
+    variants, against the twin for each direction (1e-4): the directions in
+    one cooperative launch where `grid_plan` places both (one a launch at H
+    = 1024), each direction alone and a second launch bit-equal to it.  B =
+    17 and 33 run a second and third tile in the same launch (the third of
+    one row); lengths hold T, 1 and 0."""
+    t = 47
+    xws, w_hhs, lengths = _bilstm_case(cuda, b, t, hidden)
+    plan = L.grid_plan(b, hidden, torch.cuda.get_device_properties(0).multi_processor_count, L.smem_optin(0))
     before = [k.launches for k in LSTM_COUNTERS]
-    both = L.lstm_forward_directions(xws, w_hhs, lengths, (reverse, not reverse), save=save)
-    gouts = [torch.randn(4, 235, 640, generator=cuda).cuda() for _ in range(2)]
-    saved = [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, (reverse, not reverse))]
-    dxws = L.lstm_backward_directions(gouts, [s[2] for s in saved], [s[1] for s in saved], w_hhs, lengths,
-                                      (reverse, not reverse))
-    assert [k.launches - n for k, n in zip(LSTM_COUNTERS, before)] == [0, 0, 0, 2, 2]
-    for got, ref, dxw, gout, w, r in zip(both, saved, dxws, gouts, w_hhs, (reverse, not reverse)):
-        for g, rf in zip(got, ref):
+    both = L.lstm_forward_directions(xws, w_hhs, lengths, (False, True), save=save)
+    again = L.lstm_forward_directions(xws, w_hhs, lengths, (False, True), save=save)
+    alone = [L.lstm_forward(xw, w, lengths, reverse=r, save=save) for xw, w, r in zip(xws, w_hhs, (False, True))]
+    assert _counts(before) == [0, 0, 0, 2 * (2 // plan["directions"]) + 2, 0]
+    for xw, w, reverse, got, twice, one in zip(xws, w_hhs, (False, True), both, again, alone):
+        ref = L.lstm_forward_plain(xw, w, lengths, reverse)
+        assert (got[1] is None) == (got[2] is None) == (not save)
+        for g, g2, o, r in zip(got, twice, one, ref):
             if g is not None:
-                _close(g, rf, 1e-4)
-        _close(dxw, L.lstm_backward_plain(gout, ref[2], ref[1], w, lengths, r), 1e-4)
+                _close(g, r, 1e-4)
+                assert torch.equal(g, g2) and torch.equal(g, o)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16, 17, 33])
+@pytest.mark.parametrize("hidden", [386, 513, 640, 1024])
+def test_lstm_grid_backward_kernel(cuda, hidden, b):
+    """The grid BPTT against the twin for each direction (1e-4, the bar of
+    `TOL['lstm_backward']`), from the twin's saved gates and c: a second
+    launch bit-equal to the first (each unit's partials are added in rank
+    order, no atomics), and each direction alone bit-equal to the launch of
+    both."""
+    t = 47
+    xws, w_hhs, lengths = _bilstm_case(cuda, b, t, hidden)
+    saved = [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, (False, True))]
+    gouts = [torch.randn(b, t, hidden, generator=cuda).cuda() for _ in range(2)]
+    gates, cs = [s[2] for s in saved], [s[1] for s in saved]
+    plan = L.grid_plan(b, hidden, torch.cuda.get_device_properties(0).multi_processor_count, L.smem_optin(0))
+    before = [k.launches for k in LSTM_COUNTERS]
+    both = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, (False, True))
+    again = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, (False, True))
+    alone = [L.lstm_backward(*args, lengths, reverse=r) for *args, r in zip(gouts, gates, cs, w_hhs, (False, True))]
+    assert _counts(before) == [0, 0, 0, 0, 2 * (2 // plan["directions"]) + 2]
+    for i, reverse in enumerate((False, True)):
+        _close(both[i], L.lstm_backward_plain(gouts[i], gates[i], cs[i], w_hhs[i], lengths, reverse), 1e-4)
+        assert torch.equal(both[i], again[i]) and torch.equal(both[i], alone[i])
+
+
+@pytest.mark.parametrize("hidden, b, want", [
+    (320, 16, [1, 1, 2, 0, 0]),  # Conformer-M: the cluster route
+    (640, 16, [0, 0, 2, 1, 1]),  # Conformer-L: the grid route, both directions a launch
+    (640, 4, [0, 0, 2, 1, 1]),
+    (1024, 16, [0, 0, 2, 2, 2]),  # one direction a launch
+])
+def test_lstm_launches_by_route(cuda, hidden, b, want):
+    """A BiLSTM's forward and backward through `lstm_directions` launch the
+    route's kernels only, as many times as the plan says, and agree with
+    autograd through the plain loop."""
+    xws, w_hhs, lengths = _bilstm_case(cuda, b, 31, hidden)
+    rs = [torch.randn(b, 31, hidden, generator=cuda).cuda() for _ in range(2)]
+    runs = []
+    for fn in (L.lstm_directions, lambda x, w, n, rev: [L.lstm_plain(*a, n, r) for *a, r in zip(x, w, rev)]):
+        leaves = [t.clone().requires_grad_(True) for t in (*xws, *w_hhs)]
+        before = [k.launches for k in LSTM_COUNTERS]
+        sum((h * r).sum() for h, r in zip(fn(leaves[:2], leaves[2:], lengths, (False, True)), rs)).backward()
+        runs.append(([x.grad for x in leaves], _counts(before)))
+    (grads, counts), (grads_ref, _) = runs
+    assert counts == want
+    for g, ref in zip(grads, grads_ref):
+        _close(g, ref, 1e-4 * max(1.0, ref.abs().max().item()))
+
+
+def test_lstm_grid_refuses_a_grid_it_cannot_hold(cuda):
+    """A grid whose CTAs cannot all be resident at once (1,000 a direction,
+    passed through the C entry with a layout of its own) is refused before
+    it runs: `RuntimeError` naming the shape, no fallback, and the card
+    stays usable."""
+    xws, w_hhs, lengths = _bilstm_case(cuda, 16, 9, 640)
+    plan = L.grid_plan(16, 640, torch.cuda.get_device_properties(0).multi_processor_count, L.smem_optin(0))
+    layout = L.grid_layout(640, 1000, plan["rows"])
+    forced = {**plan, "ctas": 1000, "units": 1, "smem_bytes": 4 * max(layout["fwd_floats"], layout["bwd_floats"])}
+    before = [k.launches for k in LSTM_COUNTERS]
+    with pytest.raises(RuntimeError, match=r"\(B, T, H\) = \(16, 9, 640\).*cannot be resident"):
+        L.lstm_forward_grid(xws, w_hhs, lengths, (False, True), False, forced)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):  # a layout other than the launcher's own
+        L.lstm_forward_grid(xws, w_hhs, lengths, (False, True), False, {**plan, "units": plan["units"] + 1})
+    assert _counts(before) == [0, 0, 0, 0, 0]
+    _close(L.lstm_directions(xws, w_hhs, lengths, (False, True))[0], L.lstm_plain(xws[0], w_hhs[0], lengths), 1e-4)
+
+
+def test_lstm_grid_launch_refuses_an_exchange_off_its_layout(cuda):
+    """The launchers take the exchange buffer's size in floats and refuse,
+    launching nothing, one float more or less than the kernel writes
+    (directions × 2 × H × rows for the forward, directions × 2 × CTAs² ×
+    rows × units for the backward); with the exact size both launch and the
+    forward's h is bit-equal to the wrapper's."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    b, t, hidden = 16, 9, 640
+    xws, w_hhs, lengths = _bilstm_case(cuda, b, t, hidden)
+    plan = L.grid_plan(b, hidden, torch.cuda.get_device_properties(0).multi_processor_count, L.smem_optin(0))
+    layout = L.grid_layout(hidden, plan["ctas"], plan["rows"])
+    plan_args = (plan["ctas"], plan["units"], plan["rows"], plan["smem_bytes"])
+    ptrs = lambda xs: [x.data_ptr() for x in xs]  # noqa: E731
+    gouts = [torch.randn(b, t, hidden, generator=cuda).cuda() for _ in range(2)]
+    saved = [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, (False, True))]
+    for delta in (-1, 1, 0):
+        hs = [torch.zeros(b, t, hidden, device="cuda") for _ in range(2)]
+        dxws = [torch.zeros(b, t, 4 * hidden, device="cuda") for _ in range(2)]
+        errs = []
+        for kind, per_direction in (("fwd", layout["fwd_exchange"]), ("bwd", layout["bwd_exchange"])):
+            exchange = torch.empty(2 * per_direction + delta, device="cuda")
+            counters = torch.zeros(2, device="cuda", dtype=torch.int32)
+            if kind == "fwd":
+                operands = (*ptrs(xws), *ptrs(w_hhs), lengths.data_ptr(), *ptrs(hs), None, None, None, None)
+                launch = build.library().lstm_fwd_grid
+            else:
+                operands = (*ptrs(gouts), *ptrs(s[2] for s in saved), *ptrs(s[1] for s in saved), *ptrs(w_hhs),
+                            lengths.data_ptr(), *ptrs(dxws))
+                launch = build.library().lstm_bwd_grid
+            errs.append(launch(*operands, exchange.data_ptr(), counters.data_ptr(), 2, 0, 1, b, t, hidden,
+                               *plan_args, exchange.numel(), build.stream_of(xws[0])))
+        torch.cuda.synchronize()
+        if delta:
+            assert all(errs) and not any(h.any() for h in hs) and not any(d.any() for d in dxws), errs
+        else:
+            assert errs == [0, 0]
+            for h, (ref, _, _) in zip(hs, L.lstm_forward_directions(xws, w_hhs, lengths, (False, True))):
+                assert torch.equal(h, ref)
+
+
+def test_lstm_grid_plan_on_this_card(cuda):
+    """`grid_plan` on the card's own SMs and shared memory: Conformer-L's H
+    = 640 at both train shapes takes both directions in one launch, and
+    every H from 386 to 1024 is placed."""
+    sms, optin = torch.cuda.get_device_properties(0).multi_processor_count, L.smem_optin(0)
+    for b in (16, 4):
+        assert L.grid_plan(b, 640, sms, optin)["directions"] == 2
+        assert all(L.grid_plan(b, h, sms, optin)["fits"] for h in range(386, 1025))
 
 
 @pytest.mark.parametrize("batch, hidden, want", [
@@ -586,7 +713,9 @@ def test_lstm_row_route_past_the_cluster(cuda, reverse, save):
     (33, 13, (True, 16, 16, 4048)),     # one unit a CTA, the last three own none
     (4, 385, (True, 16, 4, 232032)),    # the largest H whose forward fits 232,448 bytes
     (4, 386, (False, 16, 4, 232560)),
-    (16, 640, (False, 16, 16, 537600)),  # Conformer-L: the row route
+    (16, 640, (False, 16, 16, 537600)),  # Conformer-L: the grid route
+    (4, 640, (False, 16, 4, 537600)),    # and at the long-form batch
+    (16, 1024, (False, 16, 16, 1253376)),  # the grid's largest H
 ])
 def test_lstm_cluster_plan(cuda, batch, hidden, want):
     """The cluster route's plan, as the CUDA source works it out for the

@@ -390,6 +390,12 @@ def test_flops_copy_equal_and_peak_by_card_name():
          "attention bwd dband (+ reduce)"),
         ("void dband_reduce_kernel<__nv_bfloat16>(float const*, __nv_bfloat16*, int, int)", "attention bwd dband (+ reduce)"),
         ("void lstm_fwd_kernel<true>(LstmArgs)", "lstm_fwd"),
+        ("void (anonymous namespace)::lstm_fwd_grid_kernel<true, 4>((anonymous namespace)::FwdArgs, "
+         "(anonymous namespace)::GridLayout)", "lstm_fwd"),
+        ("void (anonymous namespace)::lstm_bwd_grid_kernel<4>((anonymous namespace)::BwdArgs, "
+         "(anonymous namespace)::GridLayout)", "lstm_bwd"),
+        ("void (anonymous namespace)::lstm_bwd_cluster_kernel<4>((anonymous namespace)::ClusterBwdArgs, "
+         "(anonymous namespace)::ClusterLayout)", "lstm_bwd"),
         ("void (anonymous namespace)::stft_logmel_tc_kernel<(anonymous namespace)::Tile<1, 2, 512> >(float const*, "
          "float const*, float const*, float const*, int const*, float*, int, int, int, int, int, int, int, int, "
          "float)", "stft_logmel"),
