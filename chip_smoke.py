@@ -3,7 +3,8 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 (``python3 chip_smoke.py --ctc-times [TREE]`` times only the CTC kernels of
-the checkout at TREE, this one by default: see `ctc_times_main`.)
+the checkout at TREE, this one by default: see `ctc_times_main`;
+``--conv-times [TREE]`` the depthwise conv's: see `conv_times_main`.)
 
 1. Prints the card's name and power limit, then builds the hand-written
    kernels from ``csrc/`` with nvcc, one process per source (the
@@ -60,15 +61,19 @@ the checkout at TREE, this one by default: see `ctc_times_main`.)
    through the grid kernels (one forward a pass; one forward and one
    backward a step; no cluster launch).
 6. The configuration whose depthwise conv is the hand-written kernel
-   (``conformer_m(use_pallas=True, conv_impl='pallas')``): the kernel
-   against its twin (forward and the gradient with respect to x, float32
-   and bfloat16, K = 33 and an even K, at both train shapes and at the
-   Noisy Student phase's) beside one ``conv1d(groups=C)`` call; then the
+   (``conformer_m(use_pallas=True, conv_impl='pallas')``): the kernels
+   against their twins (the forward, the gradient with respect to x and
+   the weight gradient dw with its tile-order reduce, two dw launches
+   bit-equal, float32 and bfloat16, K = 33 and an even K, at both train
+   shapes, the Noisy Student phase's and Conformer-L's C = 1024), each
+   timed on the card alone beside one ``conv1d(groups=C)`` call and
+   cuDNN's grouped weight gradient, every build free of spills; then the
    pseudo-label pass and the 30 s train step of phases 3 and 4 again under
    that configuration, each against the plain path from the same weights,
-   timed and counted beside the 'auto' ones, one step under ``remat``, and
-   the float32 step against the plain path at the Noisy Student phase's
-   longer bucket.
+   timed and counted beside the 'auto' ones, one step under ``remat``, the
+   float32 step against the plain path at the Noisy Student phase's longer
+   bucket, and Conformer-L's 30 s step under
+   ``conformer_l(use_pallas=True, conv_impl='pallas')``.
 7. One Noisy Student generation through ``Trainer`` and ``run_nst`` under
    that configuration at Conformer-M's full width and depth in bfloat16: a
    synthetic corpus written to a temporary directory, manifests,
@@ -177,6 +182,9 @@ TOL = {
     # unit-variance inputs, taps of variance 1/K: at most 33 float32 multiply-adds in the twin's order
     # (fused in the kernel); in bfloat16 both sum in float32 and round once, so `bf16_bar` with this floor
     "depthwise_conv_f32": 1e-5,
+    # dw against its twin, relative to its largest entry: float32 sums over B·T rows in the same tile order, the
+    # products fused in the kernel; the twin's own sum inside a tile runs in another order
+    "depthwise_conv_dw": 1e-5,
 }
 SLICE_LOGPROB_TOL, SLICE_ID_AGREEMENT = 2e-3, 0.999
 # Beam-search evaluation: width, candidates a frame, label room.  The head of the seeded model is calibrated to speak
@@ -291,7 +299,7 @@ def counters() -> dict:
         "attention_relpos_bwd_dq": A.flash_relpos_attention_bwd_dq,
         "attention_relpos_bwd_dkv": A.flash_relpos_attention_bwd_dkv,
         "attention_relpos_bwd_dband": A.flash_relpos_attention_bwd_dband,
-        "depthwise_conv": D.depthwise_conv1d_forward,
+        "depthwise_conv": D.depthwise_conv1d_forward, "depthwise_conv_weight_grad": D.depthwise_conv1d_weight_grad,
         "attention_bias": A.flash_attention_forward,
         "lstm_grid": L.lstm_forward_grid, "lstm_backward_grid": L.lstm_backward_grid,
     }
@@ -1093,64 +1101,153 @@ def check_attention_backward_kernels(card: str) -> dict:
     return results
 
 
-def check_depthwise_conv_kernel(card: str) -> dict:
-    """The depthwise conv against its twin at the conv module's shapes in
-    both train steps and in the Noisy Student phase's two buckets, where a
-    row is shorter than the kernel's 64-row tile and than its 33 taps
-    (C = 2 · d_model = 512): forward and dx (the same
-    kernel on the gradient, taps reversed, pads swapped), float32 and bf16,
-    K = 33 and an even K.  The bf16 numbers at (16, 235, 512), K = 33, go
-    into the result, beside ``conv1d(groups=C)`` with its pad and two
-    transposes, as the 'auto' route runs it."""
+# (rows, frames, channels) of the depthwise conv's launches: the 30 s and long-form steps and the Noisy Student
+# buckets at Conformer-M's C = 512, the 30 s step at Conformer-L's C = 1024
+CONV_SHAPES = ((BATCH, T_SUB, 512), (LONG_BATCH, LONG_T_SUB, 512), *((NST_BATCH, f, 512) for _, f in NST_BUCKETS),
+               (BATCH, T_SUB, 1024))
+
+
+def conv_inputs(gen: torch.Generator, b: int, t: int, c: int, k: int):
+    """x, the incoming gradient g (unit variance) and taps w (variance 1/K), float32 on the card."""
+    x, g = (torch.randn(b, t, c, generator=gen).cuda() for _ in range(2))
+    return x, g, (torch.randn(k, c, generator=gen) * k ** -0.5).cuda()
+
+
+def conv_library(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """The one-call PyTorch yardsticks of the conv module's route 'auto' for x (B, T, C), taps w (K, C) and the
+    incoming gradient g: ``conv1d(groups=C)`` with its pad and two transposes, and cuDNN's grouped weight gradient
+    (``torch.nn.grad.conv1d_weight``) on the same padded, transposed x and g, → (K, C).  The port calls
+    neither."""
     import torch.nn.functional as F
 
     from nn_conformer_for_speech_recognition_tpu_torch.models.layers import same_padding
+
+    (_, t, c), k = x.shape, w.shape[0]
+    weight = w.t().unsqueeze(1).contiguous()  # (C, 1, K), the library route's parameter
+
+    def forward():
+        return F.conv1d(F.pad(x.transpose(1, 2), same_padding(t, k, 1)), weight, groups=c).transpose(1, 2)
+
+    def weight_grad():
+        h = F.pad(x.transpose(1, 2), same_padding(t, k, 1))
+        return torch.nn.grad.conv1d_weight(h, weight.shape, g.transpose(1, 2), groups=c)[:, 0].t()
+
+    return forward, weight_grad
+
+
+def check_depthwise_conv_kernel(card: str) -> dict:
+    """The depthwise conv's kernels against their twins at `CONV_SHAPES`,
+    where the Noisy Student buckets' rows are shorter than a tile and than
+    the 33 taps: the forward, dx (the same kernel on the gradient, taps
+    reversed, pads swapped) and dw (the dw kernel and its tile-order
+    reduce; two launches bit-equal), float32 and bf16, K = 33 (taps in
+    registers) and an even K (the generic build); every build the plans
+    launch free of spills.  Each is timed on the card alone (`device_ms`;
+    the forward also by events) beside its twin and a library call:
+    ``conv1d(groups=C)`` for the forward and dx, cuDNN's grouped weight
+    gradient for dw.  The bf16 numbers at (16, 235, 512), K = 33, go into
+    the result, and at (16, 235, 1024) under names of their own."""
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import depthwise_conv as D
 
-    dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED + 5)
-    c, result = 512, None
-    for b, t in ((BATCH, T_SUB), (LONG_BATCH, LONG_T_SUB), *((NST_BATCH, frames) for _, frames in NST_BUCKETS)):
+    result, builds = {}, set()
+    one = torch.zeros(1, device="cuda")
+    print(f"launch floor of device_ms (a one-element zero_): {device_ms(lambda: one.zero_()) * 1e3:.2f} us  [{card}]")
+    for b, t, c in CONV_SHAPES:
         for k in (33, 32):
-            x32, g32 = (torch.randn(b, t, c, generator=gen).to(dev) for _ in range(2))
-            w32 = (torch.randn(k, c, generator=gen) * k ** -0.5).to(dev)
+            x32, g32, w32 = conv_inputs(gen, b, t, c, k)
             pad_hi = k - 1 - (k - 1) // 2
             for dtype in (torch.float32, torch.bfloat16):
                 x, g, w = x32.to(dtype), g32.to(dtype), w32.to(dtype)
+                plan = D.depthwise_plan(b, t, c, k, dtype)
+                builds.add((dtype, plan["vectorized"], plan["fixed_taps"]))
                 out, ref = D.depthwise_conv1d(x, w), D.depthwise_conv1d_plain(x, w)
                 dx = D.depthwise_conv1d_forward(g, w, pad_lo=pad_hi, reverse_taps=True)
                 leaf = x.clone().requires_grad_(True)
                 (dx_ref,) = torch.autograd.grad(D.depthwise_conv1d_plain(leaf, w), leaf, g)
+                dw, dw_again = (D.depthwise_conv1d_weight_grad(x, g, k) for _ in range(2))
+                dw_ref = D.depthwise_conv1d_weight_grad_plain(x, g, k)
                 torch.cuda.synchronize()
                 check(out.shape == x.shape and out.dtype == dtype, "depthwise_conv output shape or type")
+                check(dw.shape == (k, c) and dw.dtype == torch.float32, "depthwise_conv dw shape or type")
                 floor = TOL["depthwise_conv_f32"]
                 tols = (bf16_bar(ref, floor), bf16_bar(dx_ref, floor)) if dtype == torch.bfloat16 else (floor, floor)
-                errs = (max_abs(out, ref), max_abs(dx, dx_ref))
+                errs = (max_abs(out, ref), max_abs(dx, dx_ref), max_abs(dw, dw_ref))
+                dw_rel = errs[2] / dw_ref.abs().max().item()
                 name = str(dtype).replace("torch.", "")
-                ms = cuda_ms(lambda: D.depthwise_conv1d_forward(x, w))
-                dx_ms = cuda_ms(lambda: D.depthwise_conv1d_forward(g, w, pad_lo=pad_hi, reverse_taps=True))
+                ms, events_ms = device_ms(lambda: D.depthwise_conv1d_forward(x, w)), cuda_ms(lambda: D.depthwise_conv1d_forward(x, w))
+                dx_ms = device_ms(lambda: D.depthwise_conv1d_forward(g, w, pad_lo=pad_hi, reverse_taps=True))
+                dw_ms = device_ms(lambda: D.depthwise_conv1d_weight_grad(x, g, k))
                 plain_ms = cuda_ms(lambda: D.depthwise_conv1d_plain(x, w), iters=5)
-                dw_ms = cuda_ms(lambda: D.depthwise_conv1d_weight_grad(x, g, k), iters=5)
-                weight = w.t().unsqueeze(1).contiguous()  # (C, 1, K), the library route's parameter
-
-                def library():
-                    h = F.pad(x.transpose(1, 2), same_padding(t, k, 1))
-                    return F.conv1d(h, weight, groups=c).transpose(1, 2)
-
-                lib_err = max_abs(library(), ref)
-                library_ms = cuda_ms(library)
-                print(f"depthwise_conv ({b}, {t}, {c}) K={k} {name}: max|Δ| out {errs[0]:.3e} (tol {tols[0]:.1e}), "
-                      f"dx {errs[1]:.3e} (tol {tols[1]:.1e}); kernel {ms:.4f} ms, dx by the same kernel {dx_ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, conv1d(groups={c}) with pad and transposes {library_ms:.4f} ms "
-                      f"(max|Δ| to the twin {lib_err:.3e}), dw by unfold + einsum {dw_ms:.4f} ms  [{card}]")
+                dw_plain_ms = cuda_ms(lambda: D.depthwise_conv1d_weight_grad_plain(x, g, k), iters=5)
+                lib_fwd, lib_dw = conv_library(x, w, g)
+                lib_err, lib_dw_err = max_abs(lib_fwd(), ref), max_abs(lib_dw(), dw_ref)
+                library_ms, library_dw_ms = device_ms(lib_fwd), device_ms(lib_dw)
+                print(f"depthwise_conv ({b}, {t}, {c}) K={k} {name}, {'vector' if plan['vectorized'] else 'scalar'} "
+                      f"layout, {'fixed' if plan['fixed_taps'] else 'generic'} taps, row groups {plan['row_groups']} in "
+                      f"{plan['blocks']} blocks over {plan['tiles']} tiles a slab (dw {plan['dw_row_groups']} in "
+                      f"{plan['dw_blocks']}, {plan['dw_partials']} partials a slab): max|Δ| out {errs[0]:.3e} (tol "
+                      f"{tols[0]:.1e}), dx {errs[1]:.3e} (tol {tols[1]:.1e}), dw {errs[2]:.3e} = {dw_rel:.3e} of its "
+                      f"largest (tol {TOL['depthwise_conv_dw']:.0e}), dw launches bit-equal {torch.equal(dw, dw_again)}; "
+                      f"device forward {ms:.4f} ms (events {events_ms:.4f}), dx {dx_ms:.4f}, dw {dw_ms:.4f}; plain "
+                      f"{plain_ms:.4f}, dw plain {dw_plain_ms:.4f}; conv1d(groups={c}) with pad and transposes device "
+                      f"{library_ms:.4f} (max|Δ| to the twin {lib_err:.3e}), cuDNN's weight gradient device "
+                      f"{library_dw_ms:.4f} (max|Δ| {lib_dw_err:.3e})  [{card}]", flush=True)
                 check(errs[0] <= tols[0], f"depthwise_conv ({name}, K={k}) disagrees with its plain twin")
                 check(errs[1] <= tols[1], f"depthwise_conv dx ({name}, K={k}) disagrees with autograd through the twin")
-                if (b, t, k, dtype) == (BATCH, T_SUB, 33, torch.bfloat16):
+                check(dw_rel <= TOL["depthwise_conv_dw"], f"depthwise_conv dw ({name}, K={k}) disagrees with its twin")
+                check(torch.equal(dw, dw_again), f"depthwise_conv dw ({name}, K={k}): two launches differ")
+                if k == 33 and dtype == torch.bfloat16 and (b, t) == (BATCH, T_SUB):
                     # x read once, out written once, the taps; 2·K operations an element, done as float32
-                    # multiply-adds outside the tensor cores whatever the storage type
-                    result = numbers(max(errs), ms, plain_ms, nbytes(x, out, w), 2 * k * x.numel(), torch.float32,
-                                     library_ms=library_ms)
-    return {"depthwise_conv": result}
+                    # multiply-adds outside the tensor cores whatever the storage type.  dw reads x and g and
+                    # writes (K, C) float32
+                    suffix = "" if c == 512 else "_conformer_l"
+                    result[f"depthwise_conv{suffix}"] = dict(
+                        numbers(max(errs[:2]), ms, plain_ms, nbytes(x, out, w), 2 * k * x.numel(), torch.float32,
+                                library_ms=library_ms), dx_ms=dx_ms, events_ms=events_ms)
+                    result[f"depthwise_conv_weight_grad{suffix}"] = numbers(
+                        errs[2], dw_ms, dw_plain_ms, nbytes(x, g, dw), 2 * k * x.numel(), torch.float32,
+                        library_ms=library_dw_ms)
+    built = {}
+    for dtype, vectorized, fixed in sorted(builds, key=str):
+        for kernel in D.KERNELS:
+            built[f"{kernel} {str(dtype)[6:]} {'vector' if vectorized else 'scalar'} K={fixed or 'any'}"] = (
+                D.depthwise_kernel_attributes(kernel, dtype, vectorized, fixed))
+    print(f"depthwise_conv builds the plans launch: {built}")
+    check(all(v["local_bytes"] == 0 for v in built.values()), f"the depthwise conv kernels spill: {built}")
+    return result
+
+
+def conv_times(card: str) -> None:
+    """Device time of the depthwise conv of whichever checkout's package is
+    imported (`conv_times_main`) in bf16 at K = 33 and `CONV_SHAPES`, on the
+    same seeded inputs in every tree: the forward, dx and dw as that tree's
+    `DepthwiseConv1d` computes them."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import depthwise_conv as D
+
+    print(f"depthwise conv of {Path(D.__file__).resolve().parents[3]}  [{card}]")
+    for b, t, c in CONV_SHAPES:
+        gen = torch.Generator().manual_seed(SEED + 14)
+        x, g, w = (v.bfloat16() for v in conv_inputs(gen, b, t, c, 33))
+        fwd = device_ms(lambda: D.depthwise_conv1d_forward(x, w))
+        dx = device_ms(lambda: D.depthwise_conv1d_forward(g, w, pad_lo=16, reverse_taps=True))
+        dw = device_ms(lambda: D.depthwise_conv1d_weight_grad(x, g, 33))
+        print(f"depthwise_conv ({b}, {t}, {c}) K=33 bfloat16: device forward {fwd:.4f} ms, dx {dx:.4f}, dw {dw:.4f}  "
+              f"[{card}]", flush=True)
+
+
+def conv_times_main(tree: Path) -> None:
+    """``python3 chip_smoke.py --conv-times [TREE]``: `conv_times` for the
+    port in the checkout at TREE (this one by default), built there."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
+    sys.path.insert(0, str(tree.resolve()))
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    card = card_line()
+    print(card)
+    build.build()
+    conv_times(card)
 
 
 def key_padding(lengths: torch.Tensor, t: int, dtype: torch.dtype) -> torch.Tensor:
@@ -1449,7 +1546,7 @@ def check_slice(card: str, conv_impl: str = "auto", preset: str = "conformer_m")
     blocks = make_config().encoder.num_blocks
     expected = {"stft_logmel": N_BATCHES, "attention_relpos": blocks * N_BATCHES,
                 lstm_route_counters(preset, BATCH)[0]: N_BATCHES,
-                "depthwise_conv": blocks * N_BATCHES if conv_impl == "pallas" else 0}
+                "depthwise_conv": blocks * N_BATCHES if conv_impl == "pallas" else 0}  # no dw: no backward
     check(launches == {**dict.fromkeys(launches, 0), **expected}, f"pseudo-label launch counts, want {expected}")
     per_batch = dt / N_BATCHES
     print(f"bf16 pseudo-label pass ({tag}): {per_batch * 1e3:.2f} ms/batch (B={BATCH}, {SECONDS:.0f} s clips), "
@@ -1577,7 +1674,8 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     kernel_run, plain_run = one_step(True, "auto"), one_step(False, "xla")
     check(not any(plain_run[3].values()), f"the plain path launched a kernel: {plain_run[3]}")
     check((kernel_run[3]["attention_relpos_bwd_dq"] == blocks) == long_form, f"f32 kernel path launches: {kernel_run[3]}")
-    check(kernel_run[3]["depthwise_conv"] == (2 * blocks if conv_impl == "pallas" else 0),
+    conv_blocks = blocks if conv_impl == "pallas" else 0  # forward and dx in every block, and dw
+    check((kernel_run[3]["depthwise_conv"], kernel_run[3]["depthwise_conv_weight_grad"]) == (2 * conv_blocks, conv_blocks),
           f"f32 kernel path launches: {kernel_run[3]}")
     compare(kernel_run, plain_run)
     del kernel_run, plain_run
@@ -1625,7 +1723,7 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, lstm_fwd: n, lstm_bwd: n,
                 "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
                 "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn,
-                "depthwise_conv": conv}
+                "depthwise_conv": conv, "depthwise_conv_weight_grad": conv // 2}
     check(launches == expected, f"train-step launch counts, want {expected}")
     del state
 
@@ -1642,7 +1740,7 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     _, dt_remat, count, peak_remat, _ = run_steps(dataclasses.replace(cfg16, remat=True), lr32, 1, 2)
     print(f"bf16 train step under remat ({what}): {dt_remat * 1e3:.2f} ms/step, peak memory "
           f"{peak_remat / 2**20:.1f} MiB, launches over 2 steps {count}  [{card}]")
-    again = {"attention_relpos_lse": 2.0, "depthwise_conv": 1.5}  # forwards repeated; the conv's dx is not
+    again = {"attention_relpos_lse": 2.0, "depthwise_conv": 1.5}  # forwards repeated; the conv's dx and dw are not
     check(count == {k: int(again.get(k, 1.0) * v) * 2 // n for k, v in expected.items()}, "launch counts under remat")
     if not long_form:
         return launches
@@ -1824,12 +1922,14 @@ def check_nst(card: str) -> dict:
         check(res.is_best and res.val_loss is not None and np.isfinite(res.val_loss), "the generation has no validation score")
         evals, label_batches = 2 * data["validation"].num_batches(), data["unlabeled"].num_batches()
         check(forwards == {True: steps, False: evals + label_batches}, f"forwards counted {forwards}")
-        # every forward runs the conv kernel once per block, every train step once more for dx; one launch of each
+        # every forward runs the conv kernel once per block, every train step once more for dx and the dw kernel once
+        # per block; one launch of each
         # LSTM recurrence serves both directions, dW_hh is one launch a direction
         expected = {"stft_logmel": steps + evals + label_batches, "attention_relpos": blocks * (evals + label_batches),
                     "lstm": steps + evals + label_batches, "lstm_backward": steps, "lstm_weight_grad": 2 * steps,
                     "ctc_alpha": steps + evals, "ctc_beta": steps,
-                    "depthwise_conv": blocks * (forwards[True] + forwards[False]) + blocks * steps}
+                    "depthwise_conv": blocks * (forwards[True] + forwards[False]) + blocks * steps,
+                    "depthwise_conv_weight_grad": blocks * steps}
         print(f"launch counts over the NST generation ({steps} train steps, {evals} validation and {label_batches} "
               f"labelling batches): {launches}")
         check(launches == {**dict.fromkeys(launches, 0), **expected}, f"NST launch counts, want {expected}")
@@ -2464,6 +2564,9 @@ def main() -> None:
     train_conv = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False, conv_impl="pallas")
     # the float32 step, kernel path against plain path, once more at the NST phase's longer bucket
     check_train(card, NST_BATCH, NST_LONGEST / 16000, NST_MAX_WORDS, long_form=False, conv_impl="pallas")
+    # Conformer-L's 30 s step with its depthwise conv (C = 1024) on the kernels: forward, dx and dw in 17 blocks
+    train_l_conv = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False, conv_impl="pallas",
+                               preset="conformer_l")
     nst = check_nst(card)
     # the bias-input attention (the kernel, then its own op path), beam-search evaluation, the command line
     results.update(check_bias_attention_kernel(card))
@@ -2488,24 +2591,28 @@ def main() -> None:
         "attention_relpos_bwd_dkv": ("csrc/attention_relpos_bwd_tc.cu", f"{pallas}/attention.py:559"),
         "attention_relpos_bwd_dband": ("csrc/attention_relpos_bwd_tc.cu", f"{pallas}/attention.py:590"),
         "depthwise_conv": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
+        # the weight half of the kernel's jnp backward, _dw_bwd
+        "depthwise_conv_weight_grad": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:107"),
         "attention_bias": ("csrc/attention_bias.cu", f"{pallas}/attention.py:64"),
         "lstm_grid": ("csrc/lstm_grid.cu", f"{pallas}/lstm.py:69"),
         "lstm_backward_grid": ("csrc/lstm_grid.cu", f"{pallas}/lstm.py:107"),
         "attention_relpos_conformer_l": ("csrc/attention_relpos_tc.cu", f"{pallas}/attention.py:281"),
         "lstm_weight_grad_conformer_l": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
+        "depthwise_conv_conformer_l": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
+        "depthwise_conv_weight_grad_conformer_l": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:107"),
     }
     m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli)
-    l_paths = (serve_l, train_l)
+    l_paths = (serve_l, train_l, train_l_conv)
     paths = (*m_paths, *l_paths, op)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
           "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line, then "
-          "Conformer-L's pass + 30 s train steps, then the bias-input op: "
+          "Conformer-L's pass + 30 s train steps + 30 s train steps under conv_impl='pallas', then the bias-input op: "
           f"{ {k: tuple(path.get(k, 0) for path in paths) for k in read_counters()} }")
-    # (counter, paths counted) of each entry.  Conformer-L runs two kernels at other shapes than Conformer-M's,
-    # the rel-pos forward at 8 heads and dW_hh at H = 640: their Conformer-L launches go under names of their own,
-    # beside the numbers measured at those shapes
+    # (counter, paths counted) of each entry.  Conformer-L runs four kernels at other shapes than Conformer-M's,
+    # the rel-pos forward at 8 heads, dW_hh at H = 640 and the depthwise conv's forward and dw at C = 1024: their
+    # Conformer-L launches go under names of their own, beside the numbers measured at those shapes
     counted = {name: (name, paths) for name in sources}
-    for name in ("attention_relpos", "lstm_weight_grad"):
+    for name in ("attention_relpos", "lstm_weight_grad", "depthwise_conv", "depthwise_conv_weight_grad"):
         counted[name] = (name, (*m_paths, op))
         counted[f"{name}_conformer_l"] = (name, l_paths)
 
@@ -2541,5 +2648,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ctc-times"]:
         ctc_times_main(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
+    elif sys.argv[1:2] == ["--conv-times"]:
+        conv_times_main(Path(sys.argv[2]) if len(sys.argv) > 2 else REPO)
     else:
         main()

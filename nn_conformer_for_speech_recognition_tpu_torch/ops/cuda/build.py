@@ -104,8 +104,15 @@ SIGNATURES = {
     # iterations, threads, sink, stream: block barriers with a shared-memory
     # round trip alone (a measurement)
     "ctc_step_probe": (_I, _I, _P, _P),
-    # x, w, out, batch, t, channels, k, pad_lo, reverse_taps, is_bf16, stream
-    "depthwise_conv_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, out, batch, t, channels, k, pad_lo, reverse_taps, is_bf16, then depthwise_plan's row groups, fixed
+    # taps (33 or 0), vector layout (0, 1), blocks a slab, shared bytes; stream
+    "depthwise_conv_fwd": (_P, _P, _P, *(_I,) * 12, _P),
+    # x, g, partials, dw, batch, t, channels, k, pad_lo, is_bf16, then depthwise_plan's dw row groups, fixed
+    # taps, vector layout, dw blocks a slab (the partials), dw shared bytes; stream
+    "depthwise_conv_dw": (_P, _P, _P, _P, *(_I,) * 11, _P),
+    # kernel (0 forward, 1 dw, 2 dw's reduce), is_bf16, vector layout, fixed taps → registers, local bytes
+    # (host only)
+    "depthwise_kernel_attributes": (_I, _I, _I, _I, _IP, _IP),
 }
 
 

@@ -47,7 +47,9 @@ GROUPS = (
     ("lstm_dwhh (+ reduce)", ("lstm_dwhh_kernel", "lstm_dwhh_reduce_kernel")),
     ("ctc alpha + beta", ("ctc_alpha_kernel", "ctc_beta_kernel")),
     ("stft_logmel", ("stft_logmel_tc_kernel",)),
+    # kernel 10: one kernel for the forward and dx, and dw's kernel with its tile-order reduce
     ("depthwise_conv", ("depthwise_conv_kernel",)),
+    ("depthwise_conv dw (+ reduce)", ("depthwise_dw_kernel", "depthwise_dw_reduce_kernel")),
     ("convolutions (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad")),
     ("GEMMs (cuBLAS)", ("gemm", "cutlass", "cublas", "xmma", "nvjet")),
 )

@@ -218,3 +218,56 @@ def test_train_step_updates_match_jax_at_conformer_l_width(jax_run, port_step):
         np.testing.assert_allclose(step_got[clear], step_ref[clear], atol=1e-4 * LR, err_msg=name)
         bound = 0.1 * LR * (1 + 1e-6) + 2 * np.spacing(np.abs(start))
         assert np.all(np.abs(step_got) <= bound), name
+
+
+def test_conv_module_matches_jax_at_conformer_l_width():
+    """The conv module at Conformer-L's width under ``conv_impl='pallas'``
+    (d_model 512, C = 1024, K = 33; the JAX ``ConvModule`` with
+    ``use_pallas=True``, its ``dw_kernel`` (K, C) leaf converted by
+    `flax_to_state_dict`): training mode (batch statistics of the valid
+    frames, dropout 0) on B=2 rows of T=37 frames, lengths 37 and 20, the
+    Pallas conv in interpret mode.  The output atol 1e-4; the gradients
+    with respect to the input and every parameter (``dw_kernel`` through
+    the dw twin in tile order) atol 1e-4 of each tensor's largest entry;
+    the updated running statistics atol 1e-5."""
+    from nn_conformer_for_speech_recognition_tpu.models.conformer import ConvModule as JaxConvModule
+    from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import ConvModule
+
+    d_model, k, b, t = 512, 33, 2, 37
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((b, t, d_model)).astype(np.float32)
+    mask = (np.arange(t)[None, :] < np.asarray([t, 20])[:, None]).astype(np.float32)
+    r = rng.standard_normal((b, t, d_model)).astype(np.float32)
+    jmod = JaxConvModule(d_model=d_model, kernel_size=k, expansion=2, dropout=0.0, use_pallas=True)
+    vs = jmod.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(mask), deterministic=False)
+    vs = jax.tree.map(lambda a: np.asarray(a) + 0.05 * rng.standard_normal(a.shape).astype(np.float32), vs)
+    vs["batch_stats"] = jax.tree.map(lambda a: np.abs(a) + 0.5, vs["batch_stats"])
+    assert vs["params"]["dw_kernel"].shape == (k, 2 * d_model)
+
+    def loss(params, xin):
+        out, updated = jmod.apply({"params": params, "batch_stats": vs["batch_stats"]}, xin, jnp.asarray(mask),
+                                  deterministic=False, mutable=["batch_stats"])
+        return (out * r).sum(), (out, updated["batch_stats"])
+
+    (_, (jout, jstats)), (jgp, jgx) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(vs["params"], jnp.asarray(x))
+
+    def port_names(tree):  # the module's leaves under the port's names, as a block's "conv." subtree converts
+        state = flax_to_state_dict({name: {"conv": sub} for name, sub in tree.items()}, _config(TC))
+        return {name.removeprefix("conv."): value for name, value in state.items()}
+
+    module = ConvModule(d_model, k, 2, 0.0, use_kernel=True)
+    module.load_state_dict(port_names(vs), strict=True)
+    module.train()
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = module(xt, torch.from_numpy(mask).bool())
+    (out * torch.from_numpy(r)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), atol=1e-4 * np.abs(np.asarray(jgx)).max())
+    grads = port_names({"params": jgp})
+    assert set(grads) == {n for n, _ in module.named_parameters()}
+    for name, p in module.named_parameters():
+        want = grads[name].numpy()
+        np.testing.assert_allclose(p.grad.numpy(), want, atol=1e-4 * np.abs(want).max(), err_msg=name)
+    stats = port_names({"batch_stats": jstats})
+    for name, buf in module.named_buffers():
+        np.testing.assert_allclose(buf.numpy(), stats[name].numpy(), atol=1e-5, err_msg=name)

@@ -26,8 +26,9 @@ against torch's own CTC the loss 1e-5 relative and the logit gradient
 1e-3.  The depthwise conv: float32 1e-5 on unit-variance inputs and taps
 of variance 1/K (33 float32 multiply-adds in the twin's order, fused here),
 bfloat16 one bf16 ulp at the reference's largest entry (both sum in float32
-and round once); dw through the Function 1e-4 of its largest entry (a
-float32 sum over B·T rows).  The bias-input attention: against its twin on
+and round once); dw against its twin (the same tile order) 1e-5 of its
+largest entry and through the Function 1e-4 of it (a float32 sum over B·T
+rows), bit-equal from launch to launch.  The bias-input attention: against its twin on
 every query row 1e-4 in float32 and in bfloat16 one bf16 ulp at the
 reference's largest entry, on a bias wide enough that a kernel which
 ignores it misses that bar fourfold; its gradients (plain
@@ -901,42 +902,137 @@ def _conv_bar(ref, dtype):
     return max(2.0 ** -7 * ref.abs().max().item(), 1e-5) if dtype == torch.bfloat16 else 1e-5
 
 
+def _conv_counts():
+    return D.depthwise_conv1d_forward.launches, D.depthwise_conv1d_weight_grad.launches
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "b, t, c, k",
-    [(16, 235, 512, 33), (4, 938, 512, 33), (2, 100, 1024, 33), (2, 8, 32, 33), (3, 37, 130, 7), (2, 235, 130, 4),
-     (1, 1, 1, 1), (2, 65, 129, 2), (16, 28, 512, 33), (16, 14, 512, 33), (2, 70, 130, D.MAX_KERNEL_SIZE)],
+    [(16, 235, 512, 33), (4, 938, 512, 33), (2, 100, 1024, 33), (16, 235, 1024, 33), (2, 8, 32, 33), (3, 37, 130, 7),
+     (2, 235, 130, 4), (1, 1, 1, 1), (2, 65, 129, 2), (16, 28, 512, 33), (16, 14, 512, 33),
+     (2, 70, 130, D.MAX_KERNEL_SIZE), (2, 70, 130, 195), (2, 50, 129, 33), (3, 41, 64, 32)],
 )
 def test_depthwise_conv_kernel(cuda, dtype, b, t, c, k):
-    """Forward and dx (the same kernel, taps reversed, pads swapped) against
-    the plain twin; one launch each."""
+    """Forward, dx (the same kernel, taps reversed, pads swapped) and dw
+    against the plain twins, at the plan's layout for the shape (vector or
+    scalar, fixed or generic taps); one launch each."""
     x, w = _conv_case(cuda, dtype, b, t, c, k)
-    before = D.depthwise_conv1d_forward.launches
+    g = torch.randn(x.shape, generator=cuda).cuda().to(dtype)
+    before = _conv_counts()
     got = D.depthwise_conv1d(x, w)
-    assert D.depthwise_conv1d_forward.launches == before + 1
+    assert _conv_counts() == (before[0] + 1, before[1])
     assert got.dtype == dtype and got.shape == x.shape
     ref = D.depthwise_conv1d_plain(x, w)
     _close(got, ref, _conv_bar(ref, dtype))
     pad_hi = k - 1 - (k - 1) // 2
-    dx = D.depthwise_conv1d_forward(x, w, pad_lo=pad_hi, reverse_taps=True)
-    dx_ref = D.depthwise_conv1d_plain(x, w.flip(0), pad_hi)
+    dx = D.depthwise_conv1d_forward(g, w, pad_lo=pad_hi, reverse_taps=True)
+    dx_ref = D.depthwise_conv1d_plain(g, w.flip(0), pad_hi)
     _close(dx, dx_ref, _conv_bar(dx_ref, dtype))
+    dw = D.depthwise_conv1d_weight_grad(x, g, k)
+    assert _conv_counts() == (before[0] + 2, before[1] + 1)
+    assert dw.dtype == torch.float32 and dw.shape == (k, c)
+    dw_ref = D.depthwise_conv1d_weight_grad_plain(x, g, k)
+    _close(dw, dw_ref, 1e-5 * dw_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, t, c, k", [(16, 235, 512, 33), (4, 938, 512, 33), (16, 235, 1024, 33), (2, 70, 129, 195)])
+def test_depthwise_conv_weight_grad_is_bit_equal_across_launches(cuda, dtype, b, t, c, k):
+    """dw has no atomics: each block's partial is summed in row-group order
+    and the partials in block order, so two launches give the same bits."""
+    x, _ = _conv_case(cuda, dtype, b, t, c, k)
+    g = torch.randn(x.shape, generator=cuda).cuda().to(dtype)
+    first, second = D.depthwise_conv1d_weight_grad(x, g, k), D.depthwise_conv1d_weight_grad(x, g, k)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [128, 130, 1024])
+def test_depthwise_conv_misaligned_view_takes_the_scalar_layout(cuda, dtype, c):
+    """A view one element into its storage cannot take 16-byte copies: the
+    plan gives the scalar layout of the same kernels (never the twin), and
+    forward, dx and dw agree with the twins there."""
+    k = 33
+    store = torch.randn(2 * 37 * c + 1, generator=cuda).cuda().to(dtype)
+    x = store[1:].view(2, 37, c)
+    g = torch.randn(2, 37, c, generator=cuda).cuda().to(dtype)
+    w = (torch.randn(k, c, generator=cuda) * k ** -0.5).cuda().to(dtype)
+    assert x.data_ptr() % 16 and not D._launch_plan(x, k, w)["vectorized"]
+    before = _conv_counts()
+    out, dw = D.depthwise_conv1d_forward(x, w), D.depthwise_conv1d_weight_grad(x, g, k)
+    assert _conv_counts() == (before[0] + 1, before[1] + 1)
+    ref, dw_ref = D.depthwise_conv1d_plain(x, w), D.depthwise_conv1d_weight_grad_plain(x, g, k)
+    _close(out, ref, _conv_bar(ref, dtype))
+    _close(dw, dw_ref, 1e-5 * dw_ref.abs().max().item())
+    dx = D.depthwise_conv1d_forward(x, w, pad_lo=16, reverse_taps=True)
+    dx_ref = D.depthwise_conv1d_plain(x, w.flip(0), 16)
+    _close(dx, dx_ref, _conv_bar(dx_ref, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_conv_plan_builds_do_not_spill(cuda, dtype):
+    """Every build a plan can launch keeps its registers: no local memory
+    (spills or a stack frame), and the fixed-tap builds stay within the 128
+    registers that two 256-thread blocks an SM allow."""
+    for kernel in D.KERNELS:
+        for vectorized in (True, False):
+            for fixed in (D.FIXED_TAPS, 0):
+                attrs = D.depthwise_kernel_attributes(kernel, dtype, vectorized, fixed)
+                assert attrs["local_bytes"] == 0 and attrs["registers"] <= 128, (kernel, vectorized, fixed, attrs)
+
+
+def test_depthwise_conv_launch_refuses_a_layout_off_the_plan(cuda):
+    """The C launchers check what they are handed against their own layout:
+    another shared size, a row-group count they do not build, the fixed taps
+    at another K, the vector layout on a misaligned pointer, or more blocks
+    a slab than tiles are refused before any launch."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
+
+    b, t, c, k = 4, 70, 128, 33
+    x, w = _conv_case(cuda, torch.bfloat16, b, t, c, k)
+    out = torch.empty_like(x)
+    plan = D.depthwise_plan(b, t, c, k, torch.bfloat16)
+    part = torch.empty(plan["dw_tiles"] + 1, k, c, device="cuda")
+    dw = torch.empty(k, c, device="cuda")
+    lib, stream = build.library(), build.stream_of(x)
+
+    def fwd(x_ptr=x.data_ptr(), groups=plan["row_groups"], taps=plan["fixed_taps"], kk=k,
+            blocks=plan["blocks_per_slab"], smem=plan["smem_bytes"]):
+        return lib.depthwise_conv_fwd(x_ptr, w.data_ptr(), out.data_ptr(), b, t, c, kk, 16, 0, 1, groups, taps, 1,
+                                      blocks, smem, stream)
+
+    def dwk(blocks=plan["dw_blocks_per_slab"], smem=plan["dw_smem_bytes"]):
+        return lib.depthwise_conv_dw(x.data_ptr(), x.data_ptr(), part.data_ptr(), dw.data_ptr(), b, t, c, k, 16, 1,
+                                     plan["dw_row_groups"], plan["fixed_taps"], 1, blocks, smem, stream)
+
+    assert fwd() == 0 and dwk() == 0
+    torch.cuda.synchronize()
+    refused = [fwd(smem=plan["smem_bytes"] + 16), fwd(groups=3),
+               fwd(kk=31, taps=33, smem=D.shared_bytes("conv", plan["row_groups"], 31, 2, True)),
+               fwd(x_ptr=x.data_ptr() + 2), fwd(blocks=plan["tiles"] + 1), fwd(blocks=0),
+               dwk(blocks=plan["dw_tiles"] + 1), dwk(smem=plan["dw_smem_bytes"] - 16)]
+    assert all(err != 0 for err in refused), refused
+    with pytest.raises(RuntimeError, match="kernel launch failed"):  # through the wrapper: the same check
+        build.check(fwd(groups=16), "depthwise_conv")
 
 
 @pytest.mark.parametrize("k", [33, 4])
 def test_depthwise_conv_gradients_reach_x_and_w(cuda, k):
     """The kernel path differentiates: dx and dw equal autograd's through
-    the plain twin, through two launches (forward, dx) of the one kernel."""
+    the plain twin, through two launches of the one kernel (forward, dx)
+    and one of dw (with its reduce)."""
     x, w = _conv_case(cuda, torch.float32, 4, 235, 512, k)
     r = torch.randn(x.shape, generator=cuda).cuda()
     grads = []
     for fn in (D.depthwise_conv1d, D.depthwise_conv1d_plain):
         xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        before = D.depthwise_conv1d_forward.launches
+        before = _conv_counts()
         (fn(xl, wl) * r).sum().backward()
-        grads.append((xl.grad, wl.grad, D.depthwise_conv1d_forward.launches - before))
+        grads.append((xl.grad, wl.grad, tuple(a - b for a, b in zip(_conv_counts(), before))))
     (dx, dw, count), (dx_ref, dw_ref, plain_count) = grads
-    assert (count, plain_count) == (2, 0)
+    assert (count, plain_count) == ((2, 1), (0, 0))
     _close(dx, dx_ref, 1e-5)
     _close(dw, dw_ref, 1e-4 * dw_ref.abs().max().item())
 
@@ -951,7 +1047,10 @@ def test_depthwise_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         D.depthwise_conv1d(x.double(), torch.zeros(3, 8, device="cuda", dtype=torch.float64))
     with pytest.raises(ValueError, match="above"):  # one tap more than a block's shared memory holds
         D.depthwise_conv1d(x, torch.zeros(D.MAX_KERNEL_SIZE + 1, 8, device="cuda"))
+    with pytest.raises(ValueError, match="above"):
+        D.depthwise_conv1d_weight_grad(x, x, D.MAX_KERNEL_SIZE + 1)
     assert D.depthwise_conv1d(x[:0], torch.zeros(3, 8, device="cuda")).shape == (0, 5, 8)
+    assert torch.equal(D.depthwise_conv1d_weight_grad(x[:0], x[:0], 3), torch.zeros(3, 8, device="cuda"))
 
 
 @pytest.mark.parametrize("dtype, bias_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),

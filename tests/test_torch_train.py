@@ -403,6 +403,12 @@ def test_flops_copy_equal_and_peak_by_card_name():
          "lstm_dwhh (+ reduce)"),
         ("void (anonymous namespace)::lstm_dwhh_reduce_kernel(float4 const*, float4*, int, int)", "lstm_dwhh (+ reduce)"),
         ("void (anonymous namespace)::depthwise_conv_kernel<__nv_bfloat16>(__nv_bfloat16 const*)", "depthwise_conv"),
+        ("void (anonymous namespace)::depthwise_conv_kernel<__nv_bfloat16, true, 33>(__nv_bfloat16 const*, "
+         "__nv_bfloat16 const*, __nv_bfloat16*, int, int, int, int, int)", "depthwise_conv"),
+        ("void (anonymous namespace)::depthwise_dw_kernel<__nv_bfloat16, true, 33>(__nv_bfloat16 const*, "
+         "__nv_bfloat16 const*, float*, int, int, int, int)", "depthwise_conv dw (+ reduce)"),
+        ("void (anonymous namespace)::depthwise_dw_reduce_kernel(float const*, float*, int, int)",
+         "depthwise_conv dw (+ reduce)"),
         ("nvjet_tst_128x64_64x8_2x1_v_bz_TNN", "GEMMs (cuBLAS)"),
         ("sm90_xmma_wgrad_implicit_gemm_bf16", "convolutions (cuDNN)"),
         ("void at::native::vectorized_elementwise_kernel<4, MulFunctor>", "elementwise, reductions, copies"),
