@@ -114,7 +114,22 @@ the checkout at TREE, this one by default: see `ctc_times_main`;
    twice on the same inputs in this process (SpecAugment, the subsampling
    convs, the gather behind the CTC loss, ``lstm_dwhh``, the cluster LSTM
    recurrences, Adafactor).
-12. Prints one JSON line with each kernel's numbers, then, as the last line,
+12. Pretraining and the language model: the LSTM kernels at the
+   pretraining decoder's H = 160 (cluster route) against their twins at
+   the pretrain step's shape (B=16, T'=235, beside cuDNN's LSTM) and the
+   pretrain command's (T'=14 and 28); contrastive pretraining at
+   Conformer-M's width and depth (`PretrainModel`, float32 as the JAX
+   module, B=16 × 30 s): one step of the kernel path against the plain
+   path (loss, every gradient, batch statistics), `PretrainTrainer`'s step
+   timed and counted (log-mel and LSTM kernels only), the loss falling over
+   ten steps, and the hand-off to ``Trainer.load_encoder_only``, which must
+   change nothing; `LMTrainer` at `LMConfig`'s defaults; the pronunciation
+   LM as ``Trainer(lm_apply=...)`` over Conformer-M, greedy and beam, the
+   float32 fused evaluation held between the kernel and the plain path and
+   the bf16 one timed against the unfused; `fuse_lm_weights_into_asr` on
+   the card; then ``pretrain`` and ``train --encoder-checkpoint`` on the
+   command line.
+13. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
@@ -2148,6 +2163,26 @@ def check_beam(card: str) -> dict:
     return launches
 
 
+def run_cli(argv):
+    """Runs the command line in process: (printed lines, seconds); what the
+    command prints is passed on, and a non-zero exit fails."""
+    from nn_conformer_for_speech_recognition_tpu_torch.cli import main as cli
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    print(f"$ cli.main {' '.join(argv[:1] + [a for a in argv[1:] if not a.startswith('/')][:14])} …  → exit {rc}, {dt:.2f} s")
+    for line in lines:
+        print("    " + line[:400])
+    check(rc == 0, f"`{argv[0]}` exited with {rc}")
+    return lines, dt
+
+
 def check_cli(card: str) -> dict:
     """The command line as a user types it, in process, on the Noisy Student
     phase's synthetic corpus in a temporary directory: ``train`` (Conformer-M,
@@ -2160,22 +2195,7 @@ def check_cli(card: str) -> dict:
     from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import load_manifest
     from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import restore_state
 
-    def run(argv):
-        """(exit code, printed lines, seconds); what the command prints is passed on."""
-        out = io.StringIO()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(argv)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        lines = out.getvalue().strip().splitlines()
-        print(f"$ cli.main {' '.join(argv[:1] + [a for a in argv[1:] if not a.startswith('/')][:14])} …  → exit {rc}, {dt:.2f} s")
-        for line in lines:
-            print("    " + line[:400])
-        check(rc == 0, f"`{argv[0]}` exited with {rc}")
-        return lines, dt
-
+    run = run_cli
     with tempfile.TemporaryDirectory() as root:
         corpus = os.path.join(root, "corpus")
         make_synthetic_corpus(corpus, NST_WORDS, NST_TRAIN, NST_VAL, NST_VAL, NST_UNLABELED,
@@ -2261,6 +2281,453 @@ def check_cli(card: str) -> dict:
     check(launches["attention_bias"] == 0 and all(launches[k] > 0 for k in ("stft_logmel", "attention_relpos", "lstm",
           "lstm_backward", "lstm_weight_grad", "ctc_alpha", "ctc_beta")), "the command line missed a kernel of its path")
     return launches
+
+
+# Pretraining and the language model
+PRETRAIN_MASK_P = 0.3  # the loss-falling steps' mask probability, as the JAX package's pretraining test
+LM_BATCH, LM_STEPS, LM_WEIGHT = 32, 5, 0.3  # LMTrainer's batch and steps; Trainer's default fusion weight
+# float32 fused evaluation, kernel path vs plain path: the loss relative, as the unfused pass's log-probs agree
+# (SLICE_LOGPROB_TOL); a beam row's 1-best may flip where two hypotheses' scores lie closer than the two paths
+FUSED_LOSS_RTOL, FUSED_BEAM_ROWS_MAY_DIFFER = 1e-3, 1
+
+
+def check_pretrain_lstm(card: str, b: int, t: int) -> dict:
+    """The LSTM kernels at the pretraining decoder's width (H = target_dim / 2 = 160 for `PretrainConfig`'s
+    defaults, the cluster route): the training forward, the backward and dW_hh of both directions against
+    their twins at ``b`` rows of ``t`` subsampled frames, bit-equal to each direction alone, timed beside
+    cuDNN's bidirectional LSTM at the decoder's input width (Conformer-M's d_model 256)."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import PretrainConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import lstm as L
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 15)
+    hidden = PretrainConfig().target_dim // 2
+    kind, _ = L.route(b, hidden, dev)
+    check(kind == "cluster", f"H = {hidden} at B = {b} takes the {kind} route, not the cluster's")
+    xws = [torch.randn(b, t, 4 * hidden, generator=gen).to(dev) for _ in DIRECTIONS]
+    w_hhs = [(torch.randn(hidden, 4 * hidden, generator=gen) * hidden ** -0.5).to(dev) for _ in DIRECTIONS]
+    lengths = mixed_lengths(gen, b, t, max(t // 3, 1)).to(dev)
+    gouts = [torch.randn(b, t, hidden, generator=gen).to(dev) for _ in DIRECTIONS]
+    outs = L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True)
+    hs, cs, gates = (list(x) for x in zip(*outs))
+    dxws = L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS)
+    ferrs, berrs, werrs = [], [], []
+    for i, reverse in enumerate(DIRECTIONS):
+        h_ref, c_ref, g_ref = L.lstm_forward_plain(xws[i], w_hhs[i], lengths, reverse)
+        ferrs.append(max(max_abs(hs[i], h_ref), max_abs(cs[i], c_ref), max_abs(gates[i], g_ref)))
+        check(torch.equal(hs[i], L.lstm_forward(xws[i], w_hhs[i], lengths, reverse=reverse, save=True)[0]),
+              "lstm (H = 160): the two-direction launch and one direction alone differ")
+        dxw_ref = L.lstm_backward_plain(gouts[i], g_ref, c_ref, w_hhs[i], lengths, reverse)
+        berrs.append(max_abs(dxws[i], dxw_ref))
+        check(torch.equal(dxws[i], L.lstm_backward(gouts[i], gates[i], cs[i], w_hhs[i], lengths, reverse=reverse)),
+              "lstm_backward (H = 160): the two-direction launch and one direction alone differ")
+        dw = L.lstm_weight_grad(hs[i], dxws[i], reverse=reverse)
+        dw_ref = L.lstm_weight_grad_plain(h_ref, dxw_ref, reverse)
+        werrs.append(max_abs(dw, dw_ref) / dw_ref.abs().max().item())
+    torch.cuda.synchronize()
+    fwd = lambda: L.lstm_forward_directions(xws, w_hhs, lengths, DIRECTIONS, save=True)  # noqa: E731
+    bwd = lambda: L.lstm_backward_directions(gouts, gates, cs, w_hhs, lengths, DIRECTIONS)  # noqa: E731
+    dwhh = lambda: L.lstm_weight_grad(hs[1], dxws[1], reverse=True)  # noqa: E731
+    fwd_ms, bwd_ms, w_ms = cuda_ms(fwd), cuda_ms(bwd), cuda_ms(dwhh)
+    fwd_dev, bwd_dev, w_dev = device_ms(fwd), device_ms(bwd), device_ms(dwhh)
+    fwd_plain = cuda_ms(lambda: [L.lstm_forward_plain(xw, w, lengths, r) for xw, w, r in zip(xws, w_hhs, DIRECTIONS)],
+                        iters=5)
+    bwd_plain = cuda_ms(lambda: [L.lstm_backward_plain(*a, lengths, r)
+                                 for *a, r in zip(gouts, gates, cs, w_hhs, DIRECTIONS)], iters=5)
+    w_plain = cuda_ms(lambda: L.lstm_weight_grad_plain(hs[1], dxws[1], True))
+    cudnn = cudnn_lstm_ms(b, t, hidden, lengths, gen, bidirectional=True, width=conformer_m().encoder.d_model)
+    steps_live = int(lengths.max())
+    print(f"lstm at the pretraining decoder's H = {hidden} ({b}, {t}), cluster route, both directions in one launch: "
+          f"training forward (h, c, gates) max|Δ| {max(ferrs):.3e} (tol {TOL['lstm']}), backward dxw {max(berrs):.3e} (tol "
+          f"{TOL['lstm_backward']}), dW_hh max|Δ|/max|dW| {max(werrs):.3e} (tol {TOL['lstm_weight_grad']}), each launch "
+          f"bit-equal to one direction alone; ms (events / device): forward {fwd_ms:.4f} / {fwd_dev:.4f} (plain "
+          f"{fwd_plain:.4f}), backward {bwd_ms:.4f} / {bwd_dev:.4f} (plain {bwd_plain:.4f}), dW_hh of one direction "
+          f"{w_ms:.4f} / {w_dev:.4f} (the float32 einsum {w_plain:.4f}); serial floor of {steps_live} steps "
+          f"{serial_floor_ms(b, hidden, steps_live):.4f} ms; cuDNN's bidirectional LSTM at input width "
+          f"{conformer_m().encoder.d_model}: forward {cudnn['forward']:.4f}, backward {cudnn['backward']:.4f} ms  [{card}]")
+    check(max(ferrs) <= TOL["lstm"], "lstm (H = 160) disagrees with its plain twin")
+    check(max(berrs) <= TOL["lstm_backward"], "lstm_backward (H = 160) disagrees with its plain twin")
+    check(max(werrs) <= TOL["lstm_weight_grad"], "lstm_weight_grad (H = 160) disagrees with its plain twin")
+    steps = 2 * int(lengths.sum())
+    return {
+        "lstm_pretrain": numbers(max(ferrs), fwd_ms, fwd_plain, nbytes(*xws, *w_hhs, *hs, *cs, *gates),
+                                 8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["forward"]),
+        "lstm_backward_pretrain": numbers(max(berrs), bwd_ms, bwd_plain, nbytes(*gouts, *gates, *cs, *w_hhs, *dxws),
+                                          8 * hidden * hidden * steps, torch.float32, library_ms=cudnn["backward"]),
+        # as at H = 320: the 3×TF32 split at the TF32 rate; the einsum (a cuBLAS GEMM) is the library yardstick
+        "lstm_weight_grad_pretrain": numbers(max(werrs), w_ms, w_plain, nbytes(hs[1], dxws[1], w_hhs[1]),
+                                             3 * 8 * hidden * hidden * b * t, "tf32", library_ms=w_plain),
+    }
+
+
+def check_pretrain(card: str) -> dict:
+    """Contrastive pretraining at full width and depth: `PretrainModel` over Conformer-M with `PretrainConfig`'s
+    defaults (target_dim 320, so the BiLSTM decoder's H = 160), float32 as the JAX module, B=16 × 30 s.  One step on
+    the kernel path against the plain path (the LSTM twins) from one state, the same features and draws, dropout 0:
+    loss, every gradient and the batch statistics; then `PretrainTrainer`'s step as a user runs it (log-mel kernel,
+    draws from the state's generator, Adam), timed and counted, and ten steps at lr 1e-3 (mask probability 0.3) on a
+    repeated batch and draws, whose loss must fall; then `save` and `Trainer.load_encoder_only` from the checkpoint,
+    which must leave the ASR model as it was.  Returns the launch counts of the timed steps."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import (
+        FeatureConfig, PretrainConfig, TrainConfig, conformer_m,
+    )
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.models.pretrain import (
+        PretrainModel, contrastive_loss, draw_pretrain,
+    )
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.pretrain_loop import PretrainTrainer
+
+    dev = torch.device("cuda")
+    pcfg = PretrainConfig(learning_rate=LOSS_LR, mask_probability=PRETRAIN_MASK_P)
+    mcfg = conformer_m()
+    hidden = pcfg.target_dim // 2
+    n_samples = int(SECONDS * 16000)
+    t_sub = mcfg.subsampled_length(FeatureConfig().num_frames(n_samples))
+    check((BATCH, t_sub) in KERNEL_SHAPES_CHECKED, f"B={BATCH}, T'={t_sub}: the kernel phase ran at no such shape")
+    gen = torch.Generator().manual_seed(SEED + 16)
+    base = init_params(PretrainModel(mcfg, pcfg), gen)
+    for name, buf in base.named_buffers():  # non-trivial running statistics
+        buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
+    weights = base.state_dict()
+    batches = make_batches(n_samples, count=2)
+    audio, alen = batches[1]
+    draws = draw_pretrain(torch.Generator(device=dev).manual_seed(SEED), BATCH, t_sub, pcfg, dev)
+
+    # -- float32, kernel path vs plain path: one forward and backward from the same weights, features and draws
+    no_dropout = dataclasses.replace(mcfg, encoder=dataclasses.replace(mcfg.encoder, dropout=0.0))
+    with torch.no_grad():
+        feats, flens = make_featurizer(FeatureConfig())(audio, alen)
+
+    def one_step(kernel: bool):
+        m = PretrainModel(no_dropout, pcfg)
+        m.load_state_dict(weights)
+        m.decoder.use_kernel = kernel
+        m.cuda().train()
+        reset_counters()
+        ctx, tgt, mask_pos, lengths = m(feats, flens, draws)
+        loss = contrastive_loss(ctx, tgt, mask_pos, lengths, draws.distractors, pcfg.temperature, pcfg.diversity_alpha)
+        loss.backward()
+        torch.cuda.synchronize()
+        return m, loss.item(), read_counters(), int(mask_pos.sum())
+
+    mk, loss_k, launches_k, masked = one_step(True)
+    mp, loss_p, launches_p, _ = one_step(False)
+    grads_p = dict(mp.named_parameters())
+    grad_errs = {n: relative_error(p.grad, grads_p[n].grad) for n, p in mk.named_parameters()}
+    worst = max(grad_errs, key=grad_errs.get)
+    stats_p = dict(mp.named_buffers())
+    stats_err = max(max_abs(b, stats_p[n]) for n, b in mk.named_buffers())
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"pretrain step f32 (Conformer-M, target_dim {pcfg.target_dim}, H = {hidden}, B={BATCH}, T'={t_sub}, "
+          f"{masked} masked frames), kernel vs plain path: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_err:.3e}, tol "
+          f"{TRAIN_TOL['loss']}), worst gradient {worst} rel {grad_errs[worst]:.3e} (tol {TRAIN_TOL['grad']}), batch "
+          f"statistics max|Δ| {stats_err:.3e} (tol {TRAIN_TOL['batch_stats']}); launches {launches_k}")
+    check(np.isfinite(loss_k) and loss_err <= TRAIN_TOL["loss"], "the pretrain loss of the kernel path disagrees")
+    check(grad_errs[worst] <= TRAIN_TOL["grad"], f"the pretrain gradient of {worst} disagrees")
+    check(all(bool(torch.isfinite(p.grad).all()) and p.grad.abs().max().item() > 0 for p in mk.parameters()),
+          "a pretrain gradient is not finite or is zero")
+    check(stats_err <= TRAIN_TOL["batch_stats"], "the pretrain batch statistics disagree")
+    want = {"lstm": 1, "lstm_backward": 1, "lstm_weight_grad": 2}
+    check(launches_k == {**dict.fromkeys(launches_k, 0), **want} and not any(launches_p.values()),
+          f"pretrain step launches: kernel path {launches_k}, want {want}; plain path {launches_p}")
+    del mk, mp, grads_p, stats_p
+
+    # -- the step as a user runs it: PretrainTrainer (log-mel kernel, the state's draws, dropout 0.1, Adam)
+    tr = PretrainTrainer(mcfg, pcfg, FeatureConfig(), log_fn=lambda _: None)
+    tr.init_state(seed=SEED)
+    tr.model.load_state_dict(weights)
+    check(next(tr.model.parameters()).device.type == "cuda", "PretrainTrainer did not take the card")
+    for _ in range(2):  # warm-up
+        tr.state, _ = tr._train_step(tr.state, audio, alen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    losses = [tr._train_step(tr.state, audio, alen)[1]["loss"] for _ in range(N_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / N_TRAIN_STEPS
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(bool(torch.isfinite(x)) for x in losses), "a pretrain loss is not finite")
+    want = {"stft_logmel": N_TRAIN_STEPS, "lstm": N_TRAIN_STEPS, "lstm_backward": N_TRAIN_STEPS,
+            "lstm_weight_grad": 2 * N_TRAIN_STEPS}
+    check(launches == {**dict.fromkeys(launches, 0), **want}, f"pretrain launches {launches}, want {want}")
+    print(f"f32 pretrain step (PretrainTrainer, Conformer-M, B={BATCH}, {SECONDS:.0f} s clips): {per_step * 1e3:.2f} ms/step, "
+          f"{BATCH * SECONDS / per_step:.1f} audio-s/s, peak memory {peak / 2**20:.1f} MiB; launches over "
+          f"{N_TRAIN_STEPS} steps {launches}  [{card}]")
+
+    # -- the loss falls over ten steps at lr 1e-3 on a repeated batch and draws
+    fall = PretrainTrainer(mcfg, pcfg, FeatureConfig(), log_fn=lambda _: None)
+    fall.init_state(seed=SEED)
+    fall.model.load_state_dict(weights)
+    curve = [fall._train_step(fall.state, audio, alen, draws)[1]["loss"].item() for _ in range(LOSS_STEPS)]
+    print(f"pretrain loss over {LOSS_STEPS} steps at lr {LOSS_LR} (mask probability {PRETRAIN_MASK_P}), repeated batch "
+          f"and draws: {[round(x, 4) for x in curve]}")
+    check(bool(np.isfinite(curve).all()) and curve[-1] < curve[0], "the pretrain loss did not fall")
+
+    # -- the hand-off: save, then Trainer.load_encoder_only takes nothing (no encoder. or subsampling. parameter)
+    vocab = build_vocab("word", [" ".join(f"w{i}" for i in range(VOCAB - 3))])
+    with tempfile.TemporaryDirectory() as root:
+        fall.save(os.path.join(root, "pretrained"))
+        asr = Trainer(ConformerCTC(conformer_m(use_pallas=True), VOCAB), vocab, FeatureConfig(), TrainConfig(),
+                      log_fn=lambda _: None)
+        asr.init_state(seed=SEED)
+        before = {k: v.clone() for k, v in asr.model.state_dict().items()}
+        asr.load_encoder_only(os.path.join(root, "pretrained"))
+    unchanged = all(torch.equal(v, before[k]) for k, v in asr.model.state_dict().items())
+    same_shapes = sum(k.startswith("context_net.") and ("encoder." + k[len("context_net."):]) in before
+                      for k in weights)
+    print(f"pretrain → Trainer.load_encoder_only: the ASR model unchanged: {unchanged} ({same_shapes} context-network "
+          "tensors have an encoder tensor of the same name after the prefix; the restore takes encoder. and "
+          "subsampling. names only, as the JAX package's)")
+    check(unchanged and same_shapes > 0, "load_encoder_only from a pretraining checkpoint changed the ASR model")
+    return launches
+
+
+class ArrayDataset:
+    """An in-memory split for `Trainer.evaluate`: padded batches on the host
+    and one transcript an utterance."""
+
+    def __init__(self, batches, targets: np.ndarray, target_lengths: np.ndarray, vocab):
+        from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import Batch, Utterance
+
+        self.batches, rows = [], 0
+        for audio, alen in batches:
+            b = audio.shape[0]
+            self.batches.append(Batch(audio.cpu().numpy(), alen.cpu().numpy().astype(np.int32), targets, target_lengths,
+                                      np.arange(rows, rows + b)))
+            rows += b
+        self.utterances = [Utterance("", vocab.decode_ids(targets[r % len(targets)].tolist())) for r in range(rows)]
+
+    def epoch(self, seed: int = 0, shuffle: bool = True):
+        return iter(self.batches)
+
+
+def check_lm(card: str) -> dict:
+    """The language model and its fusions.  `LMTrainer` at `LMConfig`'s defaults (d 320, 8 heads, 4 + 4 layers,
+    FFN 512, float32) on a synthetic lexicon and corpus over the ASR vocabulary: five steps on one batch, the loss
+    finite and falling, then an epoch as a user runs it.  Then `make_pron_lm_apply` over that LM into
+    ``Trainer(lm_apply=...)`` over Conformer-M ``use_pallas=True`` (vocabulary 1024, B=16 × 30 s), greedy and beam:
+    the fused loss finite and apart from the unfused one; in float32 the fused steps of the kernel path against the
+    plain path's (loss, greedy ids, beam 1-best); bf16 ms/batch fused against unfused through `Trainer.evaluate`.
+    Then `fuse_lm_weights_into_asr` on the card: an all-zero LM at Conformer-M's width a no-op bit for bit, a
+    seeded one changing the MHSA weights of blocks 0-3 and 15-12 only.  Returns the launch counts of the fused
+    bf16 evaluation, greedy and beam."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, LMConfig, TrainConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.data.lm_corpus import Lexicon, LMCorpus
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.models.lm import (
+        TransformerLM, fuse_lm_weights_into_asr, make_pron_lm_apply,
+    )
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.lm_loop import LMTrainer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer, make_eval_beam_step, make_eval_step
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 17)
+    # words of letters only: the LM corpus normalises text to letters and apostrophes
+    vocab = build_vocab("word", [" ".join("w" + "".join(chr(97 + i // 26 ** k % 26) for k in range(3))
+                                          for i in range(VOCAB - 3))])
+    check(len(vocab) == VOCAB, "vocabulary size")
+    words = vocab.tokens[3:]
+    phones = [f"P{i}" for i in range(40)]
+    lexicon = Lexicon({w: list(rng.choice(phones, size=rng.integers(2, 6))) for w in words})
+    sentences = [" ".join(rng.choice(words, size=rng.integers(5, 21))) for _ in range(LM_BATCH * LM_STEPS)]
+    corpus = LMCorpus(sentences, lexicon, vocab)
+    lm_cfg = LMConfig()
+
+    # -- LMTrainer: five steps on one batch, then an epoch
+    tr = LMTrainer(lm_cfg, len(corpus.phoneme_vocab), len(vocab), vocab.pad_id, log_fn=lambda _: None)
+    tr.init_state(seed=SEED)
+    check(next(tr.model.parameters()).device.type == "cuda", "LMTrainer did not take the card")
+    batch = tr._put(*next(corpus.batches(LM_BATCH, seed=0)))
+    reset_counters()
+    curve = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_STEPS):
+        tr.state, loss = tr._train_step(tr.state, *batch)
+        curve.append(loss.item())
+    step_ms = (time.perf_counter() - t0) / LM_STEPS * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = tr.train(corpus, epochs=1, batch_size=LM_BATCH)
+    epoch_s = time.perf_counter() - t0
+    score = tr.evaluate(corpus, batch_size=LM_BATCH)
+    lm_launches = read_counters()
+    print(f"LMTrainer (TransformerLM d {lm_cfg.embed_dim}, {lm_cfg.num_heads} heads, {lm_cfg.num_encoder_layers} + "
+          f"{lm_cfg.num_decoder_layers} layers, FFN {lm_cfg.ffn_dim}, source vocabulary {len(corpus.phoneme_vocab)}, "
+          f"target {len(vocab)}, B={LM_BATCH}, S={corpus.max_src_len}, T={corpus.max_tgt_len}, f32): loss over "
+          f"{LM_STEPS} steps on one batch {[round(x, 4) for x in curve]} ({step_ms:.2f} ms/step incl. the first); an "
+          f"epoch of {len(corpus) // LM_BATCH} steps {epoch_s:.2f} s, loss {history['lm_loss'][-1]:.4f}, perplexity "
+          f"{history['lm_ppl'][-1]:.1f}; evaluate {score:.4f}; kernel launches {sum(lm_launches.values())}  [{card}]")
+    check(bool(np.isfinite(curve).all()) and curve[-1] < curve[0], "the LM loss did not fall")
+    check(np.isfinite(history["lm_ppl"][-1]) and np.isfinite(score), "the LM epoch or its evaluation is not finite")
+    check(not any(lm_launches.values()), "the LM, which has no kernel, launched one")
+
+    # -- the pronunciation LM as the shallow-fusion hook of the ASR model's evaluation
+    pron_len = max(len(p) for p in lexicon.entries.values())
+    table = np.zeros((len(vocab), pron_len), np.int32)
+    for i, w in enumerate(vocab.tokens):
+        ids = [corpus.phoneme_vocab.index[p] for p in lexicon.entries.get(w, [])]
+        table[i, : len(ids)] = ids
+    lm_apply = make_pron_lm_apply(tr.model, table)
+    gen = torch.Generator().manual_seed(SEED + 18)
+    asr = init_params(ConformerCTC(conformer_m(use_pallas=True), VOCAB), gen)
+    for name, buf in asr.named_buffers():  # non-trivial running statistics
+        buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
+    batches = make_batches(int(SECONDS * 16000))
+    asr.to(dev).eval()
+    with torch.inference_mode():
+        spread = asr(*make_featurizer(FeatureConfig())(*batches[0]))[0].float().std(dim=-1).mean().item()
+    with torch.no_grad():  # a head that speaks as a trained CTC model does (see BEAM_LOGIT_STD)
+        asr.final_fc.weight.mul_(BEAM_LOGIT_STD / spread)
+        asr.final_fc.bias.zero_()
+        asr.final_fc.bias[0] = BEAM_BLANK_BIAS
+    weights = asr.state_dict()
+    targets = rng.integers(3, VOCAB, (BATCH, TARGET_LEN // 10)).astype(np.int32)
+    tlen = np.full((BATCH,), TARGET_LEN // 10, np.int32)
+    beam_kw = dict(beam=BEAM, prune=PRUNE, max_label_len=MAX_LABEL_LEN)
+
+    def model(**cfg):
+        m = ConformerCTC(conformer_m(**cfg), VOCAB)
+        m.load_state_dict(weights)
+        return m.to(dev).eval()
+
+    # float32: the fused steps of the kernel path against the plain path's, on the same batches
+    kernel32, plain32 = model(use_pallas=True, compute_dtype="float32"), model(compute_dtype="float32")
+    t_dev, tl_dev = torch.from_numpy(targets).to(dev), torch.from_numpy(tlen).to(dev)
+    steps = {}
+    for name, m, feat, ctc in (("kernel", kernel32, FeatureConfig(), "auto"), ("plain", plain32, FeatureConfig(impl="xla"), "xla")):
+        steps[name] = (make_eval_step(m, feat, 0, vocab.pad_id, lm_apply=lm_apply, lm_weight=LM_WEIGHT, ctc_impl=ctc),
+                       make_eval_beam_step(m, feat, 0, **beam_kw, lm_apply=lm_apply, lm_weight=LM_WEIGHT, ctc_impl=ctc))
+    unfused = make_eval_step(kernel32, FeatureConfig(), 0, vocab.pad_id)
+    loss_errs, agree, frames, beam_differ, apart = [], 0, 0, [], []
+    for audio, alen in batches[1:]:
+        (lk, ik, ol), (lp, ip, _) = (steps[n][0](audio, alen, t_dev, tl_dev) for n in ("kernel", "plain"))
+        (bk, tk, nk), (bp, tp, np_) = (steps[n][1](audio, alen, t_dev, tl_dev) for n in ("kernel", "plain"))
+        lu = unfused(audio, alen, t_dev, tl_dev)[0]
+        check(bool(torch.isfinite(lk)) and bool(torch.isfinite(bk)), "a fused loss is not finite")
+        loss_errs += [abs(lk.item() - lp.item()) / abs(lp.item()), abs(bk.item() - bp.item()) / abs(bp.item())]
+        apart.append(abs(lk.item() - lu.item()) / abs(lu.item()))
+        valid = torch.arange(ik.shape[1], device=dev)[None, :] < ol[:, None]
+        agree += (ik == ip)[valid].sum().item()
+        frames += valid.sum().item()
+        beam_differ.append(sum(not (torch.equal(tk[r], tp[r]) and nk[r] == np_[r]) for r in range(BATCH)))
+    print(f"fused eval f32 (Conformer-M + the pronunciation LM, weight {LM_WEIGHT}, pronunciations of up to {pron_len} "
+          f"tokens: S = {pron_len} × T'), kernel vs plain path over {N_BATCHES} batches: loss max rel|Δ| "
+          f"{max(loss_errs):.3e} (tol {FUSED_LOSS_RTOL}), greedy ids equal on {agree}/{frames} valid frames, beam 1-best "
+          f"rows that differ a batch {beam_differ} (at most {FUSED_BEAM_ROWS_MAY_DIFFER}); fused against unfused loss, "
+          f"relative: {[f'{x:.3e}' for x in apart]}")
+    check(max(loss_errs) <= FUSED_LOSS_RTOL, "the fused loss of the kernel path disagrees with the plain path's")
+    check(agree >= SLICE_ID_AGREEMENT * frames, "the fused greedy ids of the kernel path disagree")
+    check(max(beam_differ) <= FUSED_BEAM_ROWS_MAY_DIFFER, "the fused beam hypotheses of the kernel path disagree")
+    check(min(apart) > 1e-6, "the fusion did not move the loss")
+    del kernel32, plain32, steps
+
+    # bf16, as a user runs it: Trainer.evaluate fused and unfused, greedy and beam
+    data = ArrayDataset(batches[1:], targets, tlen, vocab)
+    warm = ArrayDataset(batches[:1], targets, tlen, vocab)
+    results, launches = {}, {}
+    for fused in (False, True):
+        trainer = Trainer(ConformerCTC(conformer_m(use_pallas=True), VOCAB), vocab, FeatureConfig(),
+                          TrainConfig(batch_size=BATCH, **beam_kw), log_fn=lambda _: None,
+                          lm_apply=lm_apply if fused else None, lm_weight=LM_WEIGHT)
+        trainer.init_state(seed=SEED)
+        trainer.model.load_state_dict(weights)
+        for decode in ("greedy", "beam"):
+            trainer.evaluate(warm, decode=decode)
+            torch.cuda.synchronize()
+            if fused:
+                reset_counters()
+            t0 = time.perf_counter()
+            loss, wer = trainer.evaluate(data, decode=decode)
+            torch.cuda.synchronize()
+            results[fused, decode] = (loss, wer, (time.perf_counter() - t0) / N_BATCHES * 1e3)
+            if fused:
+                launches[decode] = read_counters()
+    for decode in ("greedy", "beam"):
+        (lu, wu, mu), (lf, wf, mf) = results[False, decode], results[True, decode]
+        print(f"bf16 Trainer.evaluate ({decode}), Conformer-M, B={BATCH}, {SECONDS:.0f} s clips: fused {mf:.2f} ms/batch "
+              f"(loss {lf:.4f}, WER {100 * wf:.2f}%) against unfused {mu:.2f} ms/batch (loss {lu:.4f}, WER "
+              f"{100 * wu:.2f}%)  [{card}]")
+        check(np.isfinite(lf) and abs(lf - lu) > 1e-6 * abs(lu), f"the fused {decode} loss is not finite or not moved")
+    blocks = conformer_m().encoder.num_blocks
+    want = {"stft_logmel": N_BATCHES, "attention_relpos": blocks * N_BATCHES, "lstm": N_BATCHES, "ctc_alpha": N_BATCHES}
+    for decode, got in launches.items():
+        check(got == {**dict.fromkeys(got, 0), **want}, f"fused {decode} evaluation launches {got}, want {want}")
+    print(f"launch counts of the fused bf16 evaluation over {N_BATCHES} batches, greedy then beam: {launches}")
+
+    # -- weight fusion on the card: a zero LM is a no-op, a seeded one moves blocks 0-3 and 15-12 only
+    d, heads = conformer_m().encoder.d_model, conformer_m().encoder.num_heads
+    wide = init_params(TransformerLM(len(corpus.phoneme_vocab), len(vocab), d=d, heads=heads), gen).to(dev)
+    asr_state = {k: v.to(dev) for k, v in weights.items()}
+    zero = fuse_lm_weights_into_asr(asr_state, {k: torch.zeros_like(v) for k, v in wide.state_dict().items()})
+    check(all(torch.equal(zero[k], v) for k, v in asr_state.items()), "fusing an all-zero LM changed the ASR model")
+    fused_state = fuse_lm_weights_into_asr(asr_state, wide.state_dict())
+    moved = sorted({int(k.split(".")[2]) for k, v in fused_state.items() if not torch.equal(v, asr_state[k])})
+    check(moved == [0, 1, 2, 3, 12, 13, 14, 15], f"weight fusion moved blocks {moved}")
+    skipped = fuse_lm_weights_into_asr(asr_state, tr.model.state_dict())  # d 320 against 256: every block skipped
+    check(all(torch.equal(skipped[k], v) for k, v in asr_state.items()), "an LM of another width was fused")
+    fused_model = model(use_pallas=True)
+    fused_model.load_state_dict(fused_state)
+    loss = make_eval_step(fused_model, FeatureConfig(), 0, vocab.pad_id)(*batches[1], t_dev, tl_dev)[0]
+    print(f"weight fusion on the card: zero LM a no-op, a seeded LM at d {d} moved the MHSA of blocks {moved}, the LM at "
+          f"d {lm_cfg.embed_dim} skipped; the fused model's loss {loss.item():.4f}")
+    check(bool(torch.isfinite(loss)), "the weight-fused model's loss is not finite")
+    return {k: launches["greedy"][k] + launches["beam"][k] for k in launches["greedy"]}
+
+
+def check_cli_pretrain(card: str) -> tuple:
+    """``pretrain`` on the command line (Conformer-M, the Noisy Student phase's synthetic corpus, its unlabelled
+    split, one epoch), then ``train --encoder-checkpoint`` from its save, which must start the ASR model as from
+    its seed alone.  Returns the launch counts of each command."""
+    from nn_conformer_for_speech_recognition_tpu_torch.cli import main as cli
+    from nn_conformer_for_speech_recognition_tpu_torch.data.audio import make_synthetic_corpus
+    from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import STATE_FILE
+
+    with tempfile.TemporaryDirectory() as root:
+        corpus = os.path.join(root, "corpus")
+        make_synthetic_corpus(corpus, NST_WORDS, NST_TRAIN, NST_VAL, 0, NST_UNLABELED, max_words_per_utt=NST_MAX_WORDS,
+                              seed=SEED)
+        buckets = ["--bucket-boundaries", *(str(n) for n, _ in NST_BUCKETS)]
+        pretrained = os.path.join(root, "pretrained")
+        reset_counters()
+        _, pre_s = run_cli(["pretrain", "--manifest-dir", corpus, "--model", "conformer_m", "--batch-size", str(NST_BATCH),
+                            *buckets, "--epochs", "1", "--lr", str(LOSS_LR), "--save", pretrained])
+        pre_launches = read_counters()
+        saved = torch.load(os.path.join(pretrained, STATE_FILE), map_location="cpu", weights_only=True)
+        steps = saved["step"]
+        # one epoch over the two length buckets: at least NST_UNLABELED / NST_BATCH steps, one more a ragged bucket
+        check(saved["model"]["decoder.lstm_fwd_0_w_hh"].shape == (160, 640)
+              and NST_UNLABELED // NST_BATCH <= steps <= NST_UNLABELED // NST_BATCH + len(NST_BUCKETS)
+              and all(bool(torch.isfinite(v).all()) for v in saved["model"].values()),
+              f"the pretrain checkpoint: {steps} steps")
+        data = ["--manifest-dir", corpus, "--batch-size", str(NST_BATCH), "--max-target-len", str(NST_MAX_WORDS), *buckets]
+        model = ["--model", "conformer_m", "--use-pallas"]
+        reset_counters()
+        _, train_s = run_cli(["train", *data, *model, "--epochs", "1", "--lr", str(NST_LR), "--encoder-checkpoint",
+                              pretrained])
+        train_launches = read_counters()
+        with contextlib.redirect_stdout(io.StringIO()):
+            fresh, _, _ = cli._build(cli.build_parser().parse_args(["eval", *data, *model]))
+            handed, _, _ = cli._build(cli.build_parser().parse_args(["eval", *data, *model, "--encoder-checkpoint",
+                                                                     pretrained]))
+        same = all(torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(), handed.model.state_dict().values()))
+    print(f"command line: pretrain, Conformer-M f32, {NST_UNLABELED} unlabelled clips in {steps} steps of {NST_BATCH}: "
+          f"{pre_s:.2f} s; launches {pre_launches}; train --encoder-checkpoint from its save: {train_s:.2f} s, the "
+          f"ASR model as from its seed alone: {same}; launches {train_launches}  [{card}]")
+    check(same, "train --encoder-checkpoint from a pretraining checkpoint changed the ASR model")
+    want = {"stft_logmel": steps, "lstm": steps, "lstm_backward": steps, "lstm_weight_grad": 2 * steps}
+    check(pre_launches == {**dict.fromkeys(pre_launches, 0), **want}, f"pretrain launches {pre_launches}, want {want}")
+    check(all(train_launches[k] > 0 for k in ("stft_logmel", "attention_relpos", "lstm", "lstm_backward",
+                                              "lstm_weight_grad", "ctc_alpha", "ctc_beta")),
+          "train --encoder-checkpoint missed a kernel of its path")
+    return pre_launches, train_launches
 
 
 F2_STEPS_PER_EPOCH, F2_EPOCHS = 5, 2  # the repeatability phase: ten steps, the first five batches of two epochs
@@ -2551,6 +3018,11 @@ def main() -> None:
     for n_samples, frames in NST_BUCKETS:
         check_kernels(card, NST_BATCH, n_samples / 16000, frames, inference_attention=True)
         check_train_kernels(card, NST_BATCH, frames, NST_MAX_WORDS)
+        check_pretrain_lstm(card, NST_BATCH, frames)  # the pretrain command's shapes
+    # the pretraining decoder's H = 160 at the pretrain phase's shape; these numbers go into the kernels line
+    t_new = time.perf_counter()
+    results.update(check_pretrain_lstm(card, BATCH, T_SUB))
+    new_phases_s = time.perf_counter() - t_new
     results.update(check_attention_backward_kernels(card))
     results.update(check_depthwise_conv_kernel(card))
     serve = check_slice(card)
@@ -2575,6 +3047,14 @@ def main() -> None:
     cli = check_cli(card)
     # F2: the same ten train steps in two fresh processes, bit for bit
     check_repeatability(card)
+    # contrastive pretraining, the LM and its fusions, and `pretrain` then `train --encoder-checkpoint` on the command line
+    t_new = time.perf_counter()
+    pretrain = check_pretrain(card)
+    lm = check_lm(card)
+    cli_pretrain, cli_handoff = check_cli_pretrain(card)
+    new_phases_s += time.perf_counter() - t_new
+    print(f"the pretraining and LM phases with the H = 160 kernel check at B=16 × 30 s took {new_phases_s:.1f} s; "
+          f"the script so far {time.perf_counter() - t0:.1f} s")
     pallas = "ops/pallas"
     sources = {
         "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),
@@ -2600,21 +3080,30 @@ def main() -> None:
         "lstm_weight_grad_conformer_l": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
         "depthwise_conv_conformer_l": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:50"),
         "depthwise_conv_weight_grad_conformer_l": ("csrc/depthwise_conv.cu", f"{pallas}/depthwise_conv.py:107"),
+        "lstm_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:69"),
+        "lstm_backward_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:107"),
+        "lstm_weight_grad_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
     }
-    m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli)
+    m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli, lm, cli_handoff)
     l_paths = (serve_l, train_l, train_l_conv)
-    paths = (*m_paths, *l_paths, op)
+    p_paths = (pretrain, cli_pretrain)
+    paths = (*m_paths, *l_paths, *p_paths, op)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
-          "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line, then "
-          "Conformer-L's pass + 30 s train steps + 30 s train steps under conv_impl='pallas', then the bias-input op: "
+          "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line + the fused "
+          "evaluation + train --encoder-checkpoint, then Conformer-L's pass + 30 s train steps + 30 s train steps under "
+          "conv_impl='pallas', then the pretrain steps + the pretrain command, then the bias-input op: "
           f"{ {k: tuple(path.get(k, 0) for path in paths) for k in read_counters()} }")
     # (counter, paths counted) of each entry.  Conformer-L runs four kernels at other shapes than Conformer-M's,
-    # the rel-pos forward at 8 heads, dW_hh at H = 640 and the depthwise conv's forward and dw at C = 1024: their
-    # Conformer-L launches go under names of their own, beside the numbers measured at those shapes
+    # the rel-pos forward at 8 heads, dW_hh at H = 640 and the depthwise conv's forward and dw at C = 1024; the
+    # pretraining decoder runs the LSTM kernels at H = 160: their launches go under names of their own, beside the
+    # numbers measured at those shapes
     counted = {name: (name, paths) for name in sources}
     for name in ("attention_relpos", "lstm_weight_grad", "depthwise_conv", "depthwise_conv_weight_grad"):
         counted[name] = (name, (*m_paths, op))
         counted[f"{name}_conformer_l"] = (name, l_paths)
+    for name in ("lstm", "lstm_backward", "lstm_weight_grad"):
+        counted[name] = (name, (*m_paths, *l_paths, op))
+        counted[f"{name}_pretrain"] = (name, p_paths)
 
     def launches(name: str, models_only: bool = False) -> int:
         counter, counted_paths = counted[name]
@@ -2623,9 +3112,14 @@ def main() -> None:
     # no model routes through the bias-input attention, here as in the JAX package: its path is its own op.  The
     # Conformer-M paths (H = 320) run the cluster LSTM kernels, Conformer-L's (H = 640) the grid kernels
     check(op["attention_bias"] > 0, "the bias-input attention's own path did not launch it")
-    for name, other in (("attention_bias", (*m_paths, *l_paths)), ("lstm_grid", m_paths), ("lstm_backward_grid", m_paths),
-                        ("lstm", l_paths), ("lstm_backward", l_paths)):
+    for name, other in (("attention_bias", (*m_paths, *l_paths, *p_paths)), ("lstm_grid", (*m_paths, *p_paths)),
+                        ("lstm_backward_grid", (*m_paths, *p_paths)), ("lstm", l_paths), ("lstm_backward", l_paths)):
         check(not any(p.get(name, 0) for p in other), f"a path that should not have launched {name}")
+    # pretraining runs the log-mel and the LSTM kernels (H = 160) only: attention and conv on their einsum and conv1d
+    # routes as the JAX module builds them, and no CTC
+    for p in p_paths:
+        check({k for k, v in p.items() if v} == {"stft_logmel", "lstm", "lstm_backward", "lstm_weight_grad"},
+              f"a pretraining path launched {p}")
     for name in sources:
         if name != "attention_bias":
             check(launches(name, models_only=True) > 0, f"no model path launched {name}")

@@ -8,10 +8,16 @@ there is none).
     python -m nn_conformer_for_speech_recognition_tpu_torch.cli.main train \
         --manifest-dir data/manifests --model conformer_s --epochs 15
 
+``pretrain`` trains `models.pretrain.PretrainModel` on the unlabelled
+split as the JAX command does: it reads ``--model``, ``--n-mels``,
+``--sample-rate``, ``--lr``, ``--batch-size``, ``--bucket-boundaries``,
+``--epochs``, ``--save`` and ``--device``, and, as there, no other data or
+model flag (the model is float32 on its own routes).
+
 Refused with ``NotImplementedError``, each naming the ROADMAP item that
-ports it: ``pretrain`` (LM and pretraining), ``benchmark`` (the port's
-benchmark on the H100), ``--model-parallel`` above 1, ``--seq-parallel``
-and ``--shard-map-kernels`` (Multi-GPU).  No flag is silently ignored.
+ports it: ``benchmark`` (the port's benchmark on the H100),
+``--model-parallel`` above 1, ``--seq-parallel`` and
+``--shard-map-kernels`` (Multi-GPU).
 """
 
 from __future__ import annotations
@@ -245,8 +251,28 @@ def cmd_nst(args) -> int:
 
 
 def cmd_pretrain(args) -> int:
-    raise NotImplementedError(
-        "pretrain is not ported yet: ROADMAP Queue 1 item 12, LM and pretraining")
+    _refuse_multi_gpu(args)
+    from nn_conformer_for_speech_recognition_tpu_torch import config as C
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import (
+        BucketedDataset, load_manifest)
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import WordVocab
+    from nn_conformer_for_speech_recognition_tpu_torch.train.pretrain_loop import (
+        PretrainTrainer)
+
+    feat_cfg = C.FeatureConfig(sample_rate=args.sample_rate, n_mels=args.n_mels)
+    mcfg = C.MODEL_PRESETS[args.model](n_mels=args.n_mels)
+    pcfg = C.PretrainConfig(learning_rate=args.lr)
+    vocab = WordVocab(["<blank>", "<pad>", "<unk>"])
+    utts = load_manifest(os.path.join(args.manifest_dir, "unlabeled.tsv"))
+    ds = BucketedDataset(utts, vocab, args.batch_size,
+                         sample_rate=args.sample_rate,
+                         bucket_boundaries=args.bucket_boundaries or ())
+    tr = PretrainTrainer(mcfg, pcfg, feat_cfg, device=args.device)
+    tr.init_state(seed=0)
+    tr.train(ds, args.epochs)
+    if args.save:
+        tr.save(args.save)
+    return 0
 
 
 def cmd_parity(args) -> int:

@@ -240,6 +240,39 @@ class NSTConfig:
     noise_std: float = 0.01
 
 
+@_frozen
+class PretrainConfig:
+    """wav2vec-2.0-style contrastive pretraining (`models/pretrain.py`)."""
+
+    learning_rate: float = 3e-5
+    epochs: int = 100
+    mask_probability: float = 0.065
+    mask_value: float = 0.0
+    target_dim: int = 320  # the BiLSTM decoder's output width: H = target_dim // 2
+    distractors_k: int = 5
+    temperature: float = 0.1
+    diversity_alpha: float = 0.1
+    use_gumbel_quantizer: bool = False
+    gumbel_tau: float = 2.0
+
+
+@_frozen
+class LMConfig:
+    """Transformer encoder-decoder LM over pronunciation→word streams
+    (`models/lm.py`)."""
+
+    vocab_size: int = 256
+    num_encoder_layers: int = 4
+    num_decoder_layers: int = 4
+    embed_dim: int = 320
+    num_heads: int = 8
+    ffn_dim: int = 512
+    max_len: int = 20
+    dropout: float = 0.1
+    epochs: int = 3
+    ngram: int = 2  # shallow-fusion context
+
+
 def resolve_compute_dtype(config: ModelConfig, device: torch.device) -> torch.dtype:
     """bfloat16 on CUDA and float32 on the CPU for 'auto'; explicit values
     are honoured on every device."""

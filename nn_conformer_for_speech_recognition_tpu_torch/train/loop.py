@@ -18,9 +18,15 @@ first CUDA device unless the caller asks for ``device="cpu"``.
 
 Not ported, as TPU scheduler workarounds: the ``optimization_barrier``
 fence between the augment and train halves and the hardware-RNG dropout
-key.  Not ported yet, and refused with ``NotImplementedError``: shallow LM
-fusion, a device mesh or sequence parallelism, and device-resident datasets
-with the whole-epoch scan.
+key.  Not ported yet, and refused with ``NotImplementedError``: a device
+mesh or sequence parallelism, and device-resident datasets with the
+whole-epoch scan.
+
+Shallow LM fusion: ``lm_apply`` (context ids → LM logits, e.g.
+`models.lm.make_pron_lm_apply`) given to `make_eval_step`,
+`make_eval_beam_step` or `Trainer` adds ``lm_weight`` times the LM's
+log-probs to the model's (`models.lm.shallow_fusion`) before the CTC loss
+and the decode; the CTC takes the fused scores as they are, unnormalised.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import Batch, B
 from nn_conformer_for_speech_recognition_tpu_torch.data.native_loader import PrefetchIterator
 from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
 from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import MaskedBatchNorm
+from nn_conformer_for_speech_recognition_tpu_torch.models.lm import shallow_fusion
 from nn_conformer_for_speech_recognition_tpu_torch.ops.ctc import ctc_loss
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.ctc import ctc_loss_kernel
 from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import ctc_beam_search, greedy_decode
@@ -170,12 +177,18 @@ def make_train_step(
 
 
 def make_eval_step(
-    model: ConformerCTC, feat_cfg: FeatureConfig, blank_id: int, pad_id: int, ctc_impl: str = "auto"
+    model: ConformerCTC,
+    feat_cfg: FeatureConfig,
+    blank_id: int,
+    pad_id: int,
+    lm_apply: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    lm_weight: float = 0.3,
+    ctc_impl: str = "auto",
 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Returns ``eval_step(audio, audio_lengths, targets, target_lengths)
-    → (loss, ids, out_lengths)``: eval-mode forward, the train step's loss,
-    greedy ids (``pad_id`` beyond each row's length).  Shallow LM fusion
-    is not ported yet."""
+    → (loss, ids, out_lengths)``: eval-mode forward, with ``lm_apply``
+    shallow LM fusion, the train step's loss, greedy ids (``pad_id`` beyond
+    each row's length)."""
     featurize = make_featurizer(feat_cfg)
     ctc = _select_ctc(ctc_impl)
 
@@ -184,6 +197,8 @@ def make_eval_step(
         model.eval()
         feats, frame_lengths = featurize(audio, audio_lengths)
         log_probs, out_lengths = model(feats, frame_lengths)
+        if lm_apply is not None:
+            log_probs = shallow_fusion(log_probs, lm_apply, lm_weight)
         loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id)
         return loss, greedy_decode(log_probs, out_lengths, pad_id=pad_id), out_lengths
 
@@ -242,12 +257,14 @@ def make_eval_beam_step(
     beam: int = 8,
     prune: int = 16,
     max_label_len: int = 64,
+    lm_apply: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    lm_weight: float = 0.3,
     ctc_impl: str = "auto",
 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Returns ``step(audio, audio_lengths, targets, target_lengths) →
     (loss, tokens (B, max_label_len), lengths (B,))``: the eval step's loss
-    and the beam search's 1-best from the log-probs of one forward.
-    Shallow LM fusion is not ported yet."""
+    and the beam search's 1-best from the log-probs of one forward (fused
+    with the LM's where ``lm_apply`` is given)."""
     featurize = make_featurizer(feat_cfg)
     ctc = _select_ctc(ctc_impl)
 
@@ -256,12 +273,28 @@ def make_eval_beam_step(
         model.eval()
         feats, frame_lengths = featurize(audio, audio_lengths)
         log_probs, out_lengths = model(feats, frame_lengths)
+        if lm_apply is not None:
+            log_probs = shallow_fusion(log_probs, lm_apply, lm_weight)
         loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id)
         toks, lens, _ = ctc_beam_search(
             log_probs, out_lengths, blank_id=blank_id, beam=beam, prune=prune, max_label_len=max_label_len)
         return loss, toks[:, 0], lens[:, 0]
 
     return step
+
+
+def mean_of_steps(losses: List[torch.Tensor]) -> float:
+    """The mean of per-step losses, pulled from the device at once and
+    summed on the host (the JAX trainers' ``total += float(loss)``)."""
+    pulled = torch.stack(losses).cpu().numpy() if losses else np.zeros((0,), np.float32)
+    return sum(float(x) for x in pulled) / max(len(pulled), 1)
+
+
+def refuse_mesh(mesh, mesh_cfg: MeshConfig) -> None:
+    """The port runs on one device: a mesh, model parallelism, sequence
+    parallelism or kernel sharding raises."""
+    if mesh is not None or mesh_cfg.model_parallel_size != 1 or mesh_cfg.seq_parallel or mesh_cfg.shard_map_kernels:
+        raise NotImplementedError("a device mesh or seq_parallel is not ported yet: Multi-GPU")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -280,7 +313,8 @@ class Trainer:
     """Host-side orchestration: epochs, metrics, checkpoints, NST labelling.
 
     ``model`` is moved to ``device`` (the first CUDA device by default;
-    ``device="cpu"`` for the CPU).  The train state lives in the model (its
+    ``device="cpu"`` for the CPU).  ``lm_apply`` and ``lm_weight`` fuse an
+    LM into `evaluate` (both decodes), as in `make_eval_step`.  The train state lives in the model (its
     parameters and batch statistics), the optimizer and `TrainState`;
     assigning a state that holds another model (a deep copy kept by
     `run_nst`) makes that model the trainer's.
@@ -300,16 +334,14 @@ class Trainer:
         lm_weight: float = 0.3,
         device=None,
     ):
-        if lm_apply is not None:
-            raise NotImplementedError("shallow LM fusion (lm_apply) is not ported yet: LM and pretraining")
-        if mesh is not None or mesh_cfg.model_parallel_size != 1 or mesh_cfg.seq_parallel or mesh_cfg.shard_map_kernels:
-            raise NotImplementedError("a device mesh or seq_parallel is not ported yet: Multi-GPU")
+        refuse_mesh(mesh, mesh_cfg)
         self.device = resolve_device(device)
         self.vocab = vocab
         self.feat_cfg = feat_cfg
         self.train_cfg = train_cfg
         self.mesh_cfg = mesh_cfg
         self.log = log_fn
+        self.lm_apply, self.lm_weight = lm_apply, lm_weight
         self.opt_cfg = train_cfg.optimizer
         if learning_rate is not None:
             self.opt_cfg = dataclasses.replace(self.opt_cfg, learning_rate=learning_rate)
@@ -329,10 +361,11 @@ class Trainer:
         # noise_std), so that a caller (the NST retrain) can override the
         # augmentation per train() call
         self._step_cache: Dict[Tuple[bool, float], Callable] = {}
-        self._eval_step = make_eval_step(model, self.feat_cfg, blank, pad, ctc_impl=cfg.ctc_impl)
+        lm = dict(lm_apply=self.lm_apply, lm_weight=self.lm_weight)
+        self._eval_step = make_eval_step(model, self.feat_cfg, blank, pad, ctc_impl=cfg.ctc_impl, **lm)
         self._eval_beam_step = make_eval_beam_step(
             model, self.feat_cfg, blank, beam=cfg.beam, prune=cfg.prune, max_label_len=cfg.max_label_len,
-            ctc_impl=cfg.ctc_impl)
+            ctc_impl=cfg.ctc_impl, **lm)
         self._predict_step = make_predict_step(model, self.feat_cfg, pad)
 
     @property

@@ -1,4 +1,4 @@
-"""Adafactor and learning-rate schedules, port of
+"""Adafactor, Adam, AdamW and learning-rate schedules, port of
 `nn_conformer_for_speech_recognition_tpu/train/optim.py`.
 
 The JAX package calls ``optax.adafactor(learning_rate,
@@ -20,6 +20,11 @@ nor a clipping threshold).  Per parameter, in order:
 The two largest axes are picked on the JAX package's layout of each
 parameter (`convert.flax_axes`), so a Linear or Conv weight, stored
 transposed here, is factored over the same logical axes as in optax.
+
+`Adam` is ``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0, both
+moments debiased) and, with a weight decay, ``optax.adamw``: the decay
+``rate * param`` is added to the Adam update before the learning rate
+scales it.  Both are elementwise, so their state keeps the port's layout.
 """
 
 from __future__ import annotations
@@ -139,16 +144,69 @@ class Adafactor:
         self.count += 1
 
 
-def make_optimizer(cfg: OptimizerConfig, named_params: Iterable[Tuple[str, torch.nn.Parameter]]) -> Adafactor:
+class Adam:
+    """Adam over named parameters, updated in place from their ``.grad`` by
+    `step`; ``weight_decay`` makes it AdamW.  State per parameter: the first
+    and second moments ``mu`` and ``nu``."""
+
+    def __init__(
+        self,
+        named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+        learning_rate: Schedule,
+        *,
+        b1: float = 0.9,
+        b2: float = 0.999,
+        eps: float = 1e-8,
+        weight_decay: Optional[float] = None,
+    ):
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.count = 0
+        self.params = []
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, p in named_params:
+            self.params.append((name, p))
+            self.state[name] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+
+    @torch.no_grad()
+    def step(self) -> None:
+        lr = self.learning_rate(self.count) if callable(self.learning_rate) else self.learning_rate
+        t = np.float32(self.count + 1)
+        # optax debiases in float32: 1 - decay ** count
+        debias_mu = float(np.float32(1.0) - np.float32(self.b1) ** t)
+        debias_nu = float(np.float32(1.0) - np.float32(self.b2) ** t)
+        for name, p in self.params:
+            if p.grad is None:
+                raise RuntimeError(f"Adam: {name} has no gradient")
+            st, g = self.state[name], p.grad
+            st["mu"] = (1.0 - self.b1) * g + self.b1 * st["mu"]
+            st["nu"] = (1.0 - self.b2) * (g * g) + self.b2 * st["nu"]
+            u = (st["mu"] / debias_mu) / (torch.sqrt(st["nu"] / debias_nu) + self.eps)
+            if self.weight_decay is not None:
+                u = u + self.weight_decay * p
+            p.add_(-(lr * u))
+        self.count += 1
+
+
+# optax.adamw's default weight decay
+ADAMW_WEIGHT_DECAY = 1e-4
+
+
+def make_optimizer(cfg: OptimizerConfig, named_params: Iterable[Tuple[str, torch.nn.Parameter]]):
     """The optimizer of ``cfg`` over ``named_params`` (e.g.
-    ``model.named_parameters()``).  Only Adafactor, the train step's
-    optimizer, is ported; Adam and AdamW serve the pretraining path."""
-    if cfg.name != "adafactor":
-        raise NotImplementedError(f"optimizer {cfg.name!r} is not ported yet")
-    return Adafactor(
-        named_params,
-        make_schedule(cfg),
-        momentum=cfg.momentum,
-        clipping_threshold=cfg.clip_threshold,
-        weight_decay_rate=cfg.weight_decay or None,
-    )
+    ``model.named_parameters()``): 'adafactor' (the train step's), 'adam'
+    (pretraining's) or 'adamw' (decay ``cfg.weight_decay``)."""
+    lr = make_schedule(cfg)
+    if cfg.name == "adafactor":
+        return Adafactor(
+            named_params,
+            lr,
+            momentum=cfg.momentum,
+            clipping_threshold=cfg.clip_threshold,
+            weight_decay_rate=cfg.weight_decay or None,
+        )
+    if cfg.name == "adam":
+        return Adam(named_params, lr)
+    if cfg.name == "adamw":
+        return Adam(named_params, lr, weight_decay=cfg.weight_decay)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -12,23 +12,23 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+from typing import Union
 
 import torch
 
-from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
-from nn_conformer_for_speech_recognition_tpu_torch.train.optim import Adafactor
+from nn_conformer_for_speech_recognition_tpu_torch.train.optim import Adafactor, Adam
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: ConformerCTC
-    optimizer: Adafactor
+    model: torch.nn.Module
+    optimizer: Union[Adafactor, Adam]
     generator: torch.Generator
     seed: int
     step: int = 0
 
     @classmethod
-    def create(cls, model: ConformerCTC, optimizer: Adafactor, seed: int) -> "TrainState":
+    def create(cls, model: torch.nn.Module, optimizer: Union[Adafactor, Adam], seed: int) -> "TrainState":
         device = next(model.parameters()).device
         generator = torch.Generator(device=device).manual_seed(seed)
         return cls(model=model, optimizer=optimizer, generator=generator, seed=seed)

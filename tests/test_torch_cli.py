@@ -173,7 +173,7 @@ def test_parser_has_the_jax_flags_plus_device():
 @pytest.mark.parametrize(
     "argv, match",
     [
-        (["pretrain"], "item 12"),
+        (["pretrain", "--model-parallel", "2"], "--model-parallel.*item 13"),
         (["benchmark"], "item 9"),
         (["train", "--model-parallel", "2"], "--model-parallel.*item 13"),
         (["eval", "--seq-parallel"], "--seq-parallel.*item 13"),

@@ -421,7 +421,7 @@ def test_lstm_backward_kernels(cuda, reverse, hidden, t):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("hidden", [37, 100, 320, 640])
+@pytest.mark.parametrize("hidden", [37, 100, 160, 320, 640])
 @pytest.mark.parametrize("b, t", [(16, 14), (16, 235), (4, 938), (3, 347)])
 def test_lstm_weight_grad_kernel(cuda, b, t, hidden, reverse):
     """dW_hh on the tensor cores (3×TF32, split over the B·T rows) against
@@ -495,13 +495,13 @@ def _bilstm_case(gen, b, t, hidden):
 @pytest.mark.parametrize("save", [False, True])
 @pytest.mark.parametrize("t", [1, 14, 235, 938])
 @pytest.mark.parametrize("b", [1, 4, 16, 17, 33])
-@pytest.mark.parametrize("hidden", [13, 16, 320])
+@pytest.mark.parametrize("hidden", [13, 16, 160, 320])
 def test_lstm_cluster_forward_kernel(cuda, hidden, b, t, save):
     """The cluster forward, both template variants, against the twin for
     each direction: one launch for both directions, and each direction
     alone, bit-equal to it.  H = 13 does not divide by the 16 CTAs (the
     last ones own no unit); B = 17 and 33 take a second and third 16-row
-    tile (the third of one row)."""
+    tile (the third of one row); H = 160 is the pretraining decoder's."""
     xws, w_hhs, lengths = _bilstm_case(cuda, b, t, hidden)
     before = L.lstm_forward_cluster.launches
     both = L.lstm_forward_directions(xws, w_hhs, lengths, (False, True), save=save)
@@ -518,7 +518,7 @@ def test_lstm_cluster_forward_kernel(cuda, hidden, b, t, save):
 
 @pytest.mark.parametrize("t", [1, 14, 235, 938])
 @pytest.mark.parametrize("b", [1, 4, 16, 17, 33])
-@pytest.mark.parametrize("hidden", [13, 16, 320])
+@pytest.mark.parametrize("hidden", [13, 16, 160, 320])
 def test_lstm_cluster_backward_kernel(cuda, hidden, b, t):
     """The cluster BPTT against the twin for each direction, from the
     twin's saved gates and c: one launch for both directions, each
@@ -536,6 +536,42 @@ def test_lstm_cluster_backward_kernel(cuda, hidden, b, t):
     for i, reverse in enumerate((False, True)):
         _close(both[i], L.lstm_backward_plain(gouts[i], gates[i], cs[i], w_hhs[i], lengths, reverse), 1e-4)
         assert torch.equal(both[i], again[i]) and torch.equal(both[i], alone[i])
+
+
+@pytest.mark.parametrize("b, t", [(16, 14), (16, 28), (16, 235)])
+def test_pretrain_decoder_trains_through_the_cluster_kernels(cuda, b, t):
+    """The pretraining model's decoder, `BiLSTM` from Conformer-M's width
+    256 to H = 160 (``PretrainConfig().target_dim // 2``), at the pretrain
+    step's and the pretrain command's shapes: its output and the gradients
+    of every parameter and of x equal those of the plain loop's autograd,
+    through one cluster forward, one cluster backward and two dW_hh launches
+    (the grid route takes none)."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import PretrainConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import BiLSTM, init_params
+
+    hidden = PretrainConfig().target_dim // 2
+    assert L.route(b, hidden, torch.device("cuda"))[0] == "cluster"
+    lstm = init_params(BiLSTM(256, hidden), torch.Generator().manual_seed(0)).cuda()
+    x = torch.randn(b, t, 256, generator=cuda).cuda()
+    lengths = torch.randint(1, t + 1, (b,), generator=cuda).to(torch.int32).cuda()
+    lengths[0] = t
+    r = torch.randn(b, t, 2 * hidden, generator=cuda).cuda()
+    runs = []
+    for use_kernel in (True, False):
+        lstm.use_kernel = use_kernel
+        lstm.zero_grad(set_to_none=True)
+        leaf = x.clone().requires_grad_(True)
+        before = [k.launches for k in LSTM_COUNTERS]
+        out = lstm(leaf, lengths)
+        valid = (torch.arange(t, device="cuda")[None, :] < lengths[:, None])[..., None]
+        (out * r * valid).sum().backward()
+        runs.append((out.detach() * valid, [leaf.grad] + [p.grad for p in lstm.parameters()],
+                     [k.launches - n for k, n in zip(LSTM_COUNTERS, before)]))
+    (out, grads, counts), (out_ref, grads_ref, counts_ref) = runs
+    assert counts == [1, 1, 2, 0, 0] and counts_ref == [0, 0, 0, 0, 0]
+    _close(out, out_ref, 1e-4)
+    for g, ref in zip(grads, grads_ref):
+        _close(g, ref, 1e-4 * max(1.0, ref.abs().max().item()))
 
 
 def test_lstm_two_directions_differentiate_in_one_launch_each(cuda):

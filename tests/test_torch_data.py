@@ -1,8 +1,10 @@
 """The port's copies of the host-side data modules against the originals:
 the synthetic corpus (same seed → the same WAV bytes and manifests), the
 bucketed dataset's epoch stream batch for batch, the pseudo-label filter,
-the WER functions and both vocabularies.  Everything here is exact: the
-copies are numpy and the standard library on both sides.
+the WER functions, both vocabularies and the LM corpus (lexicon,
+segmentation, book-text cleaning, phoneme vocabulary, ``LMCorpus.batches``
+for a seed).  Everything here is exact: the copies are numpy and the
+standard library on both sides.
 """
 
 import filecmp
@@ -13,10 +15,12 @@ import pytest
 
 from nn_conformer_for_speech_recognition_tpu.data import audio as JA
 from nn_conformer_for_speech_recognition_tpu.data import datasets as JD
+from nn_conformer_for_speech_recognition_tpu.data import lm_corpus as JLC
 from nn_conformer_for_speech_recognition_tpu.data import vocab as JV
 from nn_conformer_for_speech_recognition_tpu.train import metrics as JM
 from nn_conformer_for_speech_recognition_tpu_torch.data import audio as TA
 from nn_conformer_for_speech_recognition_tpu_torch.data import datasets as TD
+from nn_conformer_for_speech_recognition_tpu_torch.data import lm_corpus as TLC
 from nn_conformer_for_speech_recognition_tpu_torch.data import vocab as TV
 from nn_conformer_for_speech_recognition_tpu_torch.data.native_loader import PrefetchIterator
 from nn_conformer_for_speech_recognition_tpu_torch.train import metrics as TM
@@ -176,3 +180,48 @@ def test_prefetch_iterator_keeps_order_and_surfaces_errors():
     assert next(it) == 1
     with pytest.raises(KeyError):
         next(it)
+
+
+# the JAX tests' lexicon (tests/test_lm_corpus.py)
+LEXICON = {"go": ["G", "OW"], "stop": ["S", "T", "AA", "P"], "up": ["AH", "P"], "down": ["D", "AW", "N"], "a": ["AH"]}
+
+
+@pytest.mark.parametrize("word", ["go", "STOP", "goup", "xgo", "downup", "qqq", ""])
+def test_lexicon_copy_equal(tmp_path, word):
+    ours, ref = TLC.Lexicon(LEXICON), JLC.Lexicon(LEXICON)
+    assert ours.segment_word(word) == ref.segment_word(word)
+    assert ours.pronounce(word) == ref.pronounce(word)
+    sentence = f"Go, {word} stop!  a"
+    assert ours.pronounce_sentence(sentence) == ref.pronounce_sentence(sentence)
+    ours.save(str(tmp_path / "ours.txt"))
+    ref.save(str(tmp_path / "ref.txt"))
+    assert filecmp.cmp(tmp_path / "ours.txt", tmp_path / "ref.txt", shallow=False)
+    assert TLC.Lexicon.load(str(tmp_path / "ref.txt")).entries == JLC.Lexicon.load(str(tmp_path / "ours.txt")).entries
+
+
+def test_clean_book_text_and_phoneme_vocab_copy_equal():
+    lines = ["CHAPTER ONE", "XIV.", "", "Hello, World! This is a sentence.", " ".join(["word"] * 40),
+             "THE END OF A VERY LONG HEADING THAT GOES ON AND ON", "  mixed Case line; with 'quotes'  "]
+    for max_len in (20, 3):
+        assert TLC.clean_book_text(lines, max_len) == JLC.clean_book_text(lines, max_len)
+    ours, ref = TLC.build_phoneme_vocab(TLC.Lexicon(LEXICON)), JLC.build_phoneme_vocab(JLC.Lexicon(LEXICON))
+    assert ours.tokens == ref.tokens and ours.index == ref.index
+
+
+@pytest.mark.parametrize("seed, shuffle", [(0, True), (3, True), (None, False)])
+def test_lm_corpus_batches_copy_equal(rng, seed, shuffle):
+    """The same (src, src_len, tgt, tgt_len) batches, the last one padded
+    with empty rows, for one seed (``np.random.default_rng(seed)`` on both
+    sides)."""
+    words = ["go", "stop", "up", "down", "a", "goup", "zz"]
+    sentences = [" ".join(rng.choice(words, size=rng.integers(1, 8))) for _ in range(19)] + ["zz", ""]
+    vocab_words = ["<blank>", "<pad>", "<unk>", "go", "stop", "up", "down", "a"]
+    ours = TLC.LMCorpus(sentences, TLC.Lexicon(LEXICON), TV.WordVocab(vocab_words), max_src_len=9, max_tgt_len=5)
+    ref = JLC.LMCorpus(sentences, JLC.Lexicon(LEXICON), JV.WordVocab(vocab_words), max_src_len=9, max_tgt_len=5)
+    assert len(ours) == len(ref) == 19 and ours.examples == ref.examples
+    got, want = list(ours.batches(4, seed=seed, shuffle=shuffle)), list(ref.batches(4, seed=seed, shuffle=shuffle))
+    assert len(got) == len(want) == 5 and int(got[-1][1][-1]) == 0
+    for a, b in zip(got, want):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)

@@ -1,5 +1,6 @@
-"""The port's hand-written Adafactor and schedule against the JAX package's
-``make_optimizer`` (``optax.adafactor``) and ``make_schedule``.
+"""The port's hand-written Adafactor, Adam and AdamW and its schedule
+against the JAX package's ``make_optimizer`` (``optax.adafactor``,
+``optax.adam``, ``optax.adamw``) and ``make_schedule``.
 
 Five steps on identical gradients, made with numpy in the JAX package's
 layout and transposed into the port's (Linear (out, in), Conv2d (out, in,
@@ -76,6 +77,53 @@ def test_schedule_matches_jax(cfg):
         np.testing.assert_allclose(got, float(want), rtol=1e-6, err_msg=str(step))
 
 
+@pytest.mark.parametrize(
+    "opt_cfg",
+    [dict(name="adam", learning_rate=1e-2), dict(name="adamw", learning_rate=1e-2, weight_decay=1e-2),
+     dict(name="adamw", learning_rate=1e-2), dict(name="adam", learning_rate=1e-2, schedule="transformer", warmup_steps=3)],
+    ids=["adam", "adamw", "adamw_no_decay", "adam_transformer_schedule"],
+)
+def test_adam_matches_optax(rng, opt_cfg):
+    """``make_optimizer``'s Adam and AdamW against ``optax.adam`` and
+    ``optax.adamw`` over five steps of identical gradients, parameters atol
+    1e-6 (the Adafactor bar); elementwise, so the layouts do not matter."""
+    shapes = {"w.weight": (24, 40), "b.bias": (40,), "e.weight": (7, 5, 3)}
+    init = {k: rng.standard_normal(s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32) * (1 + 3 * rng.random()) for k, s in shapes.items()}
+             for _ in range(5)]
+    tx = jax_make_optimizer(JCFG.OptimizerConfig(**opt_cfg))
+    params = {k: jnp.asarray(v) for k, v in init.items()}
+    state = tx.init(params)
+    for g in grads:
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in g.items()}, state, params)
+        params = optax.apply_updates(params, updates)
+    torch_params = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in init.items()}
+    opt = make_optimizer(TCFG.OptimizerConfig(**opt_cfg), torch_params.items())
+    for g in grads:
+        for k in shapes:
+            torch_params[k].grad = torch.from_numpy(g[k])
+        opt.step()
+    assert opt.count == 5 and set(opt.state["w.weight"]) == {"mu", "nu"}
+    for k in shapes:
+        assert np.abs(np.asarray(params[k]) - init[k]).max() > 1e-3, k
+        np.testing.assert_allclose(torch_params[k].detach().numpy(), np.asarray(params[k]), atol=1e-6, err_msg=k)
+
+
+def test_adamw_default_decay_is_optax_default():
+    """``LMTrainer`` uses ``optax.adamw(lr)``: its default decay is the port's."""
+    import inspect
+
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import ADAMW_WEIGHT_DECAY
+
+    assert inspect.signature(optax.adamw).parameters["weight_decay"].default == ADAMW_WEIGHT_DECAY
+
+
 def test_only_adafactor_is_ported():
-    with pytest.raises(NotImplementedError):
-        make_optimizer(TCFG.OptimizerConfig(name="adam"), [])
+    """Every optimizer name of the JAX package is built; an unknown one is
+    refused with the JAX package's ValueError."""
+    for name in ("adafactor", "adam", "adamw"):
+        make_optimizer(TCFG.OptimizerConfig(name=name), [])
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        make_optimizer(TCFG.OptimizerConfig(name="sgd"), [])
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        jax_make_optimizer(JCFG.OptimizerConfig(name="sgd"))

@@ -242,8 +242,6 @@ def test_what_is_not_ported_raises(corpus):
     with pytest.raises(NotImplementedError, match="device-resident"):
         tr.train(Resident(), 1)
     model, cfgs = tr.model, (tr.vocab, tr.feat_cfg, tr.train_cfg)
-    with pytest.raises(NotImplementedError, match="LM"):
-        type(tr)(model, *cfgs, lm_apply=lambda ids: ids, device="cpu")
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         type(tr)(model, *cfgs, mesh_cfg=TC.MeshConfig(seq_parallel=True), device="cpu")
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
