@@ -129,7 +129,22 @@ the checkout at TREE, this one by default: see `ctc_times_main`;
    the bf16 one timed against the unfused; `fuse_lm_weights_into_asr` on
    the card; then ``pretrain`` and ``train --encoder-checkpoint`` on the
    command line.
-13. Prints one JSON line with each kernel's numbers, then, as the last line,
+13. Device-resident data (Conformer-M, bf16, B=16, a corpus of 64 seeded
+   clips of 28-30 s with 100-word transcripts, vocabulary 1024, written to
+   a temporary directory): the native WAV decode against the pure-Python
+   one, sample for sample and through ``BucketedDataset.make_batch``;
+   ``DeviceResidentDataset`` on the card; ``Trainer.train`` over it (one
+   call of the epoch step an order row) against
+   ``Trainer.train_device_epochs`` (one call an epoch) from one seed, every
+   loss and state tensor bit-equal; one fused epoch under
+   ``torch.cuda.set_sync_debug_mode('error')``; then each route's ms/step,
+   audio-s/s, device ms and busy share over an epoch, beside the stepwise
+   ``train`` over the host dataset.  Then the encoder variants at
+   Conformer-M's size (``use_relative_attention=False``; ``conv_norm``
+   'groupnorm' and 'layernorm' under ``conv_impl`` 'auto' and 'pallas'):
+   the float32 pass, kernel path against plain path, and three bf16 train
+   steps with the loss falling.
+14. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
@@ -2737,6 +2752,345 @@ F2_GROUPS = ("final_fc", "BiLSTM w_hh (lstm_dwhh)", "BiLSTM w_ih, bias", "projec
              "subsampling convs")
 
 
+# The resident phase: a corpus of 64 seeded clips of 28-30 s, each with a transcript of 100 words over a lexicon that
+# makes vocabulary 1024 (the 30 s step's target shape), one bucket of 480,000 samples: 4 steps an epoch at B=16
+RESIDENT_CLIPS, RESIDENT_WORDS, RESIDENT_EPOCHS = 64, 100, 2
+
+
+def resident_corpus(root: str):
+    """``RESIDENT_CLIPS`` 16-bit WAVs (three tones and noise, 28-30 s, the
+    first 30 s) under ``root`` with their transcripts: every word of a
+    lexicon of VOCAB - 3 words is said at least once."""
+    from nn_conformer_for_speech_recognition_tpu_torch.data.audio import write_wav
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import Utterance
+
+    rng = np.random.default_rng(SEED + 16)
+    lexicon = [f"w{i}" for i in range(VOCAB - 3)]
+    utts = []
+    for i in range(RESIDENT_CLIPS):
+        n = int(SECONDS * 16000) if i == 0 else int(rng.integers(int(SECONDS * 16000) * 14 // 15, int(SECONDS * 16000) + 1))
+        t = np.arange(n) / 16000.0
+        freqs = 100.0 + 3000.0 * rng.random(3)
+        x = 0.1 * np.sin(2 * np.pi * freqs[:, None] * t).sum(axis=0) + 0.05 * rng.standard_normal(n)
+        path = os.path.join(root, f"clip{i:03d}.wav")
+        write_wav(path, x.astype(np.float32), 16000)
+        words = [lexicon[(i * RESIDENT_WORDS + j) % len(lexicon)] for j in range(RESIDENT_WORDS)]
+        rng.shuffle(words)
+        utts.append(Utterance(path, " ".join(words)))
+    return utts
+
+
+@contextlib.contextmanager
+def python_decoder():
+    """The WAV decoder as on a machine without a compiler."""
+    from nn_conformer_for_speech_recognition_tpu_torch.data import native_loader
+
+    load = native_loader._load_native
+    native_loader._load_native = lambda: None
+    try:
+        yield
+    finally:
+        native_loader._load_native = load
+
+
+def profiled_epoch(fn) -> tuple:
+    """(device ms, device launches) of one call of ``fn`` under
+    ``torch.profiler``, tracing the card's activity alone (kernels and
+    copies; without the host's op rows, which cost the trace most of its
+    time and repeat their kernels' time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ms = sum(e.self_device_time_total for e in rows) / 1e3
+    check(ms > 0, "the profiler recorded no device time")
+    return ms, sum(e.count for e in rows)
+
+
+def check_resident(card: str) -> dict:
+    """Device-resident data and the whole-epoch step at full width: the
+    native WAV decode against the pure-Python one (sample for sample, and
+    `BucketedDataset.make_batch` over each), `DeviceResidentDataset` on the
+    card, then Conformer-M (bf16, ``use_pallas=True``, ``conv_impl='auto'``,
+    Adafactor as the 30 s step, SpecAugment and dropout on) trained from one
+    seed by ``Trainer.train`` over it (one call of the epoch step a row) and
+    by ``Trainer.train_device_epochs`` (one call an epoch): every loss,
+    parameter, batch statistic and optimizer slot bit-equal.  One further
+    fused epoch runs with ``torch.cuda.set_sync_debug_mode('error')``: a
+    call that waits for the card inside it raises.  Then each route's
+    ms/step, audio-s/s, device ms and busy share over one epoch, beside the
+    stepwise ``train`` over the host `BucketedDataset` of the same corpus.
+    Returns the launch counts of the fused route's two epochs."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, TrainConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.data import native_loader
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset
+    from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import DeviceResidentDataset
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+    from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import sinusoidal_rel_positions
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+
+    n_samples = int(SECONDS * 16000)
+    check((BATCH, T_SUB) in KERNEL_SHAPES_CHECKED, "the kernel phases did not run at the resident batches' shape")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        utts = resident_corpus(root)
+        vocab = build_vocab("word", [u.transcript for u in utts])
+        check(len(vocab) == VOCAB, f"the resident corpus makes vocabulary {len(vocab)}")
+        corpus_s = time.perf_counter() - t0
+
+        # -- the native decode against the pure-Python one
+        check(native_loader.native_available(), "the native WAV decoder did not build on this machine")
+        paths = [u.audio_path for u in utts]
+        decoded, seconds = {}, {}
+        for branch in ("native", "python"):
+            out, lens = np.zeros((len(paths), n_samples), np.float32), np.zeros((len(paths),), np.int32)
+            with python_decoder() if branch == "python" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                native_loader.decode_batch(paths, out, lens)
+                seconds[branch] = time.perf_counter() - t0
+            decoded[branch] = out, lens
+        check(np.array_equal(decoded["native"][0], decoded["python"][0])
+              and np.array_equal(decoded["native"][1], decoded["python"][1]), "the two WAV decodes disagree")
+        audio_s = float(decoded["native"][1].sum()) / 16000
+        print(f"resident corpus: {len(paths)} clips, {audio_s:.1f} audio-s, vocabulary {len(vocab)}, written in "
+              f"{corpus_s:.2f} s; decode_batch of all clips: native {seconds['native']:.3f} s, pure Python "
+              f"{seconds['python']:.3f} s, equal sample for sample")
+
+        def host_dataset(cache_audio: bool):
+            return BucketedDataset(utts, vocab, BATCH, bucket_boundaries=[n_samples], max_target_len=RESIDENT_WORDS,
+                                   cache_audio=cache_audio)
+
+        idx = np.arange(BATCH) * 3 % len(utts)
+        batches = {}
+        for branch in ("native", "python"):
+            with python_decoder() if branch == "python" else contextlib.nullcontext():
+                ds = host_dataset(False)
+                t0 = time.perf_counter()
+                batches[branch] = ds.make_batch(idx, n_samples)
+                seconds[branch] = time.perf_counter() - t0
+        check(all(np.array_equal(getattr(batches["native"], k), getattr(batches["python"], k))
+                  for k in ("audio", "audio_lengths", "targets", "target_lengths", "indices")),
+              "make_batch differs between the two decodes")
+        check(bool((batches["native"].target_lengths == RESIDENT_WORDS).all()), "a clip has not 100 targets")
+        print(f"make_batch of {BATCH} clips (cache off): native {seconds['native'] * 1e3:.1f} ms, pure Python "
+              f"{seconds['python'] * 1e3:.1f} ms, equal")
+
+        # -- the resident dataset on the card
+        host = host_dataset(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev = DeviceResidentDataset(host)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        arrays = dev.device_arrays()
+        check(all(x.device.type == "cuda" for x in arrays), "the resident tensors are not on the card")
+        steps = dev.num_batches()
+        print(f"DeviceResidentDataset: {nbytes(*arrays) / 1e6:.1f} MB resident ({len(dev)} clips × {n_samples} "
+              f"samples, float32), built in {build_s:.2f} s; {steps} steps an epoch at B={BATCH}")
+
+        def trainer():
+            train_cfg = TrainConfig(batch_size=BATCH, log_every=0)
+            tr = Trainer(ConformerCTC(conformer_m(use_pallas=True), len(vocab)), vocab, FeatureConfig(), train_cfg,
+                         log_fn=lambda msg: None)
+            tr.init_state(seed=SEED)
+            return tr
+
+        def state_tensors(tr):
+            out = {f"model.{k}": v for k, v in tr.model.state_dict().items()}
+            out.update({f"opt.{n}.{k}": v for n, slots in tr.state.optimizer.state.items() for k, v in slots.items()})
+            return out
+
+        # -- the two routes from one seed, bit for bit
+        per_step, fused = trainer(), trainer()
+        reset_counters()
+        per_step.train(dev, epochs=RESIDENT_EPOCHS)
+        per_step_launches = read_counters()
+        reset_counters()
+        fused.train_device_epochs(dev, epochs=RESIDENT_EPOCHS)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        n = RESIDENT_EPOCHS * steps
+        expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, "lstm": n, "lstm_backward": n,
+                    "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n}
+        print(f"launch counts over {RESIDENT_EPOCHS} fused epochs ({n} steps): {launches}")
+        check(launches == expected and per_step_launches == expected, f"resident launch counts, want {expected}")
+        a, b = state_tensors(per_step), state_tensors(fused)
+        differ = [k for k in a if not torch.equal(a[k], b[k])]
+        losses = fused.history["train_loss"]
+        print(f"resident routes, {RESIDENT_EPOCHS} epochs: losses fused {losses} / per step "
+              f"{per_step.history['train_loss']}; {len(a) - len(differ)}/{len(a)} state tensors bit-equal")
+        check(losses == per_step.history["train_loss"] and bool(np.isfinite(losses).all()), "the routes' losses differ")
+        check(not differ, f"the routes' state differs in {differ[:5]}")
+        check((fused.state.step, fused.state.optimizer.count) == (per_step.state.step, per_step.state.optimizer.count)
+              == (n, n), "the routes' step counts differ")
+        check(torch.equal(fused.state.generator.get_state(), per_step.state.generator.get_state()),
+              "the routes' SpecAugment generators differ")
+
+        # -- (b): nothing waits for the card inside a fused epoch
+        order = dev.order_matrix(seed=SEED + RESIDENT_EPOCHS)
+        epoch = fused._epoch_scan_fn()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            order_dev = fused._upload_order(order)
+            fused.state, out = epoch(fused.state, *arrays, order_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync_free = out[0].cpu().numpy()
+        # the control: under the same mode the copy that each forward used to make of the rel-pos table (from
+        # pageable host memory, before `rel_position_table` kept it on the card) raises
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.from_numpy(sinusoidal_rel_positions(T_SUB, conformer_m().encoder.d_model)).to("cuda")
+            control = "did not raise"
+        except RuntimeError as e:
+            control = f"raised ({e})"
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print(f"one fused epoch under set_sync_debug_mode('error'): no wait for the card; losses {sync_free.tolist()}; "
+              f"the control, a pageable copy of the rel-pos table under the same mode, {control}")
+        check(sync_free.shape == (steps,) and bool(np.isfinite(sync_free).all()), "the sync-checked epoch's losses")
+        check(control.startswith("raised"), "set_sync_debug_mode('error') did not catch a pageable host-to-device copy")
+
+        # -- each route's time: in turns, then one epoch of each under the profiler
+        uncached = host_dataset(False)  # the host route decodes every batch, as a corpus larger than memory would
+        routes = {"fused": lambda: fused.train_device_epochs(dev, epochs=1),
+                  "per-step": lambda: fused.train(dev, epochs=1),
+                  "host": lambda: fused.train(uncached, epochs=1)}
+        walls = {name: [] for name in routes}
+        for name in (*routes, *reversed(routes)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            routes[name]()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        epoch_audio = float(host._lengths.sum()) / 16000
+        for name, fn in routes.items():
+            device, count = profiled_epoch(fn)
+            wall = float(np.mean(walls[name]))
+            print(f"resident phase, {name} route (Conformer-M bf16, B={BATCH}, {steps} steps an epoch): "
+                  + " / ".join(f"{w / steps * 1e3:.2f}" for w in walls[name]) + f" ms/step, "
+                  + " / ".join(f"{epoch_audio / w:.1f}" for w in walls[name]) + " audio-s/s (two epochs in turns); "
+                  f"one epoch under the profiler: device {device / steps:.2f} ms/step in {count / steps:.0f} "
+                  f"launches/step, busy share {device / 1e3 / wall:.3f} of the unprofiled epoch  [{card}]")
+        check(bool(np.isfinite(fused.history["train_loss"]).all()), "a timed epoch's loss is not finite")
+    return launches
+
+
+def check_encoder_variants(card: str) -> dict:
+    """The encoder variants at Conformer-M's width and depth:
+    ``use_relative_attention=False`` (plain softmax attention, no kernel in
+    either package), ``conv_norm='groupnorm'`` and ``'layernorm'`` under
+    ``conv_impl='auto'`` (the library conv with its bias) and ``'pallas'``
+    (kernel 10, no bias).  For each: the float32 pass, kernel path against
+    the plain path from the same weights (``SLICE_*`` bars); then three bf16
+    train steps at lr 1e-3 on one batch augmented once: every gradient
+    finite and non-zero, the loss falling.  Returns the
+    launch counts of the whole phase."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import (
+        FeatureConfig, OptimizerConfig, SpecAugmentConfig, conformer_m,
+    )
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_augment_step, make_feature_train_step
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
+
+    variants = [(dict(use_relative_attention=False), "auto")] + [
+        (dict(conv_norm=norm), conv) for norm in ("groupnorm", "layernorm") for conv in ("auto", "pallas")]
+    n_samples, steps = int(SECONDS * 16000), 3
+    check((BATCH, T_SUB) in KERNEL_SHAPES_CHECKED, "the kernel phases did not run at the variants' shape")
+    audio, alen = make_batches(n_samples, BATCH, 2)[1]
+    gen = torch.Generator().manual_seed(SEED + 17)
+    targets = torch.randint(3, VOCAB, (BATCH, TARGET_LEN), generator=gen).cuda()
+    tlen = torch.full((BATCH,), TARGET_LEN).cuda()
+    alen = torch.clamp_min(alen, n_samples // 2)
+    feat_kernel, feat_plain = make_featurizer(FeatureConfig()), make_featurizer(FeatureConfig(impl="xla"))
+    augment = make_augment_step(FeatureConfig(), SpecAugmentConfig())
+    totals = {}
+    reset_counters()
+    for encoder, conv_impl in variants:
+        tag = f"{', '.join(f'{k}={v!r}' for k, v in encoder.items())}, conv_impl={conv_impl!r}"
+
+        def config(**kw):
+            cfg = conformer_m(**kw)
+            return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, **encoder))
+
+        base = init_params(ConformerCTC(config(use_pallas=True, conv_impl=conv_impl), VOCAB), gen)
+        for name, buf in base.named_buffers():  # non-trivial running statistics
+            buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + (0.75 if name.endswith("var") else -0.25))
+        weights = base.state_dict()
+
+        def model(**kw):
+            """``weights`` in a model of this variant; the library route's depthwise bias, which the kernel route
+            has not, at 0: the same function"""
+            m = ConformerCTC(config(**kw), VOCAB)
+            missing, unexpected = m.load_state_dict(weights_for(m, weights), strict=False)
+            check(not unexpected and all(k.endswith("depthwise.bias") for k in missing), f"weights of {tag}: "
+                  f"missing {missing[:3]}, unexpected {unexpected[:3]}")
+            with torch.no_grad():
+                for k in missing:
+                    m.get_parameter(k).zero_()
+            return m.cuda()
+
+        # -- float32 pass, kernel path vs plain path
+        kernel32 = model(use_pallas=True, conv_impl=conv_impl, compute_dtype="float32").eval()
+        plain32 = model(use_pallas=False, compute_dtype="float32").eval()
+        with torch.inference_mode():
+            fk, fl = feat_kernel(audio, alen)
+            lk, ol = kernel32(fk, fl)
+            lp, _ = plain32(feat_plain(audio, alen)[0], fl)
+        valid = torch.arange(lk.shape[1], device=ol.device)[None, :] < ol[:, None]
+        worst = max_abs(lk[valid], lp[valid])
+        agree = (lk.argmax(-1) == lp.argmax(-1))[valid].float().mean().item()
+        del kernel32, plain32
+
+        # -- bf16 train steps, as a user runs them
+        m = model(use_pallas=True, conv_impl=conv_impl)
+        state = TrainState.create(m, make_optimizer(OptimizerConfig(learning_rate=LOSS_LR), m.named_parameters()), SEED)
+        step = make_feature_train_step(m, blank_id=0)
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f, fl = augment(state.generator, audio, alen)  # one draw, so that three steps see the loss fall
+        for _ in range(steps):
+            state, metrics = step(state, f, fl, targets, tlen)
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        losses = [x.item() for x in losses]
+        bad = [n for n, p in m.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all()) or p.grad.abs().max().item() == 0]
+        print(f"encoder variant ({tag}), Conformer-M: f32 pass kernel vs plain path log-prob max|Δ| {worst:.3e} "
+              f"(tol {SLICE_LOGPROB_TOL}), greedy ids equal on {agree:.4%} of valid frames; bf16 train steps at lr "
+              f"{LOSS_LR}: {dt * 1e3:.2f} ms/step, loss " + " ".join(f"{x:.3f}" for x in losses) + f"  [{card}]")
+        check(worst <= SLICE_LOGPROB_TOL and agree >= SLICE_ID_AGREEMENT, f"{tag}: f32 pass of the kernel path disagrees")
+        check(not bad, f"{tag}: gradients missing, non-finite or zero: {bad[:5]}")
+        check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0], f"{tag}: the loss did not fall")
+        counts = read_counters()
+        reset_counters()
+        blocks = m.config.encoder.num_blocks
+        conv = conv_impl == "pallas"
+        # the kernel pass, then the steps: a log-mel for the pass and one for the augment draw; attention in the
+        # pass only (einsum in training at T' = 235), and none without relative positions; kernel 10 forward once a
+        # block in the pass, forward and dx a step, dw a step
+        expected = {**dict.fromkeys(counts, 0), "stft_logmel": 2, "lstm": 1 + steps, "lstm_backward": steps,
+                    "lstm_weight_grad": 2 * steps, "ctc_alpha": steps, "ctc_beta": steps,
+                    "attention_relpos": blocks if encoder.get("use_relative_attention", True) else 0,
+                    "depthwise_conv": blocks * (1 + 2 * steps) if conv else 0,
+                    "depthwise_conv_weight_grad": blocks * steps if conv else 0}
+        check(counts == expected, f"{tag}: launch counts {counts}, want {expected}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    print(f"launch counts over the encoder variants' passes and steps: {totals}")
+    return totals
+
+
 def bits(x: torch.Tensor) -> int:
     """A digest of a tensor's bits, taken on the card: the bit patterns as
     integers weighted by position, summed in int64 (exact, so the same bits
@@ -3055,6 +3409,12 @@ def main() -> None:
     new_phases_s += time.perf_counter() - t_new
     print(f"the pretraining and LM phases with the H = 160 kernel check at B=16 × 30 s took {new_phases_s:.1f} s; "
           f"the script so far {time.perf_counter() - t0:.1f} s")
+    # device-resident data with the whole-epoch step and the native WAV decode, then the encoder variants
+    t_new = time.perf_counter()
+    resident = check_resident(card)
+    variants = check_encoder_variants(card)
+    print(f"the resident and encoder-variant phases took {time.perf_counter() - t_new:.1f} s; the script so far "
+          f"{time.perf_counter() - t0:.1f} s")
     pallas = "ops/pallas"
     sources = {
         "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),
@@ -3084,13 +3444,13 @@ def main() -> None:
         "lstm_backward_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:107"),
         "lstm_weight_grad_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
     }
-    m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli, lm, cli_handoff)
+    m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli, lm, cli_handoff, resident, variants)
     l_paths = (serve_l, train_l, train_l_conv)
     p_paths = (pretrain, cli_pretrain)
     paths = (*m_paths, *l_paths, *p_paths, op)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
           "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line + the fused "
-          "evaluation + train --encoder-checkpoint, then Conformer-L's pass + 30 s train steps + 30 s train steps under "
+          "evaluation + train --encoder-checkpoint + the resident epochs + the encoder variants, then Conformer-L's pass + 30 s train steps + 30 s train steps under "
           "conv_impl='pallas', then the pretrain steps + the pretrain command, then the bias-input op: "
           f"{ {k: tuple(path.get(k, 0) for path in paths) for k in read_counters()} }")
     # (counter, paths counted) of each entry.  Conformer-L runs four kernels at other shapes than Conformer-M's,

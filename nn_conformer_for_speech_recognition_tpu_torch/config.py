@@ -117,7 +117,7 @@ class ConformerConfig:
     dropout: float = 0.5
     attention_dropout: float = 0.0
     use_relative_attention: bool = True
-    # 'batchnorm' (masked) | 'groupnorm' | 'layernorm'; the port runs batchnorm
+    # 'batchnorm' (masked) | 'groupnorm' | 'layernorm'
     conv_norm: str = "batchnorm"
 
 
@@ -289,8 +289,10 @@ def resolve_compute_dtype(config: ModelConfig, device: torch.device) -> torch.dt
 def uses_attention_kernel(config: ModelConfig) -> bool:
     """True when the config lets attention go through the rel-pos flash
     kernel wrappers (always in eval mode; in training see
-    `attention_route`)."""
-    return config.use_pallas and config.attention_impl in ("auto", "flash")
+    `attention_route`); never without relative positions, whose attention
+    has no kernel in either package."""
+    return (config.use_pallas and config.attention_impl in ("auto", "flash")
+            and config.encoder.use_relative_attention)
 
 
 # In training the two attention routes compute different things: the einsum

@@ -10,8 +10,11 @@ keyed by the port's parameter and buffer names.  Layout rules:
 * NHWC Conv kernel (kh, kw, in, out) → (out, in, kh, kw);
 * depthwise Conv kernel (K, 1, C) → (C, 1, K); the kernel route's
   ``dw_kernel`` (K, C) (``conv_impl='pallas'``) keeps its name and layout;
-* LayerNorm / MaskedBatchNorm ``scale`` → ``weight``; batch_stats
-  ``mean``/``var`` → ``running_mean``/``running_var``;
+* LayerNorm / MaskedBatchNorm / GroupNorm ``scale`` → ``weight``;
+  batch_stats ``mean``/``var`` → ``running_mean``/``running_var``; the conv
+  module's ``GroupNorm_0`` or ``LayerNorm_1`` (``conv_norm`` 'groupnorm' or
+  'layernorm') is its ``group_norm`` or ``layer_norm``, and the library
+  depthwise conv's ``bias`` there keeps its name;
 * the packed (Pallas) LSTM leaves ``lstm_{fwd,bwd}_{i}_{w_ih,w_hh,bias}``
   keep their names and layout (gates already in i, f, g, o order);
 * the flax ``OptimizedLSTMCell`` tree (the default ``use_pallas=False``
@@ -46,7 +49,9 @@ _MODULE_RENAMES = {
     "ConvSubsampling_0": {"Dense_0": "out"},
     "ffn1": {"Dense_0": "fc1", "Dense_1": "fc2"},
     "ffn2": {"Dense_0": "fc1", "Dense_1": "fc2"},
-    "conv": {"Dense_0": "pointwise_in", "Dense_1": "pointwise_out", "MaskedBatchNorm_0": "batch_norm"},
+    # the conv module's second norm: BatchNorm, or under conv_norm 'groupnorm' / 'layernorm' the others
+    "conv": {"Dense_0": "pointwise_in", "Dense_1": "pointwise_out", "MaskedBatchNorm_0": "batch_norm",
+             "GroupNorm_0": "group_norm", "LayerNorm_1": "layer_norm"},
 }
 _LEAF_RENAMES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 _INDEXED = re.compile(r"(Conv|block)_(\d+)")

@@ -18,9 +18,11 @@ Manifest makers are provided for SpeechCommands directories
 (label/*.wav with speaker-based splits) and LibriSpeech directories
 (spk/chap/*.trans.txt).
 
-Left out of the copy: the batched native WAV decode of ``make_batch`` and
-the native header probe (the JAX package's ``native/wavio.cpp``); every
-file is read through `data/audio.read_wav` and probed with ``wave``.
+Lengths are probed from the WAV headers and ``make_batch`` decodes its
+cache misses in one batched call, both through the native decoder
+(`data/native_loader`, over the repository's ``native/wavio.cpp``) where it
+builds, else through ``wave`` and `data/audio.read_wav`, with the same
+samples.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from nn_conformer_for_speech_recognition_tpu_torch.data import native_loader
 from nn_conformer_for_speech_recognition_tpu_torch.data.audio import read_wav
 
 
@@ -70,7 +73,10 @@ def save_manifest(path: str, utts: Sequence[Utterance]) -> None:
 
 @dataclasses.dataclass
 class Batch:
-    """Host-side batch; every array has the batch's static shape."""
+    """One batch; every array has the batch's static shape.  A
+    `BucketedDataset` batch holds host numpy arrays; a
+    `device_cache.DeviceResidentDataset` batch holds tensors on that
+    dataset's device, and ``indices`` as numpy."""
 
     audio: np.ndarray  # (B, S) float32, zero padded
     audio_lengths: np.ndarray  # (B,) int32; 0 for batch-padding rows
@@ -155,7 +161,11 @@ class BucketedDataset:
             )
 
     def _audio_len(self, i: int) -> int:
-        with wave.open(self.utterances[i].audio_path, "rb") as w:
+        path = self.utterances[i].audio_path
+        if native_loader.native_available():
+            n, _sr = native_loader._load_native().probe(path)
+            return int(n)
+        with wave.open(path, "rb") as w:
             return w.getnframes()
 
     def _audio(self, i: int) -> np.ndarray:
@@ -210,9 +220,29 @@ class BucketedDataset:
         tlen = np.zeros((bsz,), np.int32)
         indices = np.full((bsz,), -1, np.int64)
 
+        # batched native decode of the cache misses (multithreaded, GIL
+        # released); the scratch is local, so that concurrent make_batch
+        # calls (StreamingDataset's producer pool) are thread-safe
+        scratch: Dict[int, np.ndarray] = {}
+        misses = [int(i) for i in idxs if int(i) not in self._cache]
+        if misses and native_loader.native_available():
+            buf = np.zeros((len(misses), pad_to), np.float32)
+            blen = np.zeros((len(misses),), np.int32)
+            native_loader.decode_batch([self.utterances[i].audio_path for i in misses], buf, blen)
+            if self.cache_audio:
+                for j, i in enumerate(misses):
+                    self._cache[i] = buf[j, : blen[j]].copy()
+            else:
+                scratch = {i: buf[j, : blen[j]] for j, i in enumerate(misses)}
+
         for row, i in enumerate(idxs):
             i = int(i)
-            x = self._audio(i)[:pad_to]
+            if i in self._cache:
+                x = self._cache[i][:pad_to]
+            elif i in scratch:
+                x = scratch[i][:pad_to]
+            else:
+                x = self._audio(i)[:pad_to]
             audio[row, : len(x)] = x
             alen[row] = len(x)
             u = self.utterances[i]

@@ -7,8 +7,9 @@ samples).  This subclass streams instead:
 
   * **no RAM cache**: audio is decoded per batch and dropped after the step;
   * **producer pool → bounded queue**: ``num_workers`` threads assemble
-    batches concurrently (each reads its WAV files with the pure-Python
-    reader of `data/audio.py`; the native decoder is not ported yet), and at
+    batches concurrently (each decodes its WAV files in one batched call of
+    the native decoder, `data/native_loader.decode_batch`, into a buffer of
+    its own), and at
     most ``queue_depth`` ready batches exist at any moment, so host RSS is
     bounded by ``queue_depth · batch_bytes`` regardless of corpus size;
   * **order-preserving**: workers deposit into per-slot boxes and the

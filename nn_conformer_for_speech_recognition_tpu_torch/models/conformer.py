@@ -11,6 +11,12 @@ attention, which also drops attention probabilities in training.  The
 conv module's depthwise conv is the hand-written kernel
 (`ops/cuda/depthwise_conv.py`) or a grouped conv1d, by `config.conv_route`.
 With ``remat`` each block is recomputed in the backward pass (`torch.utils.checkpoint`).
+
+The encoder variants of ``ConformerConfig``: ``use_relative_attention=False``
+is plain softmax attention over the keys (no position term, no u/v biases,
+no ``pos_proj``; no kernel in either package), and ``conv_norm`` 'groupnorm'
+or 'layernorm' replaces the conv module's masked BatchNorm (the library
+depthwise conv then has a bias, as the JAX module's).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import ConformerConfig
 from nn_conformer_for_speech_recognition_tpu_torch.models.layers import (
+    GroupNorm,
     LayerNorm,
     Linear,
     same_padding,
@@ -35,6 +42,9 @@ from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.attention import (
     flash_relpos_attention_plain,
 )
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.depthwise_conv import depthwise_conv1d
+
+NEG_INF = -1e30  # the JAX module's key-mask value
+CONV_NORMS = ("batchnorm", "groupnorm", "layernorm")
 
 
 def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -50,6 +60,17 @@ def sinusoidal_rel_positions(t: int, d_model: int) -> np.ndarray:
     inv_freq = 1.0 / (10000.0 ** (np.arange(0, d_model, 2, dtype=np.float32) / d_model))
     ang = dist[:, None] * inv_freq[None, :]
     return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def rel_position_table(t: int, d_model: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """`sinusoidal_rel_positions` on ``device`` in ``dtype``, copied there
+    once per (T, d_model, device, dtype): a forward copies nothing from the
+    host, so a train step on the card does not wait for a copy.  Made
+    outside inference mode, so that a table first made by an eval step can
+    be saved for a later training backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(sinusoidal_rel_positions(t, d_model)).to(device, dtype)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -101,20 +122,25 @@ class FeedForwardModule(nn.Module):
 
 class RelPositionMHSA(nn.Module):
     """Multi-head self-attention with Transformer-XL relative position bias:
-    score(i,j) = (q_i + u)·k_j + (q_i + v)·r_{j-i}, softmax over valid keys."""
+    score(i,j) = (q_i + u)·k_j + (q_i + v)·r_{j-i}, softmax over valid keys.
+    With ``use_relative=False``: score(i,j) = q_i·k_j, and no u, v or
+    ``pos_proj``."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout: float):
+    def __init__(self, d_model: int, num_heads: int, dropout: float, use_relative: bool = True):
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must divide into num_heads")
         self.d_model, self.num_heads, self.dropout = d_model, num_heads, dropout
+        self.use_relative = use_relative
         dh = d_model // num_heads
         self.norm = LayerNorm(d_model)
         self.qkv = Linear(d_model, 3 * d_model, bias=False)
-        self.pos_proj = Linear(d_model, d_model, bias=False)
+        if use_relative:
+            self.pos_proj = Linear(d_model, d_model, bias=False)
         self.out_proj = Linear(d_model, d_model)
-        self.u_bias = nn.Parameter(torch.zeros(num_heads, dh))
-        self.v_bias = nn.Parameter(torch.zeros(num_heads, dh))
+        if use_relative:
+            self.u_bias = nn.Parameter(torch.zeros(num_heads, dh))
+            self.v_bias = nn.Parameter(torch.zeros(num_heads, dh))
 
     def forward(
         self, x: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor, use_kernel: bool = False
@@ -122,10 +148,16 @@ class RelPositionMHSA(nn.Module):
         """``rel``: (2T-1, d_model) sinusoidal table in x's dtype.
         ``use_kernel`` sends the attention through the flash kernels, forward
         and backward (dropout on the output only, as the JAX flash path);
-        otherwise the einsum attention also drops probabilities in training."""
+        otherwise the einsum attention also drops probabilities in training.
+        Without relative positions the attention is always the einsum route
+        (`config.attention_route` never picks the kernels for it)."""
         b, t, _ = x.shape
         h, dh = self.num_heads, self.d_model // self.num_heads
         q, k, v = self.qkv(self.norm(x)).reshape(b, t, 3, h, dh).unbind(dim=2)
+        if not self.use_relative:
+            out = self._dot_attention(q, k, v, lengths, 1.0 / float(np.sqrt(dh)))
+            out = self.out_proj(out.reshape(b, t, self.d_model))
+            return F.dropout(out, self.dropout, self.training)
         p = self.pos_proj(rel).reshape(2 * t - 1, h, dh)
         args = (q + self.u_bias.to(x.dtype), q + self.v_bias.to(x.dtype), k, v, p, lengths, 1.0 / float(np.sqrt(dh)))
         if use_kernel:
@@ -135,19 +167,35 @@ class RelPositionMHSA(nn.Module):
         out = self.out_proj(out.reshape(b, t, self.d_model))
         return F.dropout(out, self.dropout, self.training)
 
+    def _dot_attention(self, q, k, v, lengths, scale: float) -> torch.Tensor:
+        """The JAX module's attention without relative positions: scores in
+        float32 (float64 for float64 inputs), invalid keys at `NEG_INF`,
+        softmax in that type, probabilities cast to v's type, then dropped
+        in training."""
+        acc = torch.promote_types(q.dtype, torch.float32)
+        scores = torch.einsum("bihd,bjhd->bhij", q.to(acc), k.to(acc)) * scale
+        scores = scores.masked_fill(~length_mask(lengths, k.shape[1])[:, None, None, :], NEG_INF)
+        attn = F.dropout(torch.softmax(scores, dim=-1).to(v.dtype), self.dropout, self.training)
+        return torch.einsum("bhij,bjhd->bihd", attn, v)
+
 
 class ConvModule(nn.Module):
-    """LN → pointwise (2× expansion) → GLU → depthwise conv → masked BN →
-    SiLU → pointwise → dropout.  The depthwise conv has no bias (BatchNorm
-    follows) and one of two routes, fixed at construction because each owns
-    its parameter, as in the JAX package: ``use_kernel`` registers
+    """LN → pointwise (2× expansion) → GLU → depthwise conv → norm → SiLU →
+    pointwise → dropout.  The norm is ``norm``: the masked BatchNorm
+    (``batch_norm``), flax's GroupNorm of 32 groups (``group_norm``) or a
+    LayerNorm over the channels (``layer_norm``).  The depthwise conv has
+    one of two routes, fixed at construction because each owns its
+    parameter, as in the JAX package: ``use_kernel`` registers
     ``dw_kernel`` (K, C) and runs `ops.cuda.depthwise_conv.depthwise_conv1d`
-    (the hand-written kernel on CUDA, channels-last, no transposes);
-    otherwise ``depthwise`` is a grouped conv1d (the JAX package's XLA
-    path)."""
+    (the hand-written kernel on CUDA, channels-last, no transposes; no
+    bias, whatever the norm); otherwise ``depthwise`` is a grouped conv1d
+    (the JAX package's XLA path), with a bias unless BatchNorm follows."""
 
-    def __init__(self, d_model: int, kernel_size: int, expansion: int, dropout: float, use_kernel: bool = False):
+    def __init__(self, d_model: int, kernel_size: int, expansion: int, dropout: float, use_kernel: bool = False,
+                 norm: str = "batchnorm"):
         super().__init__()
+        if norm not in CONV_NORMS:
+            raise ValueError(f"conv_norm must be one of {CONV_NORMS}, got {norm!r}")
         channels = expansion * d_model
         self.kernel_size, self.dropout = kernel_size, dropout
         self.norm = LayerNorm(d_model)
@@ -155,8 +203,13 @@ class ConvModule(nn.Module):
         if use_kernel:
             self.dw_kernel = nn.Parameter(torch.empty(kernel_size, channels))
         else:
-            self.depthwise = nn.Conv1d(channels, channels, kernel_size, groups=channels, bias=False)
-        self.batch_norm = MaskedBatchNorm(channels)
+            self.depthwise = nn.Conv1d(channels, channels, kernel_size, groups=channels, bias=norm != "batchnorm")
+        if norm == "batchnorm":
+            self.batch_norm = MaskedBatchNorm(channels)
+        elif norm == "groupnorm":
+            self.group_norm = GroupNorm(channels)
+        else:
+            self.layer_norm = LayerNorm(channels)
         self.pointwise_out = Linear(channels, d_model)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -168,22 +221,26 @@ class ConvModule(nn.Module):
             h = depthwise_conv1d(h, self.dw_kernel.to(h.dtype))
         else:
             h = F.pad(h.transpose(1, 2), same_padding(h.shape[1], self.kernel_size, 1))
-            h = F.conv1d(h, self.depthwise.weight.to(h.dtype), groups=h.shape[1]).transpose(1, 2)
-        h = F.silu(self.batch_norm(h, mask))
+            bias = self.depthwise.bias
+            h = F.conv1d(h, self.depthwise.weight.to(h.dtype), None if bias is None else bias.to(h.dtype),
+                         groups=h.shape[1]).transpose(1, 2)
+        if hasattr(self, "batch_norm"):
+            h = self.batch_norm(h, mask)
+        else:  # no mask: flax's GroupNorm and LayerNorm take none
+            h = (self.group_norm if hasattr(self, "group_norm") else self.layer_norm)(h)
+        h = F.silu(h)
         return F.dropout(self.pointwise_out(h), self.dropout, self.training)
 
 
 class ConformerBlock(nn.Module):
     def __init__(self, config: ConformerConfig, conv_kernel: bool = False):
         super().__init__()
-        if not config.use_relative_attention:
-            raise NotImplementedError("only relative-position attention is ported")
-        if config.conv_norm != "batchnorm":
-            raise NotImplementedError(f"conv_norm={config.conv_norm!r} is not ported")
         self.ffn1 = FeedForwardModule(config.d_model, config.ffn_dim, config.dropout)
-        self.mhsa = RelPositionMHSA(config.d_model, config.num_heads, config.attention_dropout)
+        self.mhsa = RelPositionMHSA(config.d_model, config.num_heads, config.attention_dropout,
+                                    use_relative=config.use_relative_attention)
         self.conv = ConvModule(
-            config.d_model, config.conv_kernel_size, config.conv_expansion, config.dropout, use_kernel=conv_kernel
+            config.d_model, config.conv_kernel_size, config.conv_expansion, config.dropout, use_kernel=conv_kernel,
+            norm=config.conv_norm,
         )
         self.ffn2 = FeedForwardModule(config.d_model, config.ffn_dim, config.dropout)
         self.norm = LayerNorm(config.d_model)
@@ -231,7 +288,7 @@ class ConformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, attention_kernel: bool = False) -> torch.Tensor:
         t = x.shape[1]
         mask = length_mask(lengths, t)
-        rel = torch.from_numpy(sinusoidal_rel_positions(t, self.d_model)).to(x.device, x.dtype)
+        rel = rel_position_table(t, self.d_model, x.device, x.dtype)
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
                 x = checkpoint(

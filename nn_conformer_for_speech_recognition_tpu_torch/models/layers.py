@@ -33,6 +33,31 @@ class LayerNorm(nn.LayerNorm):
         )
 
 
+class GroupNorm(nn.Module):
+    """flax.linen.GroupNorm (32 groups, epsilon 1e-6) over the channels of
+    (B, T, C): each group of C/32 adjacent channels is normalised over all
+    of a row's frames, padded ones included (flax's takes no mask).  As
+    flax does under a lower compute dtype, the statistics (E[x²] − E[x]²,
+    clipped at 0) and the normalisation run in float32 and the result is
+    cast back to the input's dtype."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = LAYER_NORM_EPS):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"GroupNorm: {channels} channels do not split into {num_groups} groups")
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, c = x.shape
+        xf = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(b, t, self.num_groups, c // self.num_groups)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(dim=(1, 3), keepdim=True) - mean * mean, 0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(b, t, c)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
 def same_padding(n: int, kernel: int, stride: int) -> Tuple[int, int]:
     """(low, high) padding of flax/XLA 'SAME': the odd element goes high."""
     total = max((-(-n // stride) - 1) * stride + kernel - n, 0)

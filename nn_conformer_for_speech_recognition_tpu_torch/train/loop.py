@@ -1,8 +1,8 @@
 """Train, eval and predict steps and the `Trainer` that drives them, port of
 `nn_conformer_for_speech_recognition_tpu/train/loop.py` (``make_augment_step``,
-``make_feature_train_step``, ``make_train_step``, ``make_eval_step``,
-``make_predict_step``, ``make_beam_step``, ``make_eval_beam_step``,
-``optax_global_norm``, ``Trainer``).
+``make_feature_train_step``, ``make_train_step``, ``make_epoch_scan_step``,
+``make_eval_step``, ``make_predict_step``, ``make_beam_step``,
+``make_eval_beam_step``, ``optax_global_norm``, ``Trainer``).
 
 The JAX steps are pure functions of a state pytree.  Here the model module
 holds its parameters and batch statistics and the optimizer its state, so
@@ -13,14 +13,17 @@ attention route) for the train step, eval mode for the others.
 
 `Trainer` is the host-side epoch loop around them: shuffled bucketed
 batches, per-epoch validation, WER on decoded strings, checkpoints with
-resume cursors, and the Noisy Student pseudo-label pass.  It runs on the
-first CUDA device unless the caller asks for ``device="cpu"``.
+resume cursors, and the Noisy Student pseudo-label pass.  Over a
+device-resident dataset (`data/device_cache.py`) an epoch gathers its
+batches on the device and, through `Trainer.train_device_epochs`, runs as
+one call of `make_epoch_scan_step` (in chunks where mid-epoch checkpoints
+are asked for) that pulls nothing to the host before it ends.  It runs on
+the first CUDA device unless the caller asks for ``device="cpu"``.
 
 Not ported, as TPU scheduler workarounds: the ``optimization_barrier``
 fence between the augment and train halves and the hardware-RNG dropout
 key.  Not ported yet, and refused with ``NotImplementedError``: a device
-mesh or sequence parallelism, and device-resident datasets with the
-whole-epoch scan.
+mesh or sequence parallelism.
 
 Shallow LM fusion: ``lm_apply`` (context ids → LM logits, e.g.
 `models.lm.make_pron_lm_apply`) given to `make_eval_step`,
@@ -48,6 +51,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.config import (
 )
 from nn_conformer_for_speech_recognition_tpu_torch.convert import flax_to_state_dict
 from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import Batch, BucketedDataset
+from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import gather_rows
 from nn_conformer_for_speech_recognition_tpu_torch.data.native_loader import PrefetchIterator
 from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
 from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import MaskedBatchNorm
@@ -174,6 +178,48 @@ def make_train_step(
         return core(state, feats, frame_lengths, targets, target_lengths)
 
     return train_step
+
+
+def make_epoch_scan_step(
+    model: ConformerCTC,
+    feat_cfg: FeatureConfig,
+    sa_cfg: SpecAugmentConfig,
+    blank_id: int,
+    use_specaugment: bool = True,
+    noise_std: float = 0.0,
+    ctc_impl: str = "auto",
+    batch_sharding=None,
+    emit_ids: bool = False,
+    pad_id: int = 0,
+) -> Callable[..., Tuple[TrainState, Tuple[torch.Tensor, ...]]]:
+    """Returns ``epoch(state, audio, alen, targets, tlen, order) → (state,
+    (losses, sizes[, ids]))``: the train steps of an epoch over
+    device-resident tensors (`data/device_cache.DeviceResidentDataset`).
+    ``order`` is the (steps, B) int32 index tensor on the device (-1: a
+    batch-padding row, `DeviceResidentDataset.order_matrix`); each row is
+    gathered on the device (`gather_rows`) and taken by one `make_train_step`
+    step.  The outputs stay on the device: (steps,) losses, (steps,)
+    valid-row counts (the weights of the epoch's mean loss) and, with
+    ``emit_ids``, the (steps, B, T') greedy ids of the training forwards.
+    Nothing is pulled to the host, so an epoch on the card is queued
+    without a wait; a call over one row at a time runs the same operations
+    in the same order as one call over all of them."""
+    if batch_sharding is not None:
+        raise NotImplementedError("batch_sharding is not ported yet: Multi-GPU")
+    step = make_train_step(model, feat_cfg, sa_cfg, blank_id, use_specaugment=use_specaugment, noise_std=noise_std,
+                           ctc_impl=ctc_impl, emit_ids=emit_ids, pad_id=pad_id)
+
+    def epoch(state: TrainState, audio, alen, targets, tlen, order):
+        losses, sizes, ids = [], [], []
+        for idx in order:
+            state, metrics = step(state, *gather_rows(audio, alen, targets, tlen, idx))
+            losses.append(metrics["loss"])
+            sizes.append((idx >= 0).sum())
+            if emit_ids:
+                ids.append(metrics["ids"])
+        return state, (torch.stack(losses), torch.stack(sizes), *((torch.stack(ids),) if emit_ids else ()))
+
+    return epoch
 
 
 def make_eval_step(
@@ -367,6 +413,7 @@ class Trainer:
             model, self.feat_cfg, blank, beam=cfg.beam, prune=cfg.prune, max_label_len=cfg.max_label_len,
             ctc_impl=cfg.ctc_impl, **lm)
         self._predict_step = make_predict_step(model, self.feat_cfg, pad)
+        self._epoch_scans: Dict[Tuple[bool, float], Callable] = {}  # `_epoch_scan_fn`'s, over this model
 
     @property
     def state(self) -> Optional[TrainState]:
@@ -406,11 +453,18 @@ class Trainer:
         return self._state
 
     def _put(self, batch: Batch):
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            for x in (batch.audio, batch.audio_lengths.astype(np.int32), batch.targets,
-                      batch.target_lengths.astype(np.int32))
-        )
+        """The batch's arrays on the trainer's device: host arrays copied
+        there, tensors of a resident batch (already there) as they are."""
+
+        def put(x, dtype):
+            if isinstance(x, torch.Tensor):
+                if x.device != self.device:
+                    raise ValueError(f"a batch on {x.device} given to a trainer on {self.device}")
+                return x
+            return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(self.device)
+
+        return (put(batch.audio, None), put(batch.audio_lengths, np.int32), put(batch.targets, None),
+                put(batch.target_lengths, np.int32))
 
     def _composed_step(self, sa: bool, noise_std: float):
         """(augment ∘ core) step for the given augmentation settings, cached
@@ -463,14 +517,20 @@ class Trainer:
         uninterrupted run exactly; see `resume`).
 
         Per-step losses stay on the device and are pulled once per epoch: a
-        ``.item()`` per step would serialise the host against the device."""
+        ``.item()`` per step would serialise the host against the device.
+
+        A device-resident dataset (`data/device_cache.DeviceResidentDataset`)
+        goes through the epoch step of `train_device_epochs`, one order row
+        a call: the same operations in the same order, so the two give
+        bit-equal losses and state."""
         self._require_state()
-        if hasattr(dataset, "device_arrays"):
-            raise NotImplementedError(
-                "device-resident datasets are not ported yet: Trainer, checkpoints, device-resident data")
         sa = self.train_cfg.use_specaugment if use_specaugment is None else use_specaugment
         noise = self._resolve_noise(add_noise, noise_std)
         checkpoint_manager = self._auto_ckpt_manager(checkpoint_manager)
+        if hasattr(dataset, "device_arrays"):
+            return self._train_resident(
+                dataset, epochs, val_dataset=val_dataset, use_specaugment=sa, epoch_offset=epoch_offset,
+                checkpoint_manager=checkpoint_manager, fused=False, noise_std=noise, start_step=start_step)
         step_fn = self._composed_step(sa, noise)
         want_wer = self.train_cfg.train_wer
         log_every = self.train_cfg.log_every
@@ -587,10 +647,126 @@ class Trainer:
                 hyps.append(self.vocab.decode_ids(ids[row]))
         return M.wer(refs, hyps) if refs else float("nan")
 
-    def train_device_epochs(self, *args, **kwargs):
-        """The whole-epoch scan over a device-resident dataset."""
-        raise NotImplementedError(
-            "train_device_epochs is not ported yet: Trainer, checkpoints, device-resident data")
+    def _epoch_scan_fn(self, use_specaugment: Optional[bool] = None, noise_std: float = 0.0):
+        """`make_epoch_scan_step` over the trainer's model, cached per
+        (use_specaugment, noise_std)."""
+        sa = self.train_cfg.use_specaugment if use_specaugment is None else use_specaugment
+        key = (bool(sa), float(noise_std))
+        if key not in self._epoch_scans:
+            cfg = self.train_cfg
+            self._epoch_scans[key] = make_epoch_scan_step(
+                self.model, self.feat_cfg, cfg.specaugment, self.vocab.blank_id, use_specaugment=key[0],
+                noise_std=key[1], ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=self.vocab.pad_id)
+        return self._epoch_scans[key]
+
+    def _upload_order(self, order: np.ndarray) -> torch.Tensor:
+        """An epoch's order matrix on the device: on the card one copy from
+        pinned memory, queued without a wait."""
+        host = torch.from_numpy(np.ascontiguousarray(order))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def train_device_epochs(
+        self,
+        dataset,
+        epochs: int,
+        val_dataset: Optional[BucketedDataset] = None,
+        use_specaugment: Optional[bool] = None,
+        epoch_offset: int = 0,
+        checkpoint_manager=None,
+        add_noise: Optional[bool] = None,
+        noise_std: Optional[float] = None,
+        start_step: int = 0,
+    ) -> Dict[str, List[float]]:
+        """Epoch loop over a `DeviceResidentDataset`, one call of
+        `make_epoch_scan_step` an epoch: the host uploads the epoch's order
+        matrix and pulls the per-step losses once the epoch is queued;
+        nothing else crosses.  Bit-equal to `train` over the same dataset,
+        with the same per-epoch validation and checkpoints.  With
+        ``TrainConfig.checkpoint_every_steps`` and a checkpoint manager the
+        epoch runs in chunks of that many steps, so that the mid-epoch
+        cursors can be written."""
+        return self._train_resident(
+            dataset, epochs, val_dataset=val_dataset, use_specaugment=use_specaugment, epoch_offset=epoch_offset,
+            checkpoint_manager=self._auto_ckpt_manager(checkpoint_manager), fused=True,
+            noise_std=self._resolve_noise(add_noise, noise_std), start_step=start_step)
+
+    def _train_resident(
+        self,
+        dataset,
+        epochs: int,
+        val_dataset: Optional[BucketedDataset] = None,
+        use_specaugment: Optional[bool] = None,
+        epoch_offset: int = 0,
+        checkpoint_manager=None,
+        fused: bool = True,
+        noise_std: float = 0.0,
+        start_step: int = 0,
+    ) -> Dict[str, List[float]]:
+        """The epoch loop over device-resident tensors.  ``fused=True``
+        calls the epoch step once an epoch (or once a chunk of
+        ``checkpoint_every_steps`` where mid-epoch cursors are written);
+        ``fused=False`` once an order row.  ``start_step`` drops the first
+        epoch's consumed rows (the resume cursor; the order is a function
+        of the seed), and ``TrainConfig.train_wer`` scores the ids the
+        epoch step emits."""
+        self._require_state()
+        epoch_fn = self._epoch_scan_fn(use_specaugment, noise_std)
+        arrays = dataset.device_arrays()
+        want_wer = self.train_cfg.train_wer
+        ckpt_every = self.train_cfg.checkpoint_every_steps
+        alen_host = arrays[1].cpu().numpy()  # one host copy, for the audio-seconds of every epoch
+        sample_rate = self.feat_cfg.sample_rate
+        for epoch in range(epochs):
+            t0 = time.time()
+            order = dataset.order_matrix(seed=self.train_cfg.seed + epoch_offset + epoch)
+            skip = start_step if epoch == 0 else 0
+            order = order[skip:]
+            audio_seconds = float(alen_host[order[order >= 0]].sum()) / sample_rate
+            if not fused:
+                chunk = 1
+            elif ckpt_every and checkpoint_manager is not None:
+                chunk = ckpt_every
+            else:
+                chunk = max(order.shape[0], 1)
+            order_dev = self._upload_order(order)
+            step_out = []
+            step_i = skip
+            for s0 in range(0, order.shape[0], chunk):
+                self.state, out = epoch_fn(self.state, *arrays, order_dev[s0 : s0 + chunk])
+                step_out.append(out)
+                step_i += min(chunk, order.shape[0] - s0)
+                if ckpt_every and checkpoint_manager is not None and step_i % ckpt_every == 0:
+                    checkpoint_manager.save(self.state, iterator={"epoch": epoch_offset + epoch, "step": step_i})
+            outs = [torch.cat([o[i] for o in step_out]).cpu() for i in range(len(step_out[0]))] if step_out else []
+            losses, sizes = (outs[0].numpy(), outs[1].numpy()) if outs else (np.zeros((0,), np.float32),) * 2
+            dt = time.time() - t0
+            # the mean over the steps whose loss is not NaN, weighted by their valid rows (`train`'s M.Mean)
+            ok = ~np.isnan(losses)
+            wsum = float((sizes * ok).sum())
+            mean_loss = float((losses[ok] * sizes[ok]).sum() / wsum) if wsum else float("nan")
+            nan_steps = int((~ok).sum())
+            self.history["train_loss"].append(mean_loss)
+            msg = (f"epoch {epoch_offset + epoch}: loss={mean_loss:.4f} "
+                   f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s{', fused epoch' if fused else ''})")
+            if want_wer:
+                twer = self._train_wer_from_steps(dataset, list(zip(outs[2], order)) if outs else [])
+                self.history["train_wer"].append(twer)
+                msg += f" train_wer={100 * twer:.2f}"
+            if nan_steps:
+                msg += f" [{nan_steps} NaN steps]"
+            if val_dataset is not None:
+                vloss, vwer = self.evaluate(val_dataset)
+                self.history["val_loss"].append(vloss)
+                self.history["val_wer"].append(vwer)
+                msg += f" val_loss={vloss:.4f} val_wer={100 * vwer:.2f}"
+            self.log(msg)
+            if checkpoint_manager is not None:
+                metric = self.history["val_loss"][-1] if val_dataset is not None else None
+                checkpoint_manager.save(
+                    self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
+        return self.history
 
     # ------------------------------------------------------------------ eval
 

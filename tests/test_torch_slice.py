@@ -168,8 +168,9 @@ def test_port_never_imports_jax():
     imports (``train.loop``, ``train.checkpoint``, ``nst.driver`` and
     ``data.*`` among them), and on the CPU a predict step, one train step, a
     two-step `Trainer.train` with a checkpoint, one `run_nst` generation, a
-    beam-search `evaluate`, the bias-input attention op and the command
-    line (``train`` then ``eval --decode beam``) run."""
+    beam-search `evaluate`, a fused epoch over a device-resident dataset
+    (the native decoder loaded), the bias-input attention op and the
+    command line (``train`` then ``eval --decode beam``) run."""
     code = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -219,6 +220,11 @@ with tempfile.TemporaryDirectory() as root:
     assert len(results) == 1 and results[0].num_pseudo_labels == 2
     loss, wer = trainer.evaluate(data["validation"], decode="beam")
     assert loss == trainer.evaluate(data["validation"])[0] and wer >= 0.0
+    from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import DeviceResidentDataset
+    from nn_conformer_for_speech_recognition_tpu_torch.data.native_loader import native_available
+    step = trainer.state.step
+    trainer.train_device_epochs(DeviceResidentDataset(data["train"], device="cpu"), epochs=1)
+    assert trainer.state.step == step + 2 and native_available()
     from nn_conformer_for_speech_recognition_tpu_torch.cli.main import main
     flags = ["--manifest-dir", root, "--batch-size", "2", "--max-target-len", "2", "--use-pallas", "--device", "cpu"]
     assert main(["train", *flags, "--epochs", "1", "--save", root + "/saved"]) == 0

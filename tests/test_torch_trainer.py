@@ -31,7 +31,8 @@ from _torch_trainer_helpers import (
 from nn_conformer_for_speech_recognition_tpu.train import loop as JL
 from nn_conformer_for_speech_recognition_tpu_torch import config as TC
 from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import CheckpointManager, restore_state, save_state
-from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_beam_step
+from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import DeviceResidentDataset
+from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_beam_step, make_epoch_scan_step
 
 
 @pytest.fixture(scope="module")
@@ -232,15 +233,11 @@ def test_make_beam_step_matches_jax(corpus, beam_pair):
 def test_what_is_not_ported_raises(corpus):
     _, _, tvocab, _, tdata = corpus
     tr = port_trainer(tvocab)
-    with pytest.raises(NotImplementedError, match="device-resident"):
-        tr.train_device_epochs(tdata["train"], 1)
-
-    class Resident:
-        def device_arrays(self):
-            return ()
-
-    with pytest.raises(NotImplementedError, match="device-resident"):
-        tr.train(Resident(), 1)
+    # the resident dataset and the epoch step are ported; their sharded forms are not
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        DeviceResidentDataset(tdata["train"], device="cpu", sharding=object())
+    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+        make_epoch_scan_step(tr.model, tr.feat_cfg, tr.train_cfg.specaugment, 0, batch_sharding=object())
     model, cfgs = tr.model, (tr.vocab, tr.feat_cfg, tr.train_cfg)
     with pytest.raises(NotImplementedError, match="Multi-GPU"):
         type(tr)(model, *cfgs, mesh_cfg=TC.MeshConfig(seq_parallel=True), device="cpu")
