@@ -144,7 +144,19 @@ the checkout at TREE, this one by default: see `ctc_times_main`;
    'groupnorm' and 'layernorm' under ``conv_impl`` 'auto' and 'pallas'):
    the float32 pass, kernel path against plain path, and three bf16 train
    steps with the loss falling.
-14. Prints one JSON line with each kernel's numbers, then, as the last line,
+14. Data parallelism over processes (`parallel.mesh`; Conformer-M bf16,
+   B=16 × 30 s on the resident corpus): at world size 1 over NCCL, three
+   train steps through the data-parallel path bit-equal to the same steps
+   without a process group, ``evaluate`` and ``generate_labels`` through
+   their gathers, ms/step and device ms/step with and without the group
+   and the launches it adds, a ``utils.profiling.trace`` of one step that
+   must name every hand-written kernel the step launched, and the fused
+   resident epoch under ``set_sync_debug_mode('error')`` with the group
+   on; then two processes sharing the card over gloo (Conformer-M's
+   widths at two blocks, float32) against one process at the CPU tests'
+   bars; then ``utils.guards.check_step`` on a step fed a NaN, which must
+   raise.
+15. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
@@ -2982,6 +2994,359 @@ def check_resident(card: str) -> dict:
     return launches
 
 
+DP_STEPS, DP_GLOO_BLOCKS = 3, 2  # train steps of the data-parallel phase; the gloo phase's encoder depth
+DP_GLOO_LR = 1e-3  # the gloo phase's learning rate: the CPU tests' (their bars were set at it)
+# the gloo phase's gradient bar, of each tensor's largest entry: float32 sums over B·T' = 3,760 frames in two
+# orders (one unit roundoff, 6e-8, times the frames: 2.2e-4 of the summed terms), with a factor of two; the CPU
+# test's 1e-5 holds at T' = 14
+DP_GRAD_BAR = 5e-4
+DP_TRACE_KERNELS = {  # counter → a substring of its kernel's name in a profiler trace
+    "stft_logmel": "stft_logmel_tc_kernel", "lstm": "lstm_fwd_cluster", "lstm_backward": "lstm_bwd_cluster",
+    "lstm_weight_grad": "lstm_dwhh", "ctc_alpha": "ctc_alpha_kernel", "ctc_beta": "ctc_beta_kernel",
+    "attention_relpos": "attention_relpos_tc_kernel", "depthwise_conv": "depthwise_conv_kernel",
+}
+
+
+def profiler_warmup() -> None:
+    """Opens a profiling window with 64 short ``spin_kernel`` launches and
+    a wait: in a process that has profiled before, the first kernels of a
+    window can go unrecorded (17 of a train step's have been on the H100),
+    so the window's own work starts after these, and their rows are left
+    out of the sums."""
+    for _ in range(64):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(0.01)
+
+
+def dp_trainer(vocab, preset=None, lr: Optional[float] = None):
+    """A `Trainer` of the data-parallel phase (Conformer-M bf16,
+    ``use_pallas=True``, unless ``preset`` is given; Adafactor as the 30 s
+    step, at ``lr`` where given; SpecAugment on), initialised from SEED."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, TrainConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+
+    cfg = preset if preset is not None else conformer_m(use_pallas=True)
+    tr = Trainer(ConformerCTC(cfg, len(vocab)), vocab, FeatureConfig(), TrainConfig(batch_size=BATCH, log_every=0),
+                 learning_rate=lr, log_fn=lambda msg: None)
+    tr.init_state(seed=SEED)
+    return tr
+
+
+def dp_small_run(vocab, data) -> tuple:
+    """The two-process phase's work, in whichever process group is set:
+    one step's gradient from the start (a fresh trainer), then `DP_STEPS`
+    steps of `Trainer.train`; (gradients, losses, parameters) on the host."""
+    first = dp_trainer(vocab, preset=small_depth(), lr=DP_GLOO_LR)
+    batch = next(data.epoch(seed=SEED))
+    first._composed_step(True, 0.0)(first.state, *first._put(first._local(batch)), first._batch_lengths(batch))
+    grads = {n: p.grad.detach().cpu() for n, p in first.model.named_parameters()}
+    tr = dp_trainer(vocab, preset=small_depth(), lr=DP_GLOO_LR)
+    tr.train(data, epochs=1)
+    return grads, tr.history["train_loss"], {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+
+
+def small_depth(**kw):
+    """Conformer-M's widths at `DP_GLOO_BLOCKS` blocks, float32, dropout 0:
+    the two-process phase's model."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_m
+
+    cfg = conformer_m(use_pallas=True, compute_dtype="float32", **kw)
+    enc = dataclasses.replace(cfg.encoder, num_blocks=DP_GLOO_BLOCKS, dropout=0.0)
+    return dataclasses.replace(cfg, encoder=enc, decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
+
+
+def dp_gloo_worker(rank: int, world: int, port: int, manifest: str, out_dir: str) -> None:
+    """One of the two processes that share the card over gloo: joins the
+    group, trains `DP_STEPS` float32 steps of the small-depth model on its
+    rows of each global batch (the first `DP_STEPS` batches' clips of the
+    corpus at ``manifest``, whose transcripts give the vocabulary), writes
+    its losses and parameters."""
+    import torch.distributed as dist
+
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset, load_manifest
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    try:
+        utts = load_manifest(manifest)
+        vocab = build_vocab("word", [u.transcript for u in utts])
+        data = BucketedDataset(utts[:DP_STEPS * BATCH], vocab, BATCH, bucket_boundaries=[int(SECONDS * 16000)],
+                               max_target_len=RESIDENT_WORDS)
+        grads, losses, state = dp_small_run(vocab, data)
+        torch.save({"grads": grads, "losses": losses, "state": state}, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def param_spread(got: dict, ref: dict, lr: float, steps: int, rtol: float = 1e-5) -> tuple:
+    """(elements outside the CPU test's bars, elements farther apart than
+    one Adafactor step of the other sign a step, elements) of ``got``
+    against ``ref``.  The bars are ``tests/_torch_multiproc_helpers.
+    assert_params_close``'s: rtol with an atol of rtol times the tensor's
+    largest entry, here with rtol times the update scale (lr × steps) added
+    for tensors that start at zero.  Adafactor's first update of an element
+    is ±lr whatever its gradient's size, so an element whose gradient is
+    float noise (or, on the card, cuDNN's weight gradients, which sum in no
+    fixed order) moves by a step of either sign: such elements miss the bars
+    by at most 2 × lr a step."""
+    off = beyond = total = 0
+    for k, r in ref.items():
+        g, r = got[k].float().cpu(), r.float().cpu()
+        diff = (g - r).abs()
+        off += int((diff > rtol * r.abs() + rtol * (float(r.abs().max()) + lr * steps)).sum())
+        beyond += int((diff > 2 * lr * steps + rtol * r.abs()).sum())
+        total += r.numel()
+    return off, beyond, total
+
+
+def grad_spread(got: dict, ref: dict) -> float:
+    """The largest difference of a gradient tensor from ``ref``'s, over that
+    tensor's largest entry."""
+    return max(float((got[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30) for k, g in ref.items())
+
+
+def check_data_parallel(card: str) -> dict:
+    """Data parallelism over processes (`parallel.mesh`), Conformer-M bf16,
+    ``use_pallas=True``, B=16 × 30 s on the resident phase's corpus:
+
+    * world size 1 over NCCL (``cpu:gloo,cuda:nccl``, a tcp rendezvous on
+      127.0.0.1): `DP_STEPS` train steps through the data-parallel path
+      (global statistics in the masked BatchNorm, the global row count,
+      the flat gradient all-reduce) bit-equal to the same steps without a
+      process group; ms/step and device ms/step (`device_ms`) with and
+      without it, and the launches the group adds (the NCCL kernels of one
+      step under the profiler); `evaluate` and `generate_labels` through
+      their gathers, equal to the plain trainer's; a `utils.profiling.trace`
+      of one step whose Chrome trace names every hand-written kernel the
+      step launched; the fused resident epoch under
+      ``set_sync_debug_mode('error')`` with the group on;
+    * two processes on the one card over gloo (NCCL refuses two ranks on
+      one GPU), Conformer-M's widths at `DP_GLOO_BLOCKS` blocks in float32,
+      dropout 0, against one process run twice: ranks bit-equal, losses
+      rtol 1e-5, the first step's gradients within `DP_GRAD_BAR` of each
+      tensor's largest entry, the parameters after `DP_STEPS` steps
+      counted against the CPU tests' bars beside the one process's own
+      spread (`param_spread`: no element farther apart than one step of
+      the other sign a step, at most 1% of them outside the bars);
+    * `utils.guards.check_step` on a step fed a NaN: it must raise.
+
+    Returns the launch counts of the data-parallel steps."""
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+
+    from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset, save_manifest
+    from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import DeviceResidentDataset
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import BACKEND, data_shard
+    from nn_conformer_for_speech_recognition_tpu_torch.utils.guards import check_step, tree_finite_report
+    from nn_conformer_for_speech_recognition_tpu_torch.utils.profiling import trace
+
+    check((BATCH, T_SUB) in KERNEL_SHAPES_CHECKED, "the kernel phases did not run at the data-parallel batches' shape")
+    n_samples, train_clips = int(SECONDS * 16000), DP_STEPS * BATCH
+    with tempfile.TemporaryDirectory() as root:
+        utts = resident_corpus(root)
+        vocab = build_vocab("word", [u.transcript for u in utts])
+        kw = dict(bucket_boundaries=[n_samples], max_target_len=RESIDENT_WORDS)
+        train = BucketedDataset(utts[:train_clips], vocab, BATCH, **kw)
+        held_out = BucketedDataset(utts[train_clips:train_clips + BATCH], vocab, BATCH, **kw)
+
+        def state_tensors(tr):
+            out = {f"model.{k}": v for k, v in tr.model.state_dict().items()}
+            out.update({f"opt.{n}.{k}": v for n, slots in tr.state.optimizer.state.items() for k, v in slots.items()})
+            return out
+
+        def timings(tr, label):
+            """ms/step (host clock around a synchronise), device ms/step
+            (`device_ms`), and one profiled step's kernel launches and NCCL
+            launches, on one fixed batch."""
+            batch = next(train.epoch(seed=SEED))
+            step, args = tr._composed_step(True, 0.0), (*tr._put(tr._local(batch)), tr._batch_lengths(batch))
+
+            def one():
+                tr.state, _ = step(tr.state, *args)
+
+            one()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(N_TRAIN_STEPS):
+                one()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / N_TRAIN_STEPS * 1e3
+            device = device_ms(one, iters=N_TRAIN_STEPS, warmup=1)
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                profiler_warmup()
+                one()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+            launches = sum(e.count for e in rows)
+            busy = sum(e.self_device_time_total for e in rows) / 1e3
+            nccl = sum(e.count for e in rows if "nccl" in e.key.lower())
+            print(f"data-parallel phase, {label}: {wall:.2f} ms/step, device {device:.2f} ms/step by device_ms (the "
+                  f"host sets the pace, so this reads the wall), the card's own work {busy:.2f} ms/step under the "
+                  f"profiler in {launches} device launches a step, {nccl} of them NCCL  [{card}]")
+            return dict(wall=wall, device=device, busy=busy, launches=launches, nccl=nccl)
+
+        # -- the same steps without a process group, then through the data-parallel path at world size 1
+        plain = dp_trainer(vocab)
+        plain.train(train, epochs=1)
+        check(plain.shard is None and plain.state.step == DP_STEPS, "the plain trainer's steps")
+        plain_eval = plain.evaluate(held_out, return_texts=True)
+        plain_labels = plain.generate_labels(held_out)
+        timer = dp_trainer(vocab)  # timed without the group, before it and after it: plain, group, plain
+        without_group = [timings(timer, "without a process group (before it)")]
+        port = free_port()
+        dist.init_process_group(BACKEND, init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+        try:
+            dp = dp_trainer(vocab)
+            check(dp.shard == data_shard() and dp.shard.world == 1, "the trainer did not take the process group")
+            reset_counters()
+            dp.train(train, epochs=1)
+            torch.cuda.synchronize()
+            launches = read_counters()
+            a, b = state_tensors(plain), state_tensors(dp)
+            differ = [k for k in a if not torch.equal(a[k], b[k])]
+            print(f"data-parallel phase, world size 1 over NCCL: {DP_STEPS} steps, losses "
+                  f"{dp.history['train_loss']} / without a process group {plain.history['train_loss']}; "
+                  f"{len(a) - len(differ)}/{len(a)} state tensors bit-equal; launch counts {launches}")
+            check(not differ and dp.history["train_loss"] == plain.history["train_loss"],
+                  f"the data-parallel steps differ from the plain ones in {differ[:5]}")
+            check(torch.equal(dp.state.generator.get_state(), plain.state.generator.get_state()),
+                  "the SpecAugment generators differ")
+            dp_eval = dp.evaluate(held_out, return_texts=True)
+            dp_labels = dp.generate_labels(held_out)
+            check(dp_eval == plain_eval and dp_labels == plain_labels and len(dp_labels) == BATCH,
+                  "evaluate or generate_labels through the gathers differs from the plain trainer's")
+            print(f"evaluate through gather_metric: loss {dp_eval[0]:.6f}, WER {dp_eval[1]:.4f} (equal to the plain "
+                  f"trainer's); generate_labels through gather_pseudo_labels: {len(dp_labels)} labels, equal")
+
+            # -- time, with and without the group (the plain trainer runs in the group's absence below)
+            with_group = timings(dp, "world size 1 over NCCL")
+
+            # -- one traced step: its events name every hand-written kernel it launched
+            batch = next(train.epoch(seed=SEED))
+            step = dp._composed_step(True, 0.0)
+            args = (*dp._put(dp._local(batch)), dp._batch_lengths(batch))
+            trace_dir = os.path.join(root, "trace")
+            reset_counters()
+            with trace(trace_dir):
+                profiler_warmup()
+                dp.state, _ = step(dp.state, *args)
+                torch.cuda.synchronize()
+            traced = {k for k, v in read_counters().items() if v}
+            with open(next(Path(trace_dir).glob("trace_*.json"))) as f:
+                names = {e.get("name", "") for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+            missing = [k for k in traced if not any(DP_TRACE_KERNELS[k] in n for n in names)]
+            print(f"utils.profiling.trace of one step: {len(names)} kernel names; hand-written kernels launched "
+                  f"{sorted(traced)}, each named in the trace: {not missing}")
+            check(traced and not missing, f"the trace does not name {missing}")
+
+            # -- the fused resident epoch with the group on: nothing waits for the card inside it
+            dev = DeviceResidentDataset(train, sharding=data_shard())
+            epoch = dp._epoch_scan_fn()
+            arrays = dev.device_arrays()
+            order = dev.order_matrix(seed=SEED + 1)
+            epoch(dp.state, *arrays, dp._upload_order(order[:1]))  # one step first: NCCL's setup may wait
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dp.state, out = epoch(dp.state, *arrays, dp._upload_order(order))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            fused = out[0].cpu().numpy()
+            print(f"one fused resident epoch under set_sync_debug_mode('error') with the process group on: no wait "
+                  f"for the card; losses {fused.tolist()}")
+            check(fused.shape == (order.shape[0],) and bool(np.isfinite(fused).all()), "the sync-checked epoch")
+        finally:
+            dist.destroy_process_group()
+        without_group.append(timings(timer, "without a process group (after it)"))
+        without_group = {k: float(np.mean([t[k] for t in without_group])) for k in without_group[0]}
+        per_forward = 2 * (conformer_m_blocks() + 1)
+        print(f"the process group at world size 1 adds {with_group['launches'] - without_group['launches']:.0f} device "
+              f"launches a step ({with_group['nccl']} NCCL); the data-parallel path issues {per_forward} all-reduces a "
+              f"forward (two for each of the 16 blocks' masked BatchNorm and the projection norm's), as many in the "
+              f"backward, one of the row count and one of the flat gradient: {2 * per_forward + 2} a step; "
+              f"{with_group['wall'] - without_group['wall']:+.2f} ms/step of wall, "
+              f"{with_group['device'] - without_group['device']:+.2f} ms/step by device_ms, "
+              f"{with_group['busy'] - without_group['busy']:+.2f} ms/step of the card's own work (against the mean of "
+              f"the two runs without the group)  [{card}]")
+
+        # -- two processes on the one card over gloo, against one process
+        manifest = os.path.join(root, "train.tsv")
+        save_manifest(manifest, utts)
+        ref_grads, ref_losses, ref = dp_small_run(vocab, train)
+        rerun_grads, rerun_losses, rerun = dp_small_run(vocab, train)  # one process against itself: the card's floor
+        out_dir, port = os.path.join(root, "gloo"), free_port()
+        os.makedirs(out_dir)
+        ctx = multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_gloo_worker, args=(r, 2, port, manifest, out_dir)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(all(p.exitcode == 0 for p in procs), f"the gloo workers exited with {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+        in_sync = all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in ref)
+        dp_grad, rerun_grad = grad_spread(ranks[0]["grads"], ref_grads), grad_spread(rerun_grads, ref_grads)
+        off, beyond, total = param_spread(ranks[0]["state"], ref, DP_GLOO_LR, DP_STEPS)
+        rerun_off, rerun_beyond, _ = param_spread(rerun, ref, DP_GLOO_LR, DP_STEPS)
+        loss_ok = np.allclose(ranks[0]["losses"], ref_losses, rtol=1e-5)
+        print(f"two processes on one card over gloo (Conformer-M widths, {DP_GLOO_BLOCKS} blocks, float32, lr "
+              f"{DP_GLOO_LR}, {DP_STEPS} steps, {time.perf_counter() - t0:.1f} s): losses {ranks[0]['losses']} / one "
+              f"process {ref_losses} (again: {rerun_losses}); ranks bit-equal {in_sync}; the first step's gradients "
+              f"at most {dp_grad:.2e} of each tensor's largest entry from one process's (one process against itself "
+              f"{rerun_grad:.2e}; bar {DP_GRAD_BAR}); parameters: {off} of {total} elements outside the CPU test's bars "
+              f"(one process against itself {rerun_off}), {beyond} farther than one step of the other sign a step "
+              f"(itself {rerun_beyond})  [{card}]")
+        check(in_sync and loss_ok and dp_grad <= DP_GRAD_BAR and beyond == 0 and off <= 1e-2 * total,
+              "the two-process run differs from one process")
+
+        # -- check_step on a step fed a NaN
+        checked = check_step(plain._composed_step(True, 0.0))
+        batch = next(train.epoch(seed=SEED))
+        args = (*plain._put(batch), None)
+        error, _ = checked(plain.state, *args)
+        check(error.get() is None, f"check_step flagged a finite step: {error.get()}")
+        audio = args[0].clone()
+        audio[0, 1000] = float("nan")
+        error, (_, metrics) = checked(plain.state, audio, *args[1:])
+        try:
+            error.throw()
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        bad = tree_finite_report(plain.model)
+        print(f"utils.guards.check_step on a step fed a NaN: raised {raised is not None} ({(raised or '')[:120]}...); "
+              f"tree_finite_report then finds {len(bad)} non-finite tensors in the model")
+        check(raised is not None and "loss" in raised, "check_step did not raise on a NaN step")
+    return launches
+
+
+def conformer_m_blocks() -> int:
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_m
+
+    return conformer_m().encoder.num_blocks
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def check_encoder_variants(card: str) -> dict:
     """The encoder variants at Conformer-M's width and depth:
     ``use_relative_attention=False`` (plain softmax attention, no kernel in
@@ -3415,6 +3780,11 @@ def main() -> None:
     variants = check_encoder_variants(card)
     print(f"the resident and encoder-variant phases took {time.perf_counter() - t_new:.1f} s; the script so far "
           f"{time.perf_counter() - t0:.1f} s")
+    # data parallelism over processes: world size 1 over NCCL, two processes on the card over gloo, the trace, the guards
+    t_new = time.perf_counter()
+    data_parallel = check_data_parallel(card)
+    print(f"the data-parallel phase took {time.perf_counter() - t_new:.1f} s; the script so far "
+          f"{time.perf_counter() - t0:.1f} s")
     pallas = "ops/pallas"
     sources = {
         "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),
@@ -3444,13 +3814,15 @@ def main() -> None:
         "lstm_backward_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:107"),
         "lstm_weight_grad_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
     }
-    m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli, lm, cli_handoff, resident, variants)
+    m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli, lm, cli_handoff, resident, variants,
+               data_parallel)
     l_paths = (serve_l, train_l, train_l_conv)
     p_paths = (pretrain, cli_pretrain)
     paths = (*m_paths, *l_paths, *p_paths, op)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
           "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line + the fused "
-          "evaluation + train --encoder-checkpoint + the resident epochs + the encoder variants, then Conformer-L's pass + 30 s train steps + 30 s train steps under "
+          "evaluation + train --encoder-checkpoint + the resident epochs + the encoder variants + the data-parallel "
+          "steps, then Conformer-L's pass + 30 s train steps + 30 s train steps under "
           "conv_impl='pallas', then the pretrain steps + the pretrain command, then the bias-input op: "
           f"{ {k: tuple(path.get(k, 0) for path in paths) for k in read_counters()} }")
     # (counter, paths counted) of each entry.  Conformer-L runs four kernels at other shapes than Conformer-M's,

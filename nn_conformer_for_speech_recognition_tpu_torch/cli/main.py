@@ -14,10 +14,19 @@ split as the JAX command does: it reads ``--model``, ``--n-mels``,
 ``--epochs``, ``--save`` and ``--device``, and, as there, no other data or
 model flag (the model is float32 on its own routes).
 
+``train``, ``eval`` and ``nst`` train and evaluate data-parallel, one card
+a process, under ``torchrun``:
+
+    torchrun --standalone --nproc-per-node 8 -m \
+        nn_conformer_for_speech_recognition_tpu_torch.cli.main train ...
+
+Each process joins the group (`parallel.mesh.initialize_multihost`), and
+only rank 0 prints the result line and writes files.
+
 Refused with ``NotImplementedError``, each naming the ROADMAP item that
 ports it: ``benchmark`` (the port's benchmark on the H100),
-``--model-parallel`` above 1, ``--seq-parallel`` and
-``--shard-map-kernels`` (Multi-GPU).
+``--model-parallel`` above 1, ``--seq-parallel``, ``--shard-map-kernels``,
+and ``pretrain`` under ``torchrun`` (Multi-GPU, item 13b).
 """
 
 from __future__ import annotations
@@ -86,12 +95,29 @@ def _refuse_multi_gpu(args) -> None:
                      ("--seq-parallel", getattr(args, "seq_parallel", False)),
                      ("--shard-map-kernels", getattr(args, "shard_map_kernels", False))):
         if on:
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP Queue 1 item 13, Multi-GPU")
+            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP Queue 1 item 13b, Multi-GPU")
+
+
+def _rank0() -> bool:
+    """Rank 0 under ``torchrun``, or the only process: the one that prints
+    and writes files."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import is_main_process
+
+    return is_main_process()
+
+
+def _print_result(obj) -> None:
+    if _rank0():
+        print(json.dumps(obj))
 
 
 def _build(args):
-    """Shared setup: configs, vocab, datasets, trainer."""
+    """Shared setup: configs, vocab, datasets, trainer.  Under ``torchrun``
+    the process joins the group first."""
     _refuse_multi_gpu(args)
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import initialize_multihost
+
+    initialize_multihost(args.device)
     from nn_conformer_for_speech_recognition_tpu_torch import config as C
     from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import (
         BucketedDataset, load_manifest)
@@ -191,7 +217,7 @@ def cmd_train(args) -> int:
                       val_dataset=datasets.get("validation"))
     if args.save:
         trainer.save(args.save)
-    if args.plots:
+    if args.plots and _rank0():
         from nn_conformer_for_speech_recognition_tpu_torch.train.evals import plot_curves
 
         plot_curves(trainer.history, os.path.join(args.plots, "curves.pdf"))
@@ -206,9 +232,9 @@ def cmd_eval(args) -> int:
     loss, wer, refs, hyps = trainer.evaluate(
         split, dump_path=dump, decode=args.decode, return_texts=True
     )
-    print(json.dumps({"split": args.split, "loss": loss, "wer": 100 * wer,
-                      "decode": args.decode}))
-    if args.heatmap and args.results_dir:
+    _print_result({"split": args.split, "loss": loss, "wer": 100 * wer,
+                   "decode": args.decode})
+    if args.heatmap and args.results_dir and _rank0():
         from nn_conformer_for_speech_recognition_tpu_torch.train.evals import confusion_heatmap
 
         labels = [t for t in vocab.tokens[3:]]
@@ -246,12 +272,14 @@ def cmd_nst(args) -> int:
                       work_dir=args.work_dir,
                       checkpoint_manager=manager,
                       resume=getattr(args, "resume", False))
-    print(json.dumps([dataclasses.asdict(r) for r in results]))
+    _print_result([dataclasses.asdict(r) for r in results])
     return 0
 
 
 def cmd_pretrain(args) -> int:
     _refuse_multi_gpu(args)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError("pretrain under torchrun is not ported yet: ROADMAP Queue 1 item 13b, Multi-GPU")
     from nn_conformer_for_speech_recognition_tpu_torch import config as C
     from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import (
         BucketedDataset, load_manifest)
@@ -464,7 +492,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import process_group_active
+
+    had_group = process_group_active()
+    try:
+        return args.fn(args)
+    finally:  # leave a group this command joined
+        if process_group_active() and not had_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -179,9 +179,11 @@ class OptimizerConfig:
 
 @_frozen
 class MeshConfig:
-    """Logical device mesh of the JAX package.  The port runs on one device:
-    it keeps the fields so that configurations carry over, and refuses
-    model parallelism, kernel sharding and sequence parallelism."""
+    """Logical device mesh of the JAX package.  The port trains
+    data-parallel over a process group, one card a process
+    (`parallel.mesh`); it keeps the fields so that configurations carry
+    over, and refuses model parallelism, kernel sharding and sequence
+    parallelism (`parallel.mesh.check_mesh_config`)."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -35,7 +35,7 @@ shows that every parameter and buffer was filled.
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Iterator, Mapping, Tuple
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -215,3 +215,164 @@ def lm_flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{'/'.join(path)} maps onto {name} a second time")
         arrays[name] = value
     return {k: torch.from_numpy(np.array(v, order="C")) for k, v in arrays.items()}
+
+
+# ---------------------------------------------------------------------------
+# optimizer state and whole train states (the checkpoint bridge's framework-free half)
+# ---------------------------------------------------------------------------
+
+
+def _optax_parts(tree, found=None) -> Dict[str, Mapping]:
+    """The optax states inside a restored ``opt_state`` (nested lists,
+    dicts or named tuples), by kind: ``'factored'`` (``v``, ``v_row``,
+    ``v_col``), ``'ema'`` (momentum), ``'adam'`` (``mu``, ``nu``)."""
+    found = {} if found is None else found
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    if isinstance(tree, Mapping):
+        keys = set(tree)
+        kind = ("factored" if {"v_row", "v_col", "v"} <= keys else "ema" if "ema" in keys
+                else "adam" if {"mu", "nu"} <= keys else None)
+        if kind is not None:
+            if kind in found:
+                raise ValueError(f"two optax {kind} states in one opt_state")
+            found[kind] = tree
+            return found
+        items = tree.values()
+    elif isinstance(tree, (list, tuple)):
+        items = tree
+    else:
+        return found
+    for item in items:
+        _optax_parts(item, found)
+    return found
+
+
+def factored_dims(shape: Tuple[int, ...], min_dim: int = 128) -> Optional[Tuple[int, int]]:
+    """(second largest, largest) axis, as optax picks them for Adafactor's
+    factored second moments (``min_dim_size_to_factor`` 128), or None."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    return None if shape[order[-2]] < min_dim else (int(order[-2]), int(order[-1]))
+
+
+def _axis_mean(slots: Dict[str, np.ndarray], shape: Tuple[int, ...], axis: int) -> np.ndarray:
+    """The mean over ``axis`` of a parameter's second moments, from its
+    full ``v`` or its factored ``v_row`` / ``v_col`` (each the mean over one
+    of the two factored axes: exact, as the moments are averages of g²)."""
+    dims = factored_dims(shape)
+    if dims is None:
+        return slots["v"].mean(axis=axis)
+    return {dims[1]: slots["v_row"], dims[0]: slots["v_col"]}[axis]
+
+
+def _pack_adafactor_cells(cells: Dict[int, Dict[str, Dict[str, np.ndarray]]], layers: int, bidirectional: bool,
+                          scope: str) -> Dict[str, Dict[str, np.ndarray]]:
+    """Adafactor slots of ``OptimizedLSTMCell`` gate leaves → the slots of
+    the packed w_ih, w_hh and bias (gates concatenated along the last
+    axis).  The second moments of a packed block are rebuilt exactly from
+    the gates' (the mean over the gate axis is the mean of the gates'
+    means); the momentum is concatenated."""
+    dirs = ("fwd", "bwd") if bidirectional else ("fwd",)
+    out = {}
+    for n, leaves in cells.items():
+        layer, d = divmod(n, len(dirs))
+        prefix = f"{scope}.lstm_{dirs[d]}_{layer}"
+        for packed, leaf in (("w_ih", "i{}/kernel"), ("w_hh", "h{}/kernel"), ("bias", "h{}/bias")):
+            gates = [leaves[leaf.format(g)] for g in _GATES]
+            gate_shape = tuple(gates[0]["_shape"])
+            shape = gate_shape[:-1] + (gate_shape[-1] * len(gates),)
+            last = len(shape) - 1
+            slots: Dict[str, np.ndarray] = {}
+            dims = factored_dims(shape)
+            if dims is None:  # then no gate, whose axes are no longer, is factored either
+                slots["v"] = np.concatenate([g["v"] for g in gates], axis=last)
+            else:
+                def mean(axis):
+                    parts = [_axis_mean(g, gate_shape, axis) for g in gates]
+                    return np.mean(parts, axis=0) if axis == last else np.concatenate(parts, axis=-1)
+
+                slots["v_row"], slots["v_col"] = mean(dims[1]), mean(dims[0])
+            if "ema" in gates[0]:
+                slots["ema"] = np.concatenate([g["ema"] for g in gates], axis=last)
+            out[f"{prefix}_{packed}"] = slots
+    return out
+
+
+def optimizer_state_from_optax(
+    opt_state, params: Mapping, lstm_scope: str = "decoder_lstm",
+    lstm_layout: Callable[[], Tuple[int, bool]] = lambda: (1, True),
+) -> Tuple[int, Dict[str, Dict[str, torch.Tensor]]]:
+    """A restored optax ``opt_state`` (``optax.adafactor`` with or without
+    momentum, ``optax.adam`` or ``adamw``) over the flax ``params`` → the
+    update count and the state of the port's `train.optim.Adafactor` or
+    `Adam`, keyed by the port's parameter names.  Adafactor's slots keep the
+    JAX layout (as the port keeps them), Adam's take the port's layout;
+    flax ``OptimizedLSTMCell`` gates are packed as `flax_to_state_dict`
+    packs their parameters."""
+    parts = _optax_parts(opt_state)
+    adam = "adam" in parts
+    if not adam and "factored" not in parts:
+        raise ValueError(f"no optax adafactor or adam state found (found {sorted(parts)})")
+    per_leaf: Dict[str, Dict[str, np.ndarray]] = {}
+    cells: Dict[int, Dict[str, Dict[str, np.ndarray]]] = {}
+    for path, p in _flatten(params):
+        slots: Dict[str, np.ndarray] = {"_shape": np.asarray(p.shape)}
+        if adam:
+            slots.update({k: _leaf(parts["adam"][k], path) for k in ("mu", "nu")})
+        else:
+            factored = factored_dims(p.shape) is not None
+            for k in (("v_row", "v_col") if factored else ("v",)):
+                slots[k] = _leaf(parts["factored"][k], path)
+            if "ema" in parts:
+                slots["ema"] = _leaf(parts["ema"]["ema"], path)
+        cell = re.fullmatch(r"OptimizedLSTMCell_(\d+)", path[1]) if len(path) > 2 else None
+        if path[0] == lstm_scope and cell:
+            cells.setdefault(int(cell[1]), {})["/".join(path[2:])] = slots
+            continue
+        if adam:
+            slots = {k: _to_torch_layout(path, v) for k, v in slots.items() if k != "_shape"}
+        per_leaf[_torch_name(path)] = {k: v for k, v in slots.items() if k != "_shape"}
+    if cells:
+        layers, bidirectional = lstm_layout()
+        if adam:  # elementwise: concatenated as the parameters are
+            for k in ("mu", "nu"):
+                packed = _pack_lstm_cells({n: {leaf: s[k] for leaf, s in leaves.items()} for n, leaves in cells.items()},
+                                          layers, bidirectional, lstm_scope)
+                for name, value in packed.items():
+                    per_leaf.setdefault(name, {})[k] = value
+        else:
+            per_leaf.update(_pack_adafactor_cells(cells, layers, bidirectional, lstm_scope))
+    count_from = parts["adam"] if adam else parts["factored"]
+    state = {name: {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in slots.items()}
+             for name, slots in per_leaf.items()}
+    return int(np.asarray(count_from["count"])), state
+
+
+def _leaf(tree: Mapping, path: Tuple[str, ...]) -> np.ndarray:
+    for key in path:
+        tree = tree[key]
+    return np.asarray(tree, dtype=np.float32)
+
+
+def train_state_from_flax(restored: Mapping, config: ModelConfig, seed: int = 0) -> dict:
+    """A JAX ``TrainState`` checkpoint as restored without a template
+    (``{"step", "params", "batch_stats", "opt_state", "rng", "iterator"}``
+    as nested dicts and lists of arrays) → the payload of the port's
+    ``train/checkpoint.py``: model state dict, optimizer count and state,
+    step, the data-iterator cursor.  The PRNG key cannot cross frameworks:
+    the port's generator is seeded from ``seed`` at restore, and its dropout
+    from ``seed`` and the step (`train.state.TrainState`)."""
+    variables = {"params": restored["params"], "batch_stats": restored.get("batch_stats", {})}
+    layout = (lambda: (config.decoder.lstm_layers, config.decoder.bidirectional))
+    count, opt = optimizer_state_from_optax(restored["opt_state"], restored["params"], lstm_layout=layout)
+    it = restored.get("iterator") or {"epoch": -1, "step": 0}
+    return {
+        "step": int(np.asarray(restored["step"])),
+        "seed": int(seed),
+        "model": flax_to_state_dict(variables, config),
+        "optimizer": {"count": count, "state": opt},
+        "generator": None,
+        "iterator": {"epoch": int(np.asarray(it["epoch"])), "step": int(np.asarray(it["step"]))},
+    }

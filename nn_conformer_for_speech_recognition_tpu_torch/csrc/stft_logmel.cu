@@ -344,7 +344,8 @@ stft_logmel_tc_kernel(const float* __restrict__ audio, const float* __restrict__
 #pragma unroll
   for (int i = 0; i < kMelSlots; ++i) {
     const int c = grp + kGroups * i;
-    if (c < mels) as[mf * ld_out + c] = logf(fmaxf(mel[i], log_floor));
+    // not fmaxf, which drops a NaN: a NaN sample stays NaN, as in the twin and jnp.maximum
+    if (c < mels) as[mf * ld_out + c] = logf(mel[i] < log_floor ? log_floor : mel[i]);
   }
   __syncthreads();
   const int rows = static_cast<int>(min(static_cast<long long>(kFrames), total - r0));

@@ -41,14 +41,25 @@ def gather_rows(audio, alen, targets, tlen, idx):
 
 class DeviceResidentDataset:
     """All audio and targets of ``source`` resident on ``device`` (the
-    first CUDA device unless the caller names another; ``device="cpu"``
-    for the CPU), padded to ``pad_to`` samples (the source's largest bucket
-    by default); batches gathered on the device."""
+    first CUDA device unless the caller names another, under ``torchrun``
+    the rank's card; ``device="cpu"`` for the CPU), padded to ``pad_to``
+    samples (the source's largest bucket by default); batches gathered on
+    the device.
+
+    ``sharding`` (a `parallel.mesh.DataShard`, data parallelism): every
+    rank holds the whole corpus, as the JAX class placed by a replicated
+    sharding does, and its trainer gathers the rank's rows of each global
+    batch from the one order matrix (`train.loop.make_epoch_scan_step`);
+    the batch size must divide over the ranks."""
 
     def __init__(self, source: BucketedDataset, pad_to: Optional[int] = None, device=None, sharding=None):
-        if sharding is not None:
-            raise NotImplementedError("a sharded resident dataset is not ported yet: Multi-GPU")
+        from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import DataShard
         from nn_conformer_for_speech_recognition_tpu_torch.train.loop import resolve_device
+
+        if sharding is not None:
+            if not isinstance(sharding, DataShard):
+                raise TypeError(f"sharding must be a parallel.mesh.DataShard, got {type(sharding).__name__}")
+            sharding.rows(source.batch_size)  # raises where the batch does not divide over the ranks
 
         self.device = resolve_device(device)
         self.vocab = source.vocab

@@ -42,6 +42,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.attention import (
     flash_relpos_attention_plain,
 )
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.depthwise_conv import depthwise_conv1d
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import all_reduce_sum, process_group_active
 
 NEG_INF = -1e30  # the JAX module's key-mask value
 CONV_NORMS = ("batchnorm", "groupnorm", "layernorm")
@@ -78,7 +79,15 @@ class MaskedBatchNorm(nn.Module):
     statistics (biased variance over valid frames); eval mode normalises
     with the running statistics.  Training updates them as
     ``running = momentum * running + (1 - momentum) * batch`` unless
-    ``update_stats`` is off (a rematerialised block's recompute)."""
+    ``update_stats`` is off (a rematerialised block's recompute).
+
+    Under a process group (data parallelism, `parallel.mesh`) the
+    statistics are the global batch's, as GSPMD gives the JAX module: the
+    masked sum and count, then the masked sum of squared deviations, are
+    summed over the ranks by a differentiable all-reduce, so the gradient
+    goes through the global statistics and every rank updates the running
+    ones alike.  A rematerialised block's recompute issues the same two
+    all-reduces again, in the same order on every rank."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -92,9 +101,15 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             m = mask[..., None].to(x.dtype)
-            denom = torch.clamp_min(m.sum(), 1.0)
-            mean = (x * m).sum(dim=(0, 1)) / denom
-            var = (((x - mean) ** 2) * m).sum(dim=(0, 1)) / denom
+            total, count = (x * m).sum(dim=(0, 1)), m.sum()
+            spread = process_group_active()
+            if spread:
+                both = all_reduce_sum(torch.cat([total, count.reshape(1)]))
+                total, count = both[:-1], both[-1]
+            denom = torch.clamp_min(count, 1.0)
+            mean = total / denom
+            squares = (((x - mean) ** 2) * m).sum(dim=(0, 1))
+            var = (all_reduce_sum(squares) if spread else squares) / denom
             if self.update_stats:
                 mom = self.momentum
                 self.running_mean.mul_(mom).add_((1 - mom) * mean.detach().float())

@@ -10,7 +10,9 @@ kept whole:
 
 Mixing is a manifest merge and every generation checkpoints, so the loop is
 resumable per generation.  The trainer is left holding the best
-*generation*: the model it was given is never a candidate.
+*generation*: the model it was given is never a candidate.  Under a process
+group (a data-parallel `Trainer`) every rank runs the loop on the gathered
+labels, and rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import (
     mix_datasets,
     save_manifest,
 )
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import is_main_process
 from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
 
 
@@ -105,6 +108,7 @@ def run_nst(
                  "val_loss": res.val_loss}
         if work_dir:
             entry["ckpt"] = os.path.join(work_dir, f"ckpt_gen{res.generation}")
+        if work_dir and is_main_process():
             hist = []
             if os.path.exists(history_path):
                 with open(history_path) as f:
@@ -114,7 +118,7 @@ def run_nst(
                                                "val_loss", "ckpt")})
             with open(history_path, "w") as f:
                 json.dump(sorted(hist, key=lambda h: h["generation"]), f)
-        else:
+        if not work_dir:
             entry["state"] = copy.deepcopy(trainer.state)
         candidates.append(entry)
 
@@ -207,7 +211,7 @@ def run_nst(
             labels, unk_tol=cfg.unk_tolerance, max_target_len=cfg.max_target_len
         )
         mixed_utts = mix_datasets(supervised.utterances, pseudo)
-        if work_dir:
+        if work_dir and is_main_process():
             os.makedirs(work_dir, exist_ok=True)
             save_manifest(os.path.join(work_dir, f"mix_gen{gen}.tsv"), mixed_utts)
 

@@ -211,4 +211,4 @@ def ctc_beam_search(
 def ctc_beam_search_sharded(*args, **kwargs):
     """The vocabulary-sharded beam search (log-probs split over a model
     axis, candidates exchanged by collectives)."""
-    raise NotImplementedError("ctc_beam_search_sharded is not ported yet: Multi-GPU")
+    raise NotImplementedError("ctc_beam_search_sharded is not ported yet: ROADMAP Queue 1 item 13b, Multi-GPU")

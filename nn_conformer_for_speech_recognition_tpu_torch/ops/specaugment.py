@@ -23,6 +23,7 @@ a TPU workaround.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -40,6 +41,10 @@ class SpecAugmentDraws:
     time_start: torch.Tensor  # (B, time_mask_n) int64
     time_width: torch.Tensor  # (B, time_mask_n) int64
     time_active: torch.Tensor  # (B,) int64: masks in use (adaptive multiplicity)
+
+    def rows(self, rows: slice) -> "SpecAugmentDraws":
+        """The draws of the given rows (a data-parallel rank's share)."""
+        return SpecAugmentDraws(*(getattr(self, f.name)[rows] for f in dataclasses.fields(self)))
 
 
 def _randint(generator: torch.Generator, high: torch.Tensor) -> torch.Tensor:
@@ -130,6 +135,13 @@ def specaugment(
     return apply_specaugment(features, frame_lengths, draws, cfg)
 
 
-def add_gaussian_noise(audio: torch.Tensor, generator: torch.Generator, std: float = 0.01) -> torch.Tensor:
-    """Waveform-level gaussian noise."""
-    return audio + std * torch.randn(audio.shape, generator=generator, device=audio.device, dtype=audio.dtype)
+def add_gaussian_noise(
+    audio: torch.Tensor, generator: torch.Generator, std: float = 0.01, batch: Optional[int] = None,
+    rows: slice = slice(None),
+) -> torch.Tensor:
+    """Waveform-level gaussian noise.  Where ``audio`` holds the ``rows`` of
+    a global batch of ``batch`` rows (a data-parallel rank's share), the
+    noise is drawn for the global batch and those rows of it are added."""
+    shape = audio.shape if batch is None else (batch, audio.shape[1])
+    noise = torch.randn(shape, generator=generator, device=audio.device, dtype=audio.dtype)
+    return audio + std * noise[rows]

@@ -5,7 +5,9 @@
 A checkpoint is a directory holding ``state.pt``: the model's
 ``state_dict`` (parameters and batch statistics), the Adafactor state and
 its count, the step, the seed, the state of the ``torch.Generator`` that
-SpecAugment and the waveform noise draw from, and the data-iterator cursor
+SpecAugment and the waveform noise draw from (None in a checkpoint
+converted from the JAX package: the generator is then seeded from the
+seed, as `TrainState.create` seeds it), and the data-iterator cursor
 ``{"epoch", "step"}``.  The epoch stream is a function of (seed, epoch), so
 the cursor is complete: a resumed run skips ``step`` batches of epoch
 ``epoch`` and continues bit for bit.  The layout of a checkpoint directory
@@ -13,6 +15,9 @@ tree (``step_%08d``, ``best``) is the JAX package's.
 
 Restoring copies into the template state's own tensors, so the step
 functions bound to its model keep working, and returns that state.
+
+Under a process group (data parallelism) rank 0 writes and rotates while
+the others wait at a barrier; every rank restores.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Dict, Optional
 
 import torch
 
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import barrier, is_main_process
 from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
@@ -45,7 +51,14 @@ def _payload(state: TrainState, iterator: Optional[dict] = None) -> dict:
 
 def save_state(path: str, state: TrainState, iterator: Optional[dict] = None) -> None:
     """Writes ``path/state.pt``; the file appears under its name only once
-    it is complete."""
+    it is complete.  Under a process group rank 0 writes and every rank
+    returns once it has."""
+    if is_main_process():
+        _write_state(path, state, iterator)
+    barrier()
+
+
+def _write_state(path: str, state: TrainState, iterator: Optional[dict]) -> None:
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f"{STATE_FILE}.{os.getpid()}.tmp")
@@ -72,8 +85,11 @@ def restore_state(path: str, template: TrainState, with_iterator: bool = False):
             raise ValueError(f"checkpoint and optimizer disagree on the state of {name}")
         opt.state[name] = {k: v.to(device) for k, v in slots.items()}
     opt.count = int(saved["optimizer"]["count"])
-    template.generator.set_state(saved["generator"].cpu())
     template.step, template.seed = int(saved["step"]), int(saved["seed"])
+    if saved["generator"] is None:  # converted from the JAX package (`convert.train_state_from_flax`)
+        template.generator.manual_seed(template.seed)
+    else:
+        template.generator.set_state(saved["generator"].cpu())
     if with_iterator:
         it = {"epoch": int(saved["iterator"]["epoch"]), "step": int(saved["iterator"]["step"])}
         return template, (it if it["epoch"] >= 0 else None)
@@ -93,7 +109,8 @@ def restore_encoder_params(path: str, model: torch.nn.Module) -> None:
 
 class CheckpointManager:
     """Rotating checkpoint manager: keeps the newest ``keep`` checkpoints
-    (``step_%08d``), plus ``best`` by the lowest metric given."""
+    (``step_%08d``), plus ``best`` by the lowest metric given; under a
+    process group rank 0 writes and rotates, the others wait."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = os.path.abspath(directory)
@@ -113,16 +130,19 @@ class CheckpointManager:
 
     def save(self, state: TrainState, metric: Optional[float] = None, iterator: Optional[dict] = None) -> str:
         path = os.path.join(self.directory, f"step_{int(state.step):08d}")
-        save_state(path, state, iterator=iterator)
-        if metric is not None and (self.best_metric is None or metric < self.best_metric):
+        best = metric is not None and (self.best_metric is None or metric < self.best_metric)
+        if best:
             self.best_metric = metric
-            best = os.path.join(self.directory, "best")
-            shutil.rmtree(best, ignore_errors=True)
-            shutil.copytree(path, best)
-        dirs = self._step_dirs()
-        while len(dirs) > self.keep:
-            _, name = dirs.pop(0)
-            shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        if is_main_process():
+            _write_state(path, state, iterator)
+            if best:
+                shutil.rmtree(os.path.join(self.directory, "best"), ignore_errors=True)
+                shutil.copytree(path, os.path.join(self.directory, "best"))
+            dirs = self._step_dirs()
+            while len(dirs) > self.keep:
+                _, name = dirs.pop(0)
+                shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+        barrier()
         return path
 
     def latest(self) -> Optional[str]:

@@ -20,10 +20,21 @@ one call of `make_epoch_scan_step` (in chunks where mid-epoch checkpoints
 are asked for) that pulls nothing to the host before it ends.  It runs on
 the first CUDA device unless the caller asks for ``device="cpu"``.
 
+Data parallelism (`parallel.mesh`): under a process group, one card a
+process, the trainer reads every global batch on every rank and computes on
+its contiguous share of the rows (`parallel.mesh.DataShard`).  The loss
+divides by the global count of rows with a target, the masked BatchNorm
+takes the global batch's statistics, one all-reduce of the flat gradient
+follows the backward, and the optimizer then runs alike on every rank;
+SpecAugment and the waveform noise are drawn for the global batch and
+sliced, so the ranks together compute one process's step on the whole
+batch.  `Trainer.evaluate` and `Trainer.generate_labels` gather their
+results (`parallel.multihost`); checkpoints are written by rank 0.
+
 Not ported, as TPU scheduler workarounds: the ``optimization_barrier``
 fence between the augment and train halves and the hardware-RNG dropout
 key.  Not ported yet, and refused with ``NotImplementedError``: a device
-mesh or sequence parallelism.
+mesh, model or sequence parallelism (ROADMAP Queue 1 item 13b).
 
 Shallow LM fusion: ``lm_apply`` (context ids → LM logits, e.g.
 `models.lm.make_pron_lm_apply`) given to `make_eval_step`,
@@ -42,6 +53,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import (
     FeatureConfig,
@@ -59,8 +71,25 @@ from nn_conformer_for_speech_recognition_tpu_torch.models.lm import shallow_fusi
 from nn_conformer_for_speech_recognition_tpu_torch.ops.ctc import ctc_loss
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.ctc import ctc_loss_kernel
 from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import ctc_beam_search, greedy_decode
-from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
-from nn_conformer_for_speech_recognition_tpu_torch.ops.specaugment import add_gaussian_noise, specaugment
+from nn_conformer_for_speech_recognition_tpu_torch.ops.features import frame_lengths_of, make_featurizer
+from nn_conformer_for_speech_recognition_tpu_torch.ops.specaugment import (
+    add_gaussian_noise,
+    apply_specaugment,
+    draw_specaugment,
+    specaugment,
+)
+from nn_conformer_for_speech_recognition_tpu_torch.parallel import multihost as MH
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import (
+    ITEM_13B,
+    DataShard,
+    all_reduce_sum,
+    batch_rows,
+    broadcast_module,
+    check_mesh_config,
+    data_shard,
+    is_main_process,
+    process_group_active,
+)
 from nn_conformer_for_speech_recognition_tpu_torch.train import metrics as M
 from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import (
     CheckpointManager,
@@ -82,13 +111,38 @@ def _select_ctc(ctc_impl: str) -> Callable[..., torch.Tensor]:
     return ctc_loss
 
 
-def _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id) -> torch.Tensor:
+def _batch_loss(
+    ctc, log_probs, targets, out_lengths, target_lengths, blank_id, global_rows: bool = False
+) -> torch.Tensor:
     """Per-sequence CTC over the target length, averaged over the rows
-    that have a target (``target_lengths > 0``)."""
+    that have a target (``target_lengths > 0``).  With ``global_rows`` (a
+    data-parallel rank's share of a batch) the count of such rows is
+    summed over the process group: each rank's loss is then its share of
+    the global batch's mean, and a rank that holds only batch padding adds
+    zero."""
     per_seq = ctc(log_probs, targets, out_lengths, target_lengths, blank_id=blank_id, reduction=None)
     w = (target_lengths > 0).to(per_seq.dtype)
     denom = torch.clamp_min(target_lengths, 1).to(per_seq.dtype)
-    return (per_seq / denom * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    count = w.sum()
+    if global_rows:
+        count = all_reduce_sum(count)
+    return (per_seq / denom * w).sum() / torch.clamp_min(count, 1.0)
+
+
+def _all_reduce_gradients(model: torch.nn.Module, loss: torch.Tensor) -> torch.Tensor:
+    """Sums every parameter's gradient, and the loss, over the process
+    group in one all-reduce of a flat buffer; returns the global loss."""
+    named = list(model.named_parameters())
+    missing = [name for name, p in named if p.grad is None]
+    if missing:
+        raise RuntimeError(f"no gradient for {missing[:4]}: every rank must reduce the same buffer")
+    grads = [p.grad for _, p in named]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1).to(grads[0].dtype)])
+    dist.all_reduce(flat)
+    with torch.no_grad():  # one multi-tensor copy back, not one launch a parameter
+        parts = torch.split(flat[:-1], [g.numel() for g in grads])
+        torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(grads, parts)])
+    return flat[-1].to(loss.dtype)
 
 
 def optax_global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -100,19 +154,29 @@ def make_augment_step(
     sa_cfg: SpecAugmentConfig,
     use_specaugment: bool = True,
     noise_std: float = 0.0,
-) -> Callable[[torch.Generator, torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
-    """Returns ``augment(generator, audio, audio_lengths) → (features,
-    frame_lengths)``: optional waveform noise, log-mel features (the STFT
-    kernel on CUDA), SpecAugment, all drawn from ``generator``."""
+    shard: Optional[DataShard] = None,
+) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """Returns ``augment(generator, audio, audio_lengths, batch_lengths=None)
+    → (features, frame_lengths)``: optional waveform noise, log-mel features
+    (the STFT kernel on CUDA), SpecAugment, all drawn from ``generator``.
+    With ``shard`` the audio is that rank's rows of a global batch whose
+    (B,) sample counts are ``batch_lengths``: the noise and the SpecAugment
+    draws are made for the global batch from the generator, which every
+    rank advances alike, and the rank's rows of them are applied."""
     featurize = make_featurizer(feat_cfg)
 
     @torch.no_grad()
-    def augment(generator, audio, audio_lengths):
+    def augment(generator, audio, audio_lengths, batch_lengths=None):
+        batch = None if shard is None else batch_lengths.shape[0]
+        rows = slice(None) if shard is None else shard.rows(batch)
         if noise_std > 0.0:
-            audio = add_gaussian_noise(audio, generator, noise_std)
+            audio = add_gaussian_noise(audio, generator, noise_std, batch=batch, rows=rows)
         feats, frame_lengths = featurize(audio, audio_lengths)
-        if use_specaugment:
+        if use_specaugment and shard is None:
             feats = specaugment(feats, frame_lengths, sa_cfg, generator)
+        elif use_specaugment:
+            draws = draw_specaugment(frame_lengths_of(batch_lengths, feat_cfg), feats.shape[2], sa_cfg, generator)
+            feats = apply_specaugment(feats, frame_lengths, draws.rows(rows), sa_cfg)
         return feats, frame_lengths
 
     return augment
@@ -124,6 +188,7 @@ def make_feature_train_step(
     ctc_impl: str = "auto",
     emit_ids: bool = False,
     pad_id: int = 0,
+    shard: Optional[DataShard] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns ``train_step(state, feats, frame_lengths, targets,
     target_lengths) → (state, metrics)``: forward in train mode, CTC loss,
@@ -131,8 +196,16 @@ def make_feature_train_step(
     ``grad_norm`` (of the gradients before the update), and with
     ``emit_ids`` the greedy ids of the training forward and their lengths.
     Dropout draws from the device generator seeded by
-    ``state.dropout_seed()``; the global RNG state is restored after."""
+    ``state.dropout_seed()``; the global RNG state is restored after.
+
+    With ``shard`` (data parallelism) the inputs are that rank's rows of a
+    global batch: the loss divides by the global count of rows with a
+    target, the gradients and the loss are summed over the process group
+    after the backward (one all-reduce), so the update, the norm and the
+    reported loss are the global batch's on every rank; the dropout seed
+    folds in the rank."""
     ctc = _select_ctc(ctc_impl)
+    rank = 0 if shard is None else shard.rank
 
     def train_step(state: TrainState, feats, frame_lengths, targets, target_lengths):
         if state.model is not model:
@@ -141,10 +214,13 @@ def make_feature_train_step(
         model.zero_grad(set_to_none=True)
         devices = [feats.device] if feats.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(state.dropout_seed())
+            torch.manual_seed(state.dropout_seed(rank))
             log_probs, out_lengths = model(feats, frame_lengths)
-            loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id)
+            loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id,
+                               global_rows=shard is not None)
             loss.backward()
+        if shard is not None:
+            loss = _all_reduce_gradients(model, loss)
         grad_norm = optax_global_norm(p.grad for p in model.parameters())
         state.apply_gradients()
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
@@ -166,15 +242,18 @@ def make_train_step(
     ctc_impl: str = "auto",
     emit_ids: bool = False,
     pad_id: int = 0,
+    shard: Optional[DataShard] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """``train_step(state, audio, audio_lengths, targets, target_lengths)
-    → (state, metrics)``: `make_augment_step` (drawing from
-    ``state.generator``) then `make_feature_train_step`."""
-    augment = make_augment_step(feat_cfg, sa_cfg, use_specaugment, noise_std)
-    core = make_feature_train_step(model, blank_id, ctc_impl, emit_ids=emit_ids, pad_id=pad_id)
+    """``train_step(state, audio, audio_lengths, targets, target_lengths,
+    batch_lengths=None) → (state, metrics)``: `make_augment_step` (drawing
+    from ``state.generator``) then `make_feature_train_step`; with
+    ``shard``, on that rank's rows of a global batch whose sample counts
+    are ``batch_lengths``."""
+    augment = make_augment_step(feat_cfg, sa_cfg, use_specaugment, noise_std, shard=shard)
+    core = make_feature_train_step(model, blank_id, ctc_impl, emit_ids=emit_ids, pad_id=pad_id, shard=shard)
 
-    def train_step(state: TrainState, audio, audio_lengths, targets, target_lengths):
-        feats, frame_lengths = augment(state.generator, audio, audio_lengths)
+    def train_step(state: TrainState, audio, audio_lengths, targets, target_lengths, batch_lengths=None):
+        feats, frame_lengths = augment(state.generator, audio, audio_lengths, batch_lengths)
         return core(state, feats, frame_lengths, targets, target_lengths)
 
     return train_step
@@ -188,7 +267,7 @@ def make_epoch_scan_step(
     use_specaugment: bool = True,
     noise_std: float = 0.0,
     ctc_impl: str = "auto",
-    batch_sharding=None,
+    batch_sharding: Optional[DataShard] = None,
     emit_ids: bool = False,
     pad_id: int = 0,
 ) -> Callable[..., Tuple[TrainState, Tuple[torch.Tensor, ...]]]:
@@ -203,16 +282,27 @@ def make_epoch_scan_step(
     ``emit_ids``, the (steps, B, T') greedy ids of the training forwards.
     Nothing is pulled to the host, so an epoch on the card is queued
     without a wait; a call over one row at a time runs the same operations
-    in the same order as one call over all of them."""
-    if batch_sharding is not None:
-        raise NotImplementedError("batch_sharding is not ported yet: Multi-GPU")
+    in the same order as one call over all of them.
+
+    ``batch_sharding`` (a `parallel.mesh.DataShard`, data parallelism):
+    every rank holds the whole resident corpus and the same order, and
+    gathers its rows of each order row; the sample counts of the whole row
+    go to the augment step (the global batch's draws), the losses are the
+    global batch's and ``ids`` the rank's rows'."""
+    if batch_sharding is not None and not isinstance(batch_sharding, DataShard):
+        raise TypeError(f"batch_sharding must be a parallel.mesh.DataShard, got {type(batch_sharding).__name__}")
     step = make_train_step(model, feat_cfg, sa_cfg, blank_id, use_specaugment=use_specaugment, noise_std=noise_std,
-                           ctc_impl=ctc_impl, emit_ids=emit_ids, pad_id=pad_id)
+                           ctc_impl=ctc_impl, emit_ids=emit_ids, pad_id=pad_id, shard=batch_sharding)
 
     def epoch(state: TrainState, audio, alen, targets, tlen, order):
         losses, sizes, ids = [], [], []
         for idx in order:
-            state, metrics = step(state, *gather_rows(audio, alen, targets, tlen, idx))
+            if batch_sharding is None:
+                state, metrics = step(state, *gather_rows(audio, alen, targets, tlen, idx))
+            else:
+                batch_lengths = alen.index_select(0, torch.clamp_min(idx, 0)) * (idx >= 0)
+                local = gather_rows(audio, alen, targets, tlen, idx[batch_sharding.rows(idx.shape[0])])
+                state, metrics = step(state, *local, batch_lengths)
             losses.append(metrics["loss"])
             sizes.append((idx >= 0).sum())
             if emit_ids:
@@ -329,6 +419,18 @@ def make_eval_beam_step(
     return step
 
 
+def _wer_words(refs: List[str], hyps: List[str], protocol: str) -> int:
+    """The word count a WER protocol divides by (`train.metrics`): the
+    references' words, or under 'padded' the longer of each pair's."""
+    if protocol == "padded":
+        return sum(max(len(r.split()), len(h.split())) for r, h in zip(refs, hyps))
+    return sum(len(r.split()) for r in refs)
+
+
+def _in_order(texts: Dict[int, str]) -> List[str]:
+    return [texts[k] for k in sorted(texts)]
+
+
 def mean_of_steps(losses: List[torch.Tensor]) -> float:
     """The mean of per-step losses, pulled from the device at once and
     summed on the host (the JAX trainers' ``total += float(loss)``)."""
@@ -336,17 +438,23 @@ def mean_of_steps(losses: List[torch.Tensor]) -> float:
     return sum(float(x) for x in pulled) / max(len(pulled), 1)
 
 
-def refuse_mesh(mesh, mesh_cfg: MeshConfig) -> None:
-    """The port runs on one device: a mesh, model parallelism, sequence
-    parallelism or kernel sharding raises."""
-    if mesh is not None or mesh_cfg.model_parallel_size != 1 or mesh_cfg.seq_parallel or mesh_cfg.shard_map_kernels:
-        raise NotImplementedError("a device mesh or seq_parallel is not ported yet: Multi-GPU")
+def refuse_mesh(mesh, mesh_cfg: MeshConfig, data_parallel: bool = False) -> None:
+    """A device mesh, model parallelism, sequence parallelism or kernel
+    sharding raises (ROADMAP Queue 1 item 13b).  A trainer that does not
+    train data-parallel (``data_parallel`` false: the LM and pretraining
+    trainers) also refuses a process group."""
+    if mesh is not None:
+        raise NotImplementedError(f"a device mesh is not ported yet: {ITEM_13B}")
+    check_mesh_config(mesh_cfg)
+    if not data_parallel and process_group_active():
+        raise NotImplementedError(f"this trainer under a process group is not ported yet: {ITEM_13B}")
 
 
 def resolve_device(device=None) -> torch.device:
     """The first CUDA device, unless the caller names another; where a CUDA
     device is wanted (by default, or by name) and there is none this raises
-    rather than run on the CPU."""
+    rather than run on the CPU.  Under ``torchrun`` the current device is
+    the rank's card (`parallel.mesh.initialize_multihost` set it)."""
     if device is not None and torch.device(device).type != "cuda":
         return torch.device(device)
     if not torch.cuda.is_available():
@@ -364,6 +472,12 @@ class Trainer:
     parameters and batch statistics), the optimizer and `TrainState`;
     assigning a state that holds another model (a deep copy kept by
     `run_nst`) makes that model the trainer's.
+
+    Under a process group (``torchrun``, `parallel.mesh.initialize_multihost`)
+    the trainer trains data-parallel over its ranks, one card each, as the
+    JAX trainer trains over every device it sees: each rank reads the same
+    global batches and computes on its share of the rows, and only rank 0
+    logs.  ``mesh`` (a JAX device mesh) has no counterpart and raises.
     """
 
     def __init__(
@@ -380,13 +494,15 @@ class Trainer:
         lm_weight: float = 0.3,
         device=None,
     ):
-        refuse_mesh(mesh, mesh_cfg)
+        refuse_mesh(mesh, mesh_cfg, data_parallel=True)
         self.device = resolve_device(device)
+        # the rank's share of every batch, or None without a process group
+        self.shard: Optional[DataShard] = data_shard() if process_group_active() else None
         self.vocab = vocab
         self.feat_cfg = feat_cfg
         self.train_cfg = train_cfg
         self.mesh_cfg = mesh_cfg
-        self.log = log_fn
+        self.log = log_fn if is_main_process() else (lambda _: None)
         self.lm_apply, self.lm_weight = lm_apply, lm_weight
         self.opt_cfg = train_cfg.optimizer
         if learning_rate is not None:
@@ -402,7 +518,7 @@ class Trainer:
         blank, pad = self.vocab.blank_id, self.vocab.pad_id
         cfg = self.train_cfg
         self._train_core = make_feature_train_step(
-            model, blank, ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=pad)
+            model, blank, ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=pad, shard=self.shard)
         # composed (augment ∘ core) steps, keyed by (use_specaugment,
         # noise_std), so that a caller (the NST retrain) can override the
         # augmentation per train() call
@@ -437,7 +553,8 @@ class Trainer:
         ``variables``, the ``{"params", "batch_stats"}`` of the JAX package's
         model, converted), batch statistics at their start values, a new
         optimizer.  ``example`` is accepted for the JAX package's signature;
-        no shape needs tracing here."""
+        no shape needs tracing here.  Under a process group every rank then
+        takes rank 0's parameters and batch statistics."""
         del example
         if variables is not None:
             self.model.load_state_dict(flax_to_state_dict(variables, self.model.config), strict=True)
@@ -448,9 +565,25 @@ class Trainer:
                     if isinstance(m, MaskedBatchNorm):
                         m.running_mean.zero_()
                         m.running_var.fill_(1.0)
+        if self.shard is not None:
+            broadcast_module(self.model)
         optimizer = make_optimizer(self.opt_cfg, self.model.named_parameters())
         self._state = TrainState.create(self.model, optimizer, seed)
         return self._state
+
+    def _local(self, batch: Batch) -> Batch:
+        """The rank's rows of a global batch (the batch itself without a
+        process group)."""
+        return batch if self.shard is None else batch_rows(batch, self.shard.rank, self.shard.world)
+
+    def _batch_lengths(self, batch: Batch) -> Optional[torch.Tensor]:
+        """The (B,) sample counts of the whole global batch on the device,
+        for the data-parallel augment step's draws; None without a process
+        group."""
+        if self.shard is None:
+            return None
+        x = batch.audio_lengths
+        return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(self.device)
 
     def _put(self, batch: Batch):
         """The batch's arrays on the trainer's device: host arrays copied
@@ -472,11 +605,11 @@ class Trainer:
         key = (bool(sa), float(noise_std))
         if key not in self._step_cache:
             augment = make_augment_step(self.feat_cfg, self.train_cfg.specaugment,
-                                        use_specaugment=key[0], noise_std=key[1])
+                                        use_specaugment=key[0], noise_std=key[1], shard=self.shard)
             core = self._train_core
 
-            def step(state, audio, audio_lengths, targets, target_lengths):
-                feats, frame_lengths = augment(state.generator, audio, audio_lengths)
+            def step(state, audio, audio_lengths, targets, target_lengths, batch_lengths=None):
+                feats, frame_lengths = augment(state.generator, audio, audio_lengths, batch_lengths)
                 return core(state, feats, frame_lengths, targets, target_lengths)
 
             self._step_cache[key] = step
@@ -550,12 +683,13 @@ class Trainer:
             step_ids = []  # (ids on the device, indices) when train_wer is on
             step_i = skip
             for batch in PrefetchIterator(stream):
-                audio, alen, tgt, tlen = self._put(batch)
-                self.state, metrics = step_fn(self.state, audio, alen, tgt, tlen)
+                local = self._local(batch)
+                audio, alen, tgt, tlen = self._put(local)
+                self.state, metrics = step_fn(self.state, audio, alen, tgt, tlen, self._batch_lengths(batch))
                 step_losses.append(metrics["loss"])
                 step_sizes.append(batch.size)
                 if want_wer:
-                    step_ids.append((metrics["ids"], batch.indices.copy()))
+                    step_ids.append((metrics["ids"], local.indices.copy()))
                 audio_seconds += float(batch.audio_lengths.sum()) / self.feat_cfg.sample_rate
                 step_i += 1
                 if ckpt_every and checkpoint_manager is not None and step_i % ckpt_every == 0:
@@ -635,7 +769,8 @@ class Trainer:
 
     def _train_wer_from_steps(self, dataset, step_ids) -> float:
         """Corpus WER of the training forward's greedy decodes, pulled at
-        epoch end."""
+        epoch end; under a process group each rank scores its rows and the
+        WERs are reduced weighted by their reference words."""
         refs: List[str] = []
         hyps: List[str] = []
         for ids_dev, indices in step_ids:
@@ -645,6 +780,10 @@ class Trainer:
                     continue
                 refs.append(dataset.utterances[int(idx)].transcript)
                 hyps.append(self.vocab.decode_ids(ids[row]))
+        if self.shard is not None:
+            words = _wer_words(refs, hyps, "standard")
+            twer, total = MH.gather_metric(M.wer(refs, hyps), words)
+            return twer if total else float("nan")
         return M.wer(refs, hyps) if refs else float("nan")
 
     def _epoch_scan_fn(self, use_specaugment: Optional[bool] = None, noise_std: float = 0.0):
@@ -656,7 +795,8 @@ class Trainer:
             cfg = self.train_cfg
             self._epoch_scans[key] = make_epoch_scan_step(
                 self.model, self.feat_cfg, cfg.specaugment, self.vocab.blank_id, use_specaugment=key[0],
-                noise_std=key[1], ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=self.vocab.pad_id)
+                noise_std=key[1], ctc_impl=cfg.ctc_impl, batch_sharding=self.shard, emit_ids=cfg.train_wer,
+                pad_id=self.vocab.pad_id)
         return self._epoch_scans[key]
 
     def _upload_order(self, order: np.ndarray) -> torch.Tensor:
@@ -751,7 +891,8 @@ class Trainer:
             msg = (f"epoch {epoch_offset + epoch}: loss={mean_loss:.4f} "
                    f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s{', fused epoch' if fused else ''})")
             if want_wer:
-                twer = self._train_wer_from_steps(dataset, list(zip(outs[2], order)) if outs else [])
+                rows = order if self.shard is None else order[:, self.shard.rows(order.shape[1])]
+                twer = self._train_wer_from_steps(dataset, list(zip(outs[2], rows)) if outs else [])
                 self.history["train_wer"].append(twer)
                 msg += f" train_wer={100 * twer:.2f}"
             if nan_steps:
@@ -785,34 +926,48 @@ class Trainer:
         ``wer_protocol='padded'`` scores with the '_'-padded alignment
         (`train/metrics.padded_wer`).  ``return_texts=True`` returns (loss,
         wer, refs, hyps).  ``dump_path`` receives the first prediction and
-        its target."""
+        its target.
+
+        Under a process group each rank decodes its rows of every batch;
+        the loss and the WER are reduced by `parallel.multihost.gather_metric`
+        (weighted by rows, and by the words the protocol counts), and the
+        texts, with ``return_texts``, gathered in the dataset's order."""
         self._require_state()
         if decode not in ("greedy", "beam"):
             raise ValueError(f"decode must be 'greedy' or 'beam', got {decode!r}")
         losses = M.Mean()
         refs: List[str] = []
         hyps: List[str] = []
-        for batch in dataset.epoch(shuffle=False):
+        places: List[int] = []  # each text's row in the epoch, for the gather
+        for number, batch in enumerate(dataset.epoch(shuffle=False)):
+            local = self._local(batch)
+            first = number * len(batch.indices) + (0 if self.shard is None else self.shard.rows(len(batch.indices)).start)
             if decode == "beam":
-                loss, toks, lens = self._eval_beam_step(*self._put(batch))
+                loss, toks, lens = self._eval_beam_step(*self._put(local))
                 toks, lens = toks.cpu().numpy(), lens.cpu().numpy()
                 # the -1 padding beyond each hypothesis becomes the pad token
                 ids = np.where(np.arange(toks.shape[1])[None, :] < lens[:, None], toks, self.vocab.pad_id)
             else:
-                loss, ids, _ = self._eval_step(*self._put(batch))
+                loss, ids, _ = self._eval_step(*self._put(local))
                 ids = ids.cpu().numpy()
-            losses.update(float(loss), batch.size)
-            for row, idx in enumerate(batch.indices):
+            losses.update(float(loss), local.size)
+            for row, idx in enumerate(local.indices):
                 if idx < 0:
                     continue
                 refs.append(dataset.utterances[int(idx)].transcript)
                 hyps.append(self.vocab.decode_ids(ids[row]))
-        if dump_path and refs:
+                places.append(first + row)
+        if dump_path and refs and is_main_process():
             os.makedirs(os.path.dirname(dump_path) or ".", exist_ok=True)
             with open(dump_path, "w", encoding="utf-8") as f:
                 f.write(f"pred: {hyps[0]}\ntgt:  {refs[0]}\n")
         wer_fn = M.padded_wer if wer_protocol == "padded" else M.wer
         loss, wer = losses.result(), wer_fn(refs, hyps)
+        if self.shard is not None:
+            loss, _ = MH.gather_metric(loss, losses.count)
+            wer, _ = MH.gather_metric(wer, _wer_words(refs, hyps, wer_protocol))
+            if return_texts:
+                refs, hyps = (_in_order(MH.gather_pseudo_labels(dict(zip(places, texts)))) for texts in (refs, hyps))
         if return_texts:
             return loss, wer, refs, hyps
         return loss, wer
@@ -824,10 +979,17 @@ class Trainer:
         pass).  ``index_map`` (local→global index array) keys the returned
         dict by GLOBAL utterance index, for a ``dataset`` that is one
         host's shard of a larger corpus
-        (`data/datasets.shard_utterances_with_indices`)."""
+        (`data/datasets.shard_utterances_with_indices`).
+
+        Under a process group the ranks' labels are unioned
+        (`parallel.multihost.gather_pseudo_labels`): without ``index_map``
+        every rank reads the whole ``dataset`` and decodes its rows of each
+        batch; with it ``dataset`` is the rank's own shard, decoded whole."""
         self._require_state()
         labels: Dict[int, str] = {}
         for batch in dataset.epoch(shuffle=False):
+            if index_map is None:
+                batch = self._local(batch)
             audio, alen, _, _ = self._put(batch)
             ids, _ = self._predict_step(audio, alen)
             ids = ids.cpu().numpy()
@@ -836,7 +998,7 @@ class Trainer:
                     continue
                 key = int(idx) if index_map is None else int(index_map[int(idx)])
                 labels[key] = self.vocab.decode_ids(ids[row])
-        return labels
+        return labels if self.shard is None else MH.gather_pseudo_labels(labels)
 
     # ------------------------------------------------------------ checkpoints
 

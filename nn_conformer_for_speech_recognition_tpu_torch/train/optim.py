@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import OptimizerConfig
-from nn_conformer_for_speech_recognition_tpu_torch.convert import flax_axes
+from nn_conformer_for_speech_recognition_tpu_torch.convert import factored_dims, flax_axes
 
 Schedule = Union[float, Callable[[int], float]]
 # optax.adafactor's defaults, which the JAX package keeps
@@ -61,16 +61,6 @@ def make_schedule(cfg: OptimizerConfig) -> Schedule:
     raise ValueError(f"unknown schedule {cfg.schedule!r}")
 
 
-def _factored_dims(shape: Tuple[int, ...]) -> Optional[Tuple[int, int]]:
-    """(second largest, largest) axis, as optax picks them, or None."""
-    if len(shape) < 2:
-        return None
-    order = np.argsort(shape)
-    if shape[order[-2]] < MIN_DIM_SIZE_TO_FACTOR:
-        return None
-    return int(order[-2]), int(order[-1])
-
-
 class Adafactor:
     """Adafactor over named parameters, updated in place from their
     ``.grad`` by `step`.  State is kept in the JAX package's layout."""
@@ -93,7 +83,7 @@ class Adafactor:
         for name, p in named_params:
             axes = flax_axes(name, p.ndim)
             shape = tuple(p.shape[a] for a in axes)
-            dims = _factored_dims(shape)
+            dims = factored_dims(shape, MIN_DIM_SIZE_TO_FACTOR)
             like = dict(device=p.device, dtype=p.dtype)
             if dims is None:
                 st = {"v": torch.zeros(shape, **like)}

@@ -44,10 +44,13 @@ class TrainState:
             generator=generator, seed=self.seed, step=self.step,
         )
 
-    def dropout_seed(self) -> int:
+    def dropout_seed(self, rank: int = 0) -> int:
         """Seed of the device generator for this step's dropout masks: a
-        step repeated from the same state draws the same masks."""
-        return (self.seed * 1_000_003 + self.step) % (2 ** 63)
+        step repeated from the same state draws the same masks.  ``rank``
+        (data parallelism) is folded in, so that each rank draws its own
+        masks for its rows; rank 0 draws a single process's."""
+        seed = (self.seed * 1_000_003 + self.step) % (2 ** 63)
+        return seed if rank == 0 else (seed * 1_000_003 + rank) % (2 ** 63)
 
     def apply_gradients(self) -> None:
         """One optimizer update from the parameters' ``.grad``."""

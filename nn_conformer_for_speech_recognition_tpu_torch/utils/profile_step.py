@@ -65,7 +65,6 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
     """Profiles ``preset``'s bf16 train step at (batch, seconds,
     target_len), or with ``predict`` its pseudo-label pass at (batch,
     seconds)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from nn_conformer_for_speech_recognition_tpu_torch import config as C
@@ -75,6 +74,7 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
     from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predict_step, make_train_step
     from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
     from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
+    from nn_conformer_for_speech_recognition_tpu_torch.utils.profiling import kernel_groups
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -117,12 +117,7 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
     plain_ms = run(5)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms = run(PROFILED_STEPS)
-    groups = {name: [0.0, 0.0] for name in (*(g for g, _ in GROUPS), REST)}
-    for event in prof.key_averages():
-        if event.device_type == DeviceType.CUDA:  # kernel rows only: the op rows repeat their kernels' time
-            entry = groups[group_of(event.key)]
-            entry[0] += event.self_device_time_total / 1e3 / PROFILED_STEPS
-            entry[1] += event.count / PROFILED_STEPS
+    groups = kernel_groups(prof, PROFILED_STEPS)
     device_ms, launches = sum(g[0] for g in groups.values()), sum(g[1] for g in groups.values())
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")

@@ -109,6 +109,20 @@ def test_stft_logmel_silence_and_quiet_rows(cuda):
     _close(got, ref, 1e-3)
 
 
+def test_stft_logmel_carries_a_nan_as_the_twin_does(cuda):
+    """A NaN sample makes the frames that read it NaN in every mel, as in
+    the twin and the JAX package (``jnp.maximum`` keeps a NaN); the other
+    frames and rows agree as usual."""
+    cfg = FeatureConfig()
+    audio = torch.randn(2, 16000, generator=cuda) * 0.1
+    audio[0, 8000] = float("nan")
+    audio = audio.cuda()
+    got, ref = S.stft_logmel(audio, cfg), S.stft_logmel_plain(audio, cfg)
+    nan = torch.isnan(ref)
+    assert nan[0].any() and torch.equal(torch.isnan(got), nan)
+    _close(got[~nan], ref[~nan], 1e-3)
+
+
 def test_stft_logmel_kernel_is_as_close_to_float64_as_the_twin(cuda):
     """Against the same function in float64, the 3×TF32 kernel's largest
     error is at most twice the float32 twin's (one TF32 pass would be ~100×)."""

@@ -118,7 +118,7 @@ def test_adamw_default_decay_is_optax_default():
     assert inspect.signature(optax.adamw).parameters["weight_decay"].default == ADAMW_WEIGHT_DECAY
 
 
-def test_only_adafactor_is_ported():
+def test_every_optimizer_name_is_built_and_an_unknown_one_refused():
     """Every optimizer name of the JAX package is built; an unknown one is
     refused with the JAX package's ValueError."""
     for name in ("adafactor", "adam", "adamw"):

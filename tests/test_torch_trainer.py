@@ -233,15 +233,17 @@ def test_make_beam_step_matches_jax(corpus, beam_pair):
 def test_what_is_not_ported_raises(corpus):
     _, _, tvocab, _, tdata = corpus
     tr = port_trainer(tvocab)
-    # the resident dataset and the epoch step are ported; their sharded forms are not
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    # the resident dataset and the epoch step take a data-parallel DataShard (ported); anything else raises
+    with pytest.raises(TypeError, match="DataShard"):
         DeviceResidentDataset(tdata["train"], device="cpu", sharding=object())
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(TypeError, match="DataShard"):
         make_epoch_scan_step(tr.model, tr.feat_cfg, tr.train_cfg.specaugment, 0, batch_sharding=object())
     model, cfgs = tr.model, (tr.vocab, tr.feat_cfg, tr.train_cfg)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(NotImplementedError, match="item 13b, Multi-GPU"):
         type(tr)(model, *cfgs, mesh_cfg=TC.MeshConfig(seq_parallel=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
+    with pytest.raises(NotImplementedError, match="item 13b, Multi-GPU"):
+        type(tr)(model, *cfgs, mesh_cfg=TC.MeshConfig(model_parallel_size=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13b, Multi-GPU"):
         type(tr)(model, *cfgs, mesh=object(), device="cpu")
     with pytest.raises(RuntimeError, match="init_state"):
         type(tr)(model, *cfgs, device="cpu").evaluate(tdata["validation"])
