@@ -156,7 +156,18 @@ the checkout at TREE, this one by default: see `ctc_times_main`;
    widths at two blocks, float32) against one process at the CPU tests'
    bars; then ``utils.guards.check_step`` on a step fed a NaN, which must
    raise.
-15. Prints one JSON line with each kernel's numbers, then, as the last line,
+15. Tensor and sequence parallelism (`check_model_parallel`; Conformer-M
+   bf16 at full width, two blocks, the long-form batch B=4 × ≤120 s):
+   the rel-pos kernels (2 with and without lse, 5, 6, 7) on a head slice
+   bit-equal to the same heads of the whole launch; ``seq_parallel`` at
+   world size 1 over NCCL, its fallback counted and the step bit-equal to
+   the plain one; then two processes sharing the card over gloo: the step
+   split over a model axis of 2 and the sequence-parallel step over a data
+   axis of 2 against one process, the sequence-parallel forward bit-equal
+   to the data-parallel one, the vocabulary-sharded beam search against
+   the dense one, the LM and pretraining trainers data-parallel, and the
+   dry run's twin.
+16. Prints one JSON line with each kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero.  There is no CPU path: without a
@@ -3703,6 +3714,426 @@ def check_repeatability(card: str) -> dict:
     return {"losses_equal": losses_equal, "state_equal": state_equal, "first": first, **verdicts}
 
 
+# ---------------------------------------------------------------------------
+# model and sequence parallelism over processes
+# ---------------------------------------------------------------------------
+
+# the long-form batch of the two-process phase: B=4 clips of these lengths (T'=938 padded), targets in proportion to
+# LONG_TARGET_LEN; the depth is `DP_GLOO_BLOCKS`, the rule for an earlier path's depth
+MP_SECONDS = (120.0, 100.0, 60.0, 110.0)
+MP_LR, MP_STEPS = 1e-3, 2  # the LM's and the pretraining's steps over two processes, at this lr
+# The steps over two processes against one.  In float32 the split step must compute one process's step to its float32
+# roundoff: the loss to 1e-5 and each gradient within `DP_GRAD_BAR` of its largest entry, `check_data_parallel`'s bars;
+# the sequence-parallel step its loss, and its gradients are held to the data-parallel step on the same two ranks (the
+# data split alone moves every sum over the rows: LayerNorm weights' gradients read 8.1e-4 of their largest entry (H100)
+# from one process's at this shape, where `check_data_parallel` holds the data split at its own).  In bf16, the main
+# path's type, a split rounds each rank's partial product to bf16 before the sum and a data split rounds sums over its
+# rows: with random weights the biases' gradients, sums of terms that nearly cancel, were read (H100) 13-39% of their
+# norm apart from one process's while the loss agreed to 1e-4, so bf16 is held to one process by the loss
+# (`MP_BF16_LOSS_RTOL`) and the gradient norm (`MP_BF16_NORM_RTOL`) only; and the sequence-parallel bf16 step is held to
+# the data-parallel one on the same ranks, from which only the rel-pos table's and u, v's gradients may differ (summed
+# over the rows in another order): each gradient within `MP_GRAD_REL` of its norm
+MP_BF16_LOSS_RTOL, MP_BF16_NORM_RTOL, MP_GRAD_REL = 1e-3, 5e-2, 5e-2
+# ... except, in float32, the gradients of the attention's position terms (u, v and the rel-pos table's projection):
+# each is a sum over all B·T' query rows of terms whose row sums vanish (a softmax row's score gradients add up to
+# zero), the small remainder of large terms, which another order of the same float32 sums moves further: read (H100)
+# 6.9e-4 (split) and 1.48e-3 (sequence-parallel) of their largest entry, bar 5e-3
+MP_RELPOS_GRAD_BAR, MP_RELPOS_LEAVES = 5e-3, ("mhsa.u_bias", "mhsa.v_bias", "mhsa.pos_proj.weight")
+
+
+def mp_config(**kw):
+    """Conformer-M at full width, ``use_pallas=True``, `DP_GLOO_BLOCKS` blocks, dropout 0: bf16 on the card."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_m
+
+    cfg = conformer_m(use_pallas=True, **kw)
+    enc = dataclasses.replace(cfg.encoder, num_blocks=DP_GLOO_BLOCKS, dropout=0.0)
+    return dataclasses.replace(cfg, encoder=enc, decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
+
+
+def mp_vocab():
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import WordVocab
+
+    # words of letters only: the LM corpus normalises text to letters and apostrophes
+    return WordVocab(["<blank>", "<pad>", "<unk>"] + ["w" + "".join(chr(97 + i // 26 ** k % 26) for k in range(3))
+                                                      for i in range(VOCAB - 3)])
+
+
+def mp_batch() -> tuple:
+    """(audio, lengths, targets, target lengths) of the long-form batch, host arrays from SEED."""
+    rng = np.random.default_rng(SEED + 18)
+    n = int(max(MP_SECONDS) * 16000)
+    alen = np.asarray([int(s * 16000) for s in MP_SECONDS], np.int32)
+    audio = (0.1 * rng.standard_normal((len(MP_SECONDS), n)) * (np.arange(n)[None] < alen[:, None])).astype(np.float32)
+    tlen = np.asarray([round(LONG_TARGET_LEN * s / max(MP_SECONDS)) for s in MP_SECONDS], np.int32)
+    targets = np.zeros((len(MP_SECONDS), LONG_TARGET_LEN), np.int32)
+    for row, n_tok in enumerate(tlen):
+        targets[row, :n_tok] = rng.integers(3, VOCAB, size=n_tok)
+    return audio, alen, targets, tlen
+
+
+def mp_trainer(mesh_cfg, dtype: str = "auto"):
+    """The phase's trainer under ``mesh_cfg`` in ``dtype`` ('auto': bf16 on the card), from SEED."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, TrainConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+
+    vocab = mp_vocab()
+    tr = Trainer(ConformerCTC(mp_config(compute_dtype=dtype), len(vocab)), vocab, FeatureConfig(),
+                 TrainConfig(batch_size=len(MP_SECONDS), use_specaugment=False, log_every=0), mesh_cfg,
+                 learning_rate=MP_LR, log_fn=lambda _: None)
+    tr.init_state(seed=SEED)
+    return tr
+
+
+def mp_step(tr, batch) -> dict:
+    """One train step of ``tr`` on its rows of ``batch``: the loss, the gradient norm, every gradient and the state
+    after it (split parameters gathered whole), on the host, and the step's ms (host clock, synchronised)."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import full_state_dict, gather_shards
+
+    rows = slice(None) if tr.shard is None else tr.shard.rows(len(MP_SECONDS))
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x[rows])).to(tr.device)  # noqa: E731
+    lengths = None if tr.shard is None else torch.from_numpy(batch[1]).to(tr.device)
+    args = [put(x) for x in batch]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.state, metrics = tr._composed_step(False, 0.0)(tr.state, *args, lengths)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    plan = getattr(tr.model, "tensor_parallel", None)
+    grads = {n: (gather_shards(p.grad, plan.specs[n], plan.axis) if plan and n in plan.specs else p.grad).float().cpu()
+             for n, p in tr.model.named_parameters()}
+    state = {k: v.cpu() for k, v in full_state_dict(tr.model).items()}
+    return {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "grads": grads, "state": state,
+            "ms": ms}
+
+
+def mp_forward(tr, batch) -> tuple:
+    """Eval-mode log-probs (float32) and output lengths of ``tr``'s rows of ``batch``, on the card."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.features import make_featurizer
+
+    rows = slice(None) if tr.shard is None else tr.shard.rows(len(MP_SECONDS))
+    audio, alen = (torch.from_numpy(np.ascontiguousarray(x[rows])).to(tr.device) for x in batch[:2])
+    with torch.inference_mode():
+        tr.model.eval()
+        feats, frames = make_featurizer(tr.feat_cfg)(audio, alen)
+        log_probs, lengths = tr.model(feats, frames)
+    return log_probs.float(), lengths
+
+
+def mp_lm_and_pretrain() -> dict:
+    """`MP_STEPS` `LMTrainer` steps (`LMConfig`'s widths, dropout 0, float32) on a batch of 8 from a synthetic
+    lexicon, and `MP_STEPS` `PretrainTrainer` steps (the two-process phase's Conformer-M, float32) on B=4 × 30 s of
+    noise, each data-parallel where a process group is set: losses and parameters on the host."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, LMConfig, PretrainConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.data.lm_corpus import Lexicon, LMCorpus
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import full_state_dict
+    from nn_conformer_for_speech_recognition_tpu_torch.train.lm_loop import LMTrainer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.pretrain_loop import PretrainTrainer
+
+    rng = np.random.default_rng(SEED + 19)
+    vocab = mp_vocab()
+    words = [w for w in vocab.tokens[3:]][:200]
+    phones = [f"P{i}" for i in range(40)]
+    lexicon = Lexicon({w: list(rng.choice(phones, size=rng.integers(2, 6))) for w in words})
+    corpus = LMCorpus([" ".join(rng.choice(words, size=rng.integers(5, 21))) for _ in range(8)], lexicon, vocab)
+    lm = LMTrainer(LMConfig(dropout=0.0), len(corpus.phoneme_vocab), len(vocab), vocab.pad_id, learning_rate=MP_LR,
+                   log_fn=lambda _: None)
+    lm.init_state(seed=SEED)
+    batch = lm._put(*next(corpus.batches(8, seed=0)))
+    lm_losses = []
+    for _ in range(MP_STEPS):
+        lm.state, loss = lm._train_step(lm.state, *batch)
+        lm_losses.append(float(loss))
+    cfg = mp_config(compute_dtype="float32")
+    pt = PretrainTrainer(cfg, PretrainConfig(learning_rate=MP_LR, mask_probability=0.3), FeatureConfig(),
+                         log_fn=lambda _: None)
+    pt.init_state(seed=SEED)
+    audio = torch.from_numpy((0.1 * rng.standard_normal((4, int(SECONDS * 16000)))).astype(np.float32))
+    rows = slice(None) if pt.shard is None else pt.shard.rows(4)
+    audio = audio[rows].to(pt.device)
+    alen = torch.full((audio.shape[0],), audio.shape[1], dtype=torch.int32, device=pt.device)
+    pt_losses = []
+    for _ in range(MP_STEPS):
+        pt.state, metrics = pt._train_step(pt.state, audio, alen)
+        pt_losses.append(float(metrics["loss"]))
+    return {"lm_losses": lm_losses, "lm": {k: v.cpu() for k, v in full_state_dict(lm.model).items()},
+            "pt_losses": pt_losses, "pt": {k: v.cpu() for k, v in pt.model.state_dict().items()}}
+
+
+def mp_gloo_worker(rank: int, world: int, port: int, out_dir: str) -> None:
+    """One of the two processes of `check_model_parallel` sharing the card over gloo: the split step (model axis 2)
+    with its kernel launches, the pass's log-probs decoded by the vocabulary-sharded beam search beside the dense one;
+    the eval forward with and without Ulysses over the data axis (2 data ranks) and the sequence-parallel step; the
+    LM and pretraining steps data-parallel; the dry run's twin.  Writes what the parent holds against one process."""
+    import torch.distributed as dist
+
+    from nn_conformer_for_speech_recognition_tpu_torch.config import MeshConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.dryrun import dryrun_multichip
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import ctc_beam_search, ctc_beam_search_sharded
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel import sequence as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world)
+    try:
+        out, batch = {}, mp_batch()
+        t0 = time.perf_counter()
+        tp = mp_trainer(MeshConfig(model_parallel_size=world))
+        reset_counters()
+        out["tp"] = mp_step(tp, batch)
+        out["tp_launches"] = read_counters()
+        out["tp32"] = mp_step(mp_trainer(MeshConfig(model_parallel_size=world), "float32"), batch)
+        log_probs, lengths = mp_forward(tp, batch)
+        part = log_probs.shape[2] // world
+        kw = dict(blank_id=0, beam=BEAM, prune=PRUNE, max_label_len=MAX_LABEL_LEN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sharded = ctc_beam_search_sharded(log_probs[..., rank * part:(rank + 1) * part].contiguous(), lengths,
+                                          axis=tp.mesh.model, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dense = ctc_beam_search(log_probs, lengths, **kw)
+        torch.cuda.synchronize()
+        out["beam"] = {"equal": all(torch.equal(a, b) for a, b in zip(sharded[:2], dense[:2])),
+                       "score_diff": float((sharded[2] - dense[2]).abs().max()), "sharded_s": t2 - t1,
+                       "dense_s": time.perf_counter() - t2, "frames": int(lengths.max()),
+                       "lengths": sharded[1][:, 0].tolist()}
+        out["tp_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dp = mp_trainer(MeshConfig())
+        plain_lp, _ = mp_forward(dp, batch)
+        out["dp"] = mp_step(dp, batch)
+        out["dp32"] = mp_step(mp_trainer(MeshConfig(), "float32"), batch)
+        sp = mp_trainer(MeshConfig(seq_parallel=True))
+        try:
+            S.reset_fallback_stats()
+            sp_lp, _ = mp_forward(sp, batch)
+            out["sp_forward_equal"] = torch.equal(sp_lp, plain_lp)
+            out["sp_forward_diff"] = float((sp_lp - plain_lp).abs().max())
+            out["sp_stats"] = S.fallback_stats("seq_parallel")
+            reset_counters()
+            out["sp"] = mp_step(sp, batch)
+            out["sp_launches"] = read_counters()
+            out["sp32"] = mp_step(mp_trainer(MeshConfig(seq_parallel=True), "float32"), batch)
+        finally:
+            S.set_sequence_mesh(None)
+        out["sp_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out.update(mp_lm_and_pretrain())
+        dry = dryrun_multichip(log=lambda _: None)
+        out["dryrun"] = {"loss": dry["loss"], "labels": len(dry["labels"]), "mesh": dry["mesh"]}
+        out["rest_s"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def head_slice_kernels(card: str) -> None:
+    """Kernels 2 (with and without lse) and 5, 6 and 7 on heads 2-3 of the long-form step's (4, 938, 4, 64) bf16
+    inputs and the table's (1875, 2, 64) head slice, as a model rank of two launches them, each held bit-equal to
+    the same heads of the whole launch; the copies that make a strided head slice contiguous counted under the
+    profiler beside the kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
+
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(SEED + 20)
+    b, t, h, dh = LONG_BATCH, LONG_T_SUB, 4, 64
+    lengths = torch.tensor([938, 500, 20, 811], dtype=torch.int32, device=dev)
+    qu, qv, k, v, g = (torch.randn(b, t, h, dh, generator=gen).mul(0.5).to(dev, torch.bfloat16) for _ in range(5))
+    p = torch.randn(2 * t - 1, h, dh, generator=gen).mul(0.5).to(dev, torch.bfloat16)
+    heads, scale = slice(2, 4), dh ** -0.5
+
+    def run(qu, qv, k, v, p, g, lengths):
+        with torch.no_grad():
+            plain = A.flash_relpos_attention(qu, qv, k, v, p, lengths, scale)  # the forward without lse
+        out, lse = A.flash_relpos_attention_forward_lse(qu, qv, k, v, p, lengths, scale)
+        call = (qu, qv, k, v, p, lengths, scale, lse, A.attention_delta(out, g), g)
+        return (plain, out, lse, *A.flash_relpos_attention_bwd_dq(*call), *A.flash_relpos_attention_bwd_dkv(*call),
+                A.flash_relpos_attention_bwd_dband(*call))
+
+    whole = run(qu, qv, k, v, p, g, lengths)
+    sliced = [x[:, :, heads] for x in (qu, qv, k, v)] + [p[:, heads], g[:, :, heads], lengths]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_warmup()
+        share = run(*sliced)
+        torch.cuda.synchronize()
+    names = ("forward", "forward (lse)", "lse", "dqu", "dqv", "dk", "dv", "dp")
+    # the whole launch's outputs at those heads: lse is (B, H, T), the table's gradient (2T-1, H, dh)
+    pick = lambda name, x: x[:, heads] if name == "lse" or name == "dp" else x[:, :, heads]  # noqa: E731
+    equal = {name: torch.equal(s, pick(name, w)) for name, s, w in zip(names, share, whole)}
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+    kernels = sum(e.count for e in rows if "tc_kernel" in e.key or "reduce" in e.key)
+    copies = sum(e.count for e in rows if "copy" in e.key.lower() or "elementwise" in e.key.lower())
+    print(f"kernels 2 (with and without lse), 5, 6, 7 on heads 2-3 of (4,938,4,64) bf16 and the table's head slice: "
+          f"bit-equal to the whole launch's heads: {equal}; under the profiler {sum(e.count for e in rows)} device "
+          f"launches, {kernels} of them the attention kernels and their reduce, {copies} copies and elementwise "
+          f"kernels (strided head slices made contiguous, the delta)  [{card}]")
+    check(all(equal.values()), f"a kernel on a head slice differs from the whole launch: {equal}")
+
+
+def check_model_parallel(card: str) -> dict:
+    """Tensor and sequence parallelism, the vocabulary-sharded beam search and the LM and pretraining trainers over
+    processes (`parallel.mesh`, `parallel.sequence`, `ops/decode.py`), Conformer-M at full width, bf16,
+    ``use_pallas=True``, `DP_GLOO_BLOCKS` blocks, on the long-form batch (B=4, T'=938, so that the rel-pos
+    kernels run in training):
+
+    * (b) one process: `head_slice_kernels`;
+    * (c) world size 1 over NCCL with ``seq_parallel=True``: every attention layer falls back with the reason "size
+      1", and the step is bit-equal to the same step without a process group;
+    * (a) two processes sharing the card over gloo (NCCL refuses two ranks on one GPU), `mp_gloo_worker`, against
+      one process run here: the split step (model axis 2: two heads, 512 FFN units a rank) and the
+      sequence-parallel step (data axis 2), in float32 to `check_data_parallel`'s bars (`MP_RELPOS_GRAD_BAR` for
+      the attention's position terms; the sequence-parallel step's gradients against the data-parallel one's on
+      the same ranks, since the data split alone moves every sum) and in bf16 by the loss and the gradient norm
+      (see `MP_BF16_LOSS_RTOL`; the bf16 sequence-parallel step against the data-parallel one to `MP_GRAD_REL`);
+      the sequence-parallel eval forward bit-equal to the data-parallel one (the same kernels on the same rows and
+      heads); the sharded beam's hypotheses equal to the dense search's; the LM's and the pretraining's steps
+      data-parallel to `check_data_parallel`'s bars (`param_spread`); the dry run's twin finite, a label a row.
+
+    Returns the launch counts of (c)'s step, a main path of this phase."""
+    import torch.distributed as dist
+
+    from nn_conformer_for_speech_recognition_tpu_torch.config import MeshConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel import sequence as S
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import BACKEND
+
+    t_phase = time.perf_counter()
+    head_slice_kernels(card)
+
+    # -- (c) world size 1 over NCCL with seq_parallel: the fallback, and the same step as without a group
+    batch = mp_batch()
+    plain = mp_step(mp_trainer(MeshConfig()), batch)
+    dist.init_process_group(BACKEND, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
+    try:
+        S.reset_fallback_stats()
+        sp1 = mp_trainer(MeshConfig(seq_parallel=True))
+        reset_counters()
+        one_rank = mp_step(sp1, batch)
+        launches = read_counters()
+        stats = S.fallback_stats("seq_parallel")
+    finally:
+        S.set_sequence_mesh(None)
+        dist.destroy_process_group()
+    same = [k for k in plain["state"] if torch.equal(plain["state"][k], one_rank["state"][k])]
+    print(f"seq_parallel at world size 1 over NCCL: the counter {stats}; the step bit-equal to the plain one in "
+          f"{len(same)}/{len(plain['state'])} state tensors, loss {one_rank['loss']} / {plain['loss']}; launch counts "
+          f"{launches}  [{card}]")
+    check(stats == {"engaged": 0, "fallback": DP_GLOO_BLOCKS,
+                    "reasons": {"axis 'data' has size 1 (need > 1)": DP_GLOO_BLOCKS}}, f"the fallback counter {stats}")
+    check(len(same) == len(plain["state"]) and one_rank["loss"] == plain["loss"],
+          "the sequence-parallel step at world size 1 differs from the plain one")
+
+    # -- (a) two processes on the one card over gloo, against one process
+    plain32 = mp_step(mp_trainer(MeshConfig(), "float32"), batch)
+    ref = mp_lm_and_pretrain()
+    with tempfile.TemporaryDirectory() as out_dir:
+        port, ctx = free_port(), multiprocessing.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mp_gloo_worker, args=(r, 2, port, out_dir)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        gloo_s = time.perf_counter() - t0
+        check(all(p.exitcode == 0 for p in procs), f"the gloo workers exited with {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in range(2)]
+
+    def grad_rel(got: dict, ref: dict) -> list:
+        """(L2 distance over the norm, largest difference over the largest entry, name) of each gradient against
+        ``ref``'s, the farthest first."""
+        return sorted(((float((got[k] - r).norm() / max(float(r.norm()), 1e-30)),
+                        float((got[k] - r).abs().max() / max(float(r.abs().max()), 1e-30)), k)
+                       for k, r in ref["grads"].items()), reverse=True)
+
+    failed = []  # every comparison is printed before the phase fails on any of them
+
+    def expect(cond: bool, what: str) -> None:
+        if not cond:
+            failed.append(what)
+
+    what = {"tp": "split over the model axis (2 heads, 512 FFN units a rank)",
+            "sp": "sequence-parallel over the data axis (2 rows a rank, 2 heads each in attention)"}
+    for name in ("tp", "sp"):
+        for dtype, got, base in (("bf16", ranks[0][name], plain), ("float32", ranks[0][name + "32"], plain32)):
+            in_sync = all(torch.equal(got["state"][k], ranks[1][name + ("" if dtype == "bf16" else "32")]["state"][k])
+                          for k in got["state"])
+            loss_rel = abs(got["loss"] - base["loss"]) / abs(base["loss"])
+            norm_rel = abs(got["grad_norm"] - base["grad_norm"]) / base["grad_norm"]
+            spread = grad_rel(got["grads"], base)
+            far = max(b for _, b, _ in spread)
+            far_rest = max(b for _, b, k in spread if not k.endswith(MP_RELPOS_LEAVES))
+            far_relpos = max(b for _, b, k in spread if k.endswith(MP_RELPOS_LEAVES))
+            print(f"two processes over gloo, the {dtype} step {what[name]}: loss {got['loss']:.6f} / one process "
+                  f"{base['loss']:.6f} (relative {loss_rel:.2e}), gradient norm {got['grad_norm']:.4f} / "
+                  f"{base['grad_norm']:.4f} (relative {norm_rel:.2e}); gradients at most {far:.2e} of their largest "
+                  f"entry from one process's ({far_rest:.2e} but the position terms'), the five farthest by L2 over "
+                  f"the norm {[(k, round(a, 5), round(b, 5)) for a, b, k in spread[:5]]}; ranks' whole states "
+                  f"bit-equal {in_sync}; {got['ms']:.1f} ms for the step (one process {base['ms']:.1f})  [{card}]")
+            if dtype == "bf16":
+                expect(in_sync and loss_rel <= MP_BF16_LOSS_RTOL and norm_rel <= MP_BF16_NORM_RTOL,
+                       f"the bf16 {name} step over two processes differs from one process")
+            elif name == "tp":
+                expect(in_sync and loss_rel <= 1e-5 and far_rest <= DP_GRAD_BAR and far_relpos <= MP_RELPOS_GRAD_BAR,
+                       f"the float32 {name} step over two processes differs from one process")
+            else:  # the data split moves every gradient's sums (`check_data_parallel` holds it); Ulysses is held below
+                expect(in_sync and loss_rel <= 1e-5, f"the float32 {name} step's loss differs from one process's")
+        print(f"rank 0's kernel launches in the bf16 {name} step: {ranks[0][name + '_launches']}")
+        for kernel in ("attention_relpos_lse", "attention_relpos_bwd_dq", "attention_relpos_bwd_dkv",
+                       "attention_relpos_bwd_dband"):
+            expect(ranks[0][name + "_launches"][kernel] == DP_GLOO_BLOCKS, f"{name}: {kernel} launches")
+    for dtype, sp, dp in (("bf16", ranks[0]["sp"], ranks[0]["dp"]), ("float32", ranks[0]["sp32"], ranks[0]["dp32"])):
+        spread = grad_rel(sp["grads"], dp)
+        loss_rel = abs(sp["loss"] - dp["loss"]) / abs(dp["loss"])
+        far_rest = max(b for _, b, k in spread if not k.endswith(MP_RELPOS_LEAVES))
+        far_relpos = max(b for _, b, k in spread if k.endswith(MP_RELPOS_LEAVES))
+        print(f"the {dtype} sequence-parallel step against the data-parallel one on the same two ranks: loss relative "
+              f"{loss_rel:.2e}; gradients apart by at most {spread[0][0]:.2e} of their norm, {far_rest:.2e} of their "
+              f"largest entry but the position terms' ({far_relpos:.2e}), the five farthest "
+              f"{[(k, round(a, 5), round(b, 5)) for a, b, k in spread[:5]]}  [{card}]")
+        if dtype == "bf16":
+            expect(spread[0][0] <= MP_GRAD_REL and loss_rel <= 1e-5,
+                   "the bf16 sequence-parallel step differs from the data-parallel one")
+        else:
+            expect(far_rest <= DP_GRAD_BAR and far_relpos <= MP_RELPOS_GRAD_BAR and loss_rel <= 1e-5,
+                   "the float32 sequence-parallel step differs from the data-parallel one")
+    for r in ranks:
+        expect(r["sp_stats"] == {"engaged": DP_GLOO_BLOCKS, "fallback": 0, "reasons": {}},
+              f"Ulysses did not engage in every layer: {r['sp_stats']}")
+        expect(r["sp_forward_equal"], f"the sequence-parallel forward differs from the data-parallel one by "
+                                     f"{r['sp_forward_diff']}")
+        expect(r["beam"]["equal"] and r["beam"]["score_diff"] <= BEAM_SCORE_ATOL,
+              f"the sharded beam differs from the dense one: {r['beam']}")
+        expect(np.isfinite(r["dryrun"]["loss"]) and r["dryrun"]["labels"] == 4, f"the dry run: {r['dryrun']}")
+    beam = ranks[0]["beam"]
+    print(f"the sequence-parallel eval forward bit-equal to the data-parallel one on both ranks; Ulysses engaged in "
+          f"{DP_GLOO_BLOCKS} of {DP_GLOO_BLOCKS} layers a forward.  ctc_beam_search_sharded over two ranks (V = 512 a "
+          f"rank, {beam['frames']} frames, one all-reduce a frame): hypotheses equal to ctc_beam_search's, scores "
+          f"within {beam['score_diff']:.1e}; {beam['sharded_s']:.2f} s against the dense search's "
+          f"{beam['dense_s']:.2f} s; best lengths {beam['lengths']}  [{card}]")
+    for name, steps_key, state_key in (("LMTrainer", "lm_losses", "lm"), ("PretrainTrainer", "pt_losses", "pt")):
+        got = ranks[0]
+        off, beyond, total = param_spread(got[state_key], ref[state_key], MP_LR, MP_STEPS)
+        loss_ok = np.allclose(got[steps_key], ref[steps_key], rtol=1e-4)
+        in_sync = all(torch.equal(got[state_key][k], ranks[1][state_key][k]) for k in got[state_key])
+        print(f"{name} data-parallel over two processes, {MP_STEPS} steps: losses {got[steps_key]} / one process "
+              f"{ref[steps_key]}; {off} of {total} parameter elements outside the CPU tests' bars, {beyond} farther "
+              f"than one step of the other sign a step; ranks bit-equal {in_sync}  [{card}]")
+        expect(loss_ok and in_sync and beyond == 0 and off <= 1e-2 * total, f"{name} over two processes")
+    print(f"the dry run's twin on two processes: mesh {ranks[0]['dryrun']['mesh']}, loss {ranks[0]['dryrun']['loss']:.4f}, "
+          f"{ranks[0]['dryrun']['labels']} labels.  The gloo sub-phase {gloo_s:.1f} s (split step and beams "
+          f"{ranks[0]['tp_s']:.1f} s, sequence-parallel {ranks[0]['sp_s']:.1f} s, LM, pretraining and dry run "
+          f"{ranks[0]['rest_s']:.1f} s); the phase {time.perf_counter() - t_phase:.1f} s  [{card}]")
+    check(not failed, "; ".join(failed))
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the GPU")
@@ -3785,6 +4216,11 @@ def main() -> None:
     data_parallel = check_data_parallel(card)
     print(f"the data-parallel phase took {time.perf_counter() - t_new:.1f} s; the script so far "
           f"{time.perf_counter() - t0:.1f} s")
+    # tensor and sequence parallelism: head-slice kernels, world size 1 over NCCL, two processes on the card over gloo
+    t_new = time.perf_counter()
+    model_parallel = check_model_parallel(card)
+    print(f"the model-parallel phase took {time.perf_counter() - t_new:.1f} s; the script so far "
+          f"{time.perf_counter() - t0:.1f} s")
     pallas = "ops/pallas"
     sources = {
         "stft_logmel": ("csrc/stft_logmel.cu", f"{pallas}/stft_logmel.py:74"),
@@ -3815,15 +4251,15 @@ def main() -> None:
         "lstm_weight_grad_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
     }
     m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli, lm, cli_handoff, resident, variants,
-               data_parallel)
+               data_parallel, model_parallel)
     l_paths = (serve_l, train_l, train_l_conv)
     p_paths = (pretrain, cli_pretrain)
     paths = (*m_paths, *l_paths, *p_paths, op)
     print("launches, pseudo-label pass + 30 s train steps + long-form train steps, then under conv_impl='pallas' the "
           "pass + the 30 s steps + the NST generation, then beam-search evaluation + the command line + the fused "
           "evaluation + train --encoder-checkpoint + the resident epochs + the encoder variants + the data-parallel "
-          "steps, then Conformer-L's pass + 30 s train steps + 30 s train steps under "
-          "conv_impl='pallas', then the pretrain steps + the pretrain command, then the bias-input op: "
+          "steps + the sequence-parallel step at world size 1, then Conformer-L's pass + 30 s train steps + 30 s "
+          "train steps under conv_impl='pallas', then the pretrain steps + the pretrain command, then the bias-input op: "
           f"{ {k: tuple(path.get(k, 0) for path in paths) for k in read_counters()} }")
     # (counter, paths counted) of each entry.  Conformer-L runs four kernels at other shapes than Conformer-M's,
     # the rel-pos forward at 8 heads, dW_hh at H = 640 and the depthwise conv's forward and dw at C = 1024; the

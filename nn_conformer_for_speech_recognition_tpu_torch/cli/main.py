@@ -14,19 +14,21 @@ split as the JAX command does: it reads ``--model``, ``--n-mels``,
 ``--epochs``, ``--save`` and ``--device``, and, as there, no other data or
 model flag (the model is float32 on its own routes).
 
-``train``, ``eval`` and ``nst`` train and evaluate data-parallel, one card
-a process, under ``torchrun``:
+``train``, ``eval``, ``nst`` and ``pretrain`` run over several processes,
+one card a process, under ``torchrun``:
 
     torchrun --standalone --nproc-per-node 8 -m \
-        nn_conformer_for_speech_recognition_tpu_torch.cli.main train ...
+        nn_conformer_for_speech_recognition_tpu_torch.cli.main train \
+        --model-parallel 2 ...
 
-Each process joins the group (`parallel.mesh.initialize_multihost`), and
-only rank 0 prints the result line and writes files.
+Each process joins the group (`parallel.mesh.initialize_multihost`), the
+processes are laid out as ``('data', 'model')`` from ``--model-parallel``
+(tensor parallelism), ``--seq-parallel`` (Ulysses over the data axis) and
+``--shard-map-kernels`` (`parallel.mesh`, `config.MeshConfig`), and only
+rank 0 prints the result line and writes files.
 
-Refused with ``NotImplementedError``, each naming the ROADMAP item that
-ports it: ``benchmark`` (the port's benchmark on the H100),
-``--model-parallel`` above 1, ``--seq-parallel``, ``--shard-map-kernels``,
-and ``pretrain`` under ``torchrun`` (Multi-GPU, item 13b).
+``benchmark`` raises ``NotImplementedError``: the port's benchmark on the
+H100 is ROADMAP Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -69,13 +71,16 @@ def _common_model_args(p: argparse.ArgumentParser) -> None:
                         "hand-written CUDA kernels (their plain PyTorch "
                         "versions on the CPU)")
     p.add_argument("--ctc-impl", default="auto", choices=["auto", "xla", "pallas"])
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor parallelism: processes a model replica is "
+                        "split over (FFN hidden units, attention heads)")
     p.add_argument("--seq-parallel", action="store_true",
-                   help="Ulysses sequence parallelism: shard attention's "
-                        "time axis over the data mesh axis")
+                   help="Ulysses sequence parallelism: attention's heads "
+                        "exchanged over the data mesh axis")
     p.add_argument("--shard-map-kernels", action="store_true",
-                   help="the JAX package's per-device kernel wrapping; "
-                        "refused here until the port runs on several GPUs")
+                   help="the JAX package's per-device kernel wrapping; each "
+                        "process's kernels see its rows anyway, and the "
+                        "field's engagement is counted")
     p.add_argument("--n-mels", type=int, default=40)
     p.add_argument("--checkpoint", default=None, help="restore full state")
     p.add_argument("--encoder-checkpoint", default=None,
@@ -89,13 +94,15 @@ def _device_arg(p: argparse.ArgumentParser) -> None:
                         "is none); cpu = the kernels' plain PyTorch versions")
 
 
-def _refuse_multi_gpu(args) -> None:
-    """The flags of the JAX package's device mesh."""
-    for flag, on in (("--model-parallel", getattr(args, "model_parallel", 1) != 1),
-                     ("--seq-parallel", getattr(args, "seq_parallel", False)),
-                     ("--shard-map-kernels", getattr(args, "shard_map_kernels", False))):
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP Queue 1 item 13b, Multi-GPU")
+def _mesh_config(args):
+    """The layout's flags, as the JAX command line reads them."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as C
+
+    return C.MeshConfig(
+        model_parallel_size=args.model_parallel,
+        seq_parallel=getattr(args, "seq_parallel", False),
+        shard_map_kernels=getattr(args, "shard_map_kernels", False),
+    )
 
 
 def _rank0() -> bool:
@@ -114,7 +121,6 @@ def _print_result(obj) -> None:
 def _build(args):
     """Shared setup: configs, vocab, datasets, trainer.  Under ``torchrun``
     the process joins the group first."""
-    _refuse_multi_gpu(args)
     from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import initialize_multihost
 
     initialize_multihost(args.device)
@@ -182,7 +188,7 @@ def _build(args):
         n_mels=args.n_mels,
     )
     model = ConformerCTC(mcfg, vocab_size=len(vocab))
-    trainer = Trainer(model, vocab, feat_cfg, train_cfg, device=args.device)
+    trainer = Trainer(model, vocab, feat_cfg, train_cfg, _mesh_config(args), device=args.device)
     trainer.init_state(seed=getattr(args, "seed", 0))
     if args.checkpoint:
         trainer.load(args.checkpoint)
@@ -277,9 +283,9 @@ def cmd_nst(args) -> int:
 
 
 def cmd_pretrain(args) -> int:
-    _refuse_multi_gpu(args)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("pretrain under torchrun is not ported yet: ROADMAP Queue 1 item 13b, Multi-GPU")
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import initialize_multihost
+
+    initialize_multihost(args.device)
     from nn_conformer_for_speech_recognition_tpu_torch import config as C
     from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import (
         BucketedDataset, load_manifest)
@@ -295,7 +301,7 @@ def cmd_pretrain(args) -> int:
     ds = BucketedDataset(utts, vocab, args.batch_size,
                          sample_rate=args.sample_rate,
                          bucket_boundaries=args.bucket_boundaries or ())
-    tr = PretrainTrainer(mcfg, pcfg, feat_cfg, device=args.device)
+    tr = PretrainTrainer(mcfg, pcfg, feat_cfg, _mesh_config(args), device=args.device)
     tr.init_state(seed=0)
     tr.train(ds, args.epochs)
     if args.save:

@@ -179,11 +179,12 @@ class OptimizerConfig:
 
 @_frozen
 class MeshConfig:
-    """Logical device mesh of the JAX package.  The port trains
-    data-parallel over a process group, one card a process
-    (`parallel.mesh`); it keeps the fields so that configurations carry
-    over, and refuses model parallelism, kernel sharding and sequence
-    parallelism (`parallel.mesh.check_mesh_config`)."""
+    """The JAX package's logical device mesh, laid over a process group, one
+    card a process (`parallel.mesh.make_mesh`): ``model_parallel_size``
+    processes split each model replica (tensor parallelism), the rest are
+    data ranks; ``seq_parallel`` runs Ulysses attention over the data axis
+    (`parallel.sequence`); ``shard_map_kernels`` is counted only, since a
+    process's kernels see its rows anyway."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -12,6 +12,16 @@ conv module's depthwise conv is the hand-written kernel
 (`ops/cuda/depthwise_conv.py`) or a grouped conv1d, by `config.conv_route`.
 With ``remat`` each block is recomputed in the backward pass (`torch.utils.checkpoint`).
 
+Under tensor parallelism (`parallel.mesh.shard_module`) the FFNs and the
+attention layers hold their model rank's share of the weights (``tp``, the
+model axis): an FFN's hidden units, an attention layer's heads (q, k, v,
+the rel-pos table and u, v of its own heads), each closed by one
+all-reduce over the model group.  Dropout on a split activation is drawn
+for the whole tensor and sliced, so that the ranks together draw what one
+process draws.  Under sequence parallelism (`parallel.sequence`) an
+attention layer exchanges its rows for its heads over the data group
+where `parallel.sequence.seq_parallel_applicable` allows it.
+
 The encoder variants of ``ConformerConfig``: ``use_relative_attention=False``
 is plain softmax attention over the keys (no position term, no u/v biases,
 no ``pos_proj``; no kernel in either package), and ``conv_norm`` 'groupnorm'
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,7 +53,18 @@ from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.attention import (
     flash_relpos_attention_plain,
 )
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.depthwise_conv import depthwise_conv1d
-from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import all_reduce_sum, process_group_active
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import (
+    Axis,
+    all_reduce_sum,
+    copy_to_group,
+    process_group_active,
+    reduce_from_group,
+)
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.sequence import (
+    active_sequence_mesh,
+    seq_parallel_applicable,
+    ulysses_relpos_attention_rows,
+)
 
 NEG_INF = -1e30  # the JAX module's key-mask value
 CONV_NORMS = ("batchnorm", "groupnorm", "layernorm")
@@ -87,7 +109,12 @@ class MaskedBatchNorm(nn.Module):
     summed over the ranks by a differentiable all-reduce, so the gradient
     goes through the global statistics and every rank updates the running
     ones alike.  A rematerialised block's recompute issues the same two
-    all-reduces again, in the same order on every rank."""
+    all-reduces again, in the same order on every rank.  The sums run over
+    ``data_axis`` where a trainer set it (`parallel.mesh.shard_module`):
+    the ranks of a model group hold the same rows, so a sum over the world
+    would count each row once a model rank."""
+
+    data_axis: Optional[Axis] = None
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -102,14 +129,15 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = mask[..., None].to(x.dtype)
             total, count = (x * m).sum(dim=(0, 1)), m.sum()
-            spread = process_group_active()
+            axis = self.data_axis
+            spread = process_group_active() if axis is None else axis.spread
             if spread:
-                both = all_reduce_sum(torch.cat([total, count.reshape(1)]))
+                both = all_reduce_sum(torch.cat([total, count.reshape(1)]), axis)
                 total, count = both[:-1], both[-1]
             denom = torch.clamp_min(count, 1.0)
             mean = total / denom
             squares = (((x - mean) ** 2) * m).sum(dim=(0, 1))
-            var = (all_reduce_sum(squares) if spread else squares) / denom
+            var = (all_reduce_sum(squares, axis) if spread else squares) / denom
             if self.update_stats:
                 mom = self.momentum
                 self.running_mean.mul_(mom).add_((1 - mom) * mean.detach().float())
@@ -120,8 +148,36 @@ class MaskedBatchNorm(nn.Module):
         return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
 
 
+def split_dropout(h: torch.Tensor, p: float, training: bool, axis: Axis, dim: int) -> torch.Tensor:
+    """Dropout of this model rank's share (along ``dim``) of an activation
+    split over ``axis``: the mask is drawn for the whole tensor, as
+    ``F.dropout`` draws it in one process, and sliced, so that every rank
+    advances the generator alike and together they drop what one process
+    drops."""
+    if not training or p == 0.0:
+        return h
+    dim %= h.dim()
+    whole = list(h.shape)
+    whole[dim] *= axis.size
+    mask = F.dropout(torch.ones(whole, dtype=h.dtype, device=h.device), p, True)
+    return h * mask.narrow(dim, axis.rank * h.shape[dim], h.shape[dim])
+
+
+def _share(n: int, axis: Axis) -> slice:
+    """Model rank ``axis.rank``'s share of ``n`` units."""
+    part = n // axis.size
+    return slice(axis.rank * part, (axis.rank + 1) * part)
+
+
 class FeedForwardModule(nn.Module):
-    """LN → Linear(ffn_dim) → SiLU → dropout → Linear(d_model) → dropout."""
+    """LN → Linear(ffn_dim) → SiLU → dropout → Linear(d_model) → dropout.
+    Split over ``tp`` (`parallel.mesh.shard_module`): ``fc1`` holds the
+    rank's hidden units (its output rows) and ``fc2`` the same units (its
+    input columns), so the rank's partial output is summed over the model
+    group once (Megatron-LM's pairing); ``fc1``'s bias is replicated and
+    sliced, its gradient summed over the group."""
+
+    tp: Optional[Axis] = None
 
     def __init__(self, d_model: int, ffn_dim: int, dropout: float):
         super().__init__()
@@ -130,16 +186,36 @@ class FeedForwardModule(nn.Module):
         self.fc1 = Linear(d_model, ffn_dim)
         self.fc2 = Linear(ffn_dim, d_model)
 
+    @staticmethod
+    def check_split(leaves, mp: int) -> None:
+        if set(leaves) != {"fc1.weight", "fc2.weight"}:
+            raise ValueError(f"an FFN splits both its Linears over the model axis, the rule splits {sorted(leaves)}")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.dropout(F.silu(self.fc1(self.norm(x))), self.dropout, self.training)
-        return F.dropout(self.fc2(h), self.dropout, self.training)
+        tp = self.tp
+        if tp is None:
+            h = F.dropout(F.silu(self.fc1(self.norm(x))), self.dropout, self.training)
+            return F.dropout(self.fc2(h), self.dropout, self.training)
+        bias = copy_to_group(self.fc1.bias, tp)[_share(self.fc1.bias.shape[0], tp)].to(x.dtype)
+        h = F.linear(copy_to_group(self.norm(x), tp), self.fc1.weight.to(x.dtype), bias)
+        h = split_dropout(F.silu(h), self.dropout, self.training, tp, dim=-1)
+        out = reduce_from_group(F.linear(h, self.fc2.weight.to(h.dtype)), tp) + self.fc2.bias.to(h.dtype)
+        return F.dropout(out, self.dropout, self.training)
 
 
 class RelPositionMHSA(nn.Module):
     """Multi-head self-attention with Transformer-XL relative position bias:
     score(i,j) = (q_i + u)·k_j + (q_i + v)·r_{j-i}, softmax over valid keys.
     With ``use_relative=False``: score(i,j) = q_i·k_j, and no u, v or
-    ``pos_proj``."""
+    ``pos_proj``.
+
+    Split over ``tp`` (`parallel.mesh.shard_module`) a rank runs H/mp
+    heads: ``qkv`` holds q, k and v of its heads, ``pos_proj`` their
+    columns of the table, ``out_proj`` their input columns, whose partial
+    output is summed over the model group once; u and v are replicated and
+    sliced to the rank's heads."""
+
+    tp: Optional[Axis] = None
 
     def __init__(self, d_model: int, num_heads: int, dropout: float, use_relative: bool = True):
         super().__init__()
@@ -157,6 +233,14 @@ class RelPositionMHSA(nn.Module):
             self.u_bias = nn.Parameter(torch.zeros(num_heads, dh))
             self.v_bias = nn.Parameter(torch.zeros(num_heads, dh))
 
+    def check_split(self, leaves, mp: int) -> None:
+        want = {"qkv.weight", "out_proj.weight"} | ({"pos_proj.weight"} if self.use_relative else set())
+        if set(leaves) != want:
+            raise ValueError(f"an attention layer splits {sorted(want)} over the model axis, the rule splits "
+                             f"{sorted(leaves)}")
+        if self.num_heads % mp:
+            raise ValueError(f"{self.num_heads} heads do not divide over model_parallel_size={mp}")
+
     def forward(
         self, x: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor, use_kernel: bool = False
     ) -> torch.Tensor:
@@ -165,21 +249,47 @@ class RelPositionMHSA(nn.Module):
         and backward (dropout on the output only, as the JAX flash path);
         otherwise the einsum attention also drops probabilities in training.
         Without relative positions the attention is always the einsum route
-        (`config.attention_route` never picks the kernels for it)."""
+        (`config.attention_route` never picks the kernels for it).  Under
+        sequence parallelism, where applicable, the rel-pos attention is
+        `parallel.sequence.ulysses_relpos_attention_rows` on the same route,
+        without probability dropout, as the JAX Ulysses path."""
         b, t, _ = x.shape
-        h, dh = self.num_heads, self.d_model // self.num_heads
-        q, k, v = self.qkv(self.norm(x)).reshape(b, t, 3, h, dh).unbind(dim=2)
+        tp = self.tp
+        dh = self.d_model // self.num_heads
+        h = self.num_heads if tp is None else self.num_heads // tp.size
+        heads = slice(None) if tp is None else _share(self.num_heads, tp)
+        xn = self.norm(x) if tp is None else copy_to_group(self.norm(x), tp)
+        q, k, v = self.qkv(xn).reshape(b, t, 3, h, dh).unbind(dim=2)
+        scale = 1.0 / float(np.sqrt(dh))
+        drop = self.dropout if self.training else 0.0
         if not self.use_relative:
-            out = self._dot_attention(q, k, v, lengths, 1.0 / float(np.sqrt(dh)))
-            out = self.out_proj(out.reshape(b, t, self.d_model))
-            return F.dropout(out, self.dropout, self.training)
-        p = self.pos_proj(rel).reshape(2 * t - 1, h, dh)
-        args = (q + self.u_bias.to(x.dtype), q + self.v_bias.to(x.dtype), k, v, p, lengths, 1.0 / float(np.sqrt(dh)))
-        if use_kernel:
-            out = flash_relpos_attention(*args)
+            out = self._dot_attention(q, k, v, lengths, scale)
         else:
-            out = flash_relpos_attention_plain(*args, dropout=self.dropout if self.training else 0.0)
-        out = self.out_proj(out.reshape(b, t, self.d_model))
+            u, vb = self.u_bias, self.v_bias
+            if tp is not None:
+                u, vb = copy_to_group(u, tp)[heads], copy_to_group(vb, tp)[heads]
+            seq = active_sequence_mesh()
+            if seq is not None and seq_parallel_applicable(seq[0], seq[1], t, h):
+                axis = seq[0].axis(seq[1])
+                cols = _share(h * dh, axis)  # the table of this rank's heads only
+                p = F.linear(rel, self.pos_proj.weight[cols].to(rel.dtype)).reshape(2 * t - 1, h // axis.size, dh)
+                out = ulysses_relpos_attention_rows(q, k, v, p, u, vb, lengths, scale, axis, use_kernel)
+            else:
+                p = self.pos_proj(rel).reshape(2 * t - 1, h, dh)
+                args = (q + u.to(x.dtype), q + vb.to(x.dtype), k, v, p, lengths, scale)
+                if use_kernel:
+                    out = flash_relpos_attention(*args)
+                else:
+                    mask = {}
+                    if drop > 0.0 and tp is not None:  # the whole mask, as one process draws it, sliced
+                        mask["keep"] = (torch.rand((b, self.num_heads, t, t), device=x.device) >= drop)[:, heads]
+                    out = flash_relpos_attention_plain(*args, dropout=drop, **mask)
+        out = out.reshape(b, t, h * dh)
+        if tp is None:
+            out = self.out_proj(out)
+        else:
+            out = reduce_from_group(F.linear(out, self.out_proj.weight.to(out.dtype)), tp)
+            out = out + self.out_proj.bias.to(out.dtype)
         return F.dropout(out, self.dropout, self.training)
 
     def _dot_attention(self, q, k, v, lengths, scale: float) -> torch.Tensor:
@@ -190,7 +300,11 @@ class RelPositionMHSA(nn.Module):
         acc = torch.promote_types(q.dtype, torch.float32)
         scores = torch.einsum("bihd,bjhd->bhij", q.to(acc), k.to(acc)) * scale
         scores = scores.masked_fill(~length_mask(lengths, k.shape[1])[:, None, None, :], NEG_INF)
-        attn = F.dropout(torch.softmax(scores, dim=-1).to(v.dtype), self.dropout, self.training)
+        attn = torch.softmax(scores, dim=-1).to(v.dtype)
+        if self.tp is None:
+            attn = F.dropout(attn, self.dropout, self.training)
+        else:
+            attn = split_dropout(attn, self.dropout, self.training, self.tp, dim=1)
         return torch.einsum("bhij,bjhd->bihd", attn, v)
 
 

@@ -21,6 +21,11 @@ and shared by every batch row and head); LayerNorm keeps flax's epsilon
 1e-6.  Parameters: flax's (d, H, dh) q/k/v kernels are ``Linear(d, H·dh)``
 weights (H·dh, d), its (H, dh, d) out kernel ``Linear(H·dh, d)``
 (`convert.lm_flax_to_state_dict`).
+
+Under tensor parallelism (`parallel.mesh.shard_module`) the rule table
+splits the final projection ``out_proj`` only, by its input rows, as the
+JAX rule does: a model rank projects its share of the hidden units and the
+partial logits are summed over the model group.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from nn_conformer_for_speech_recognition_tpu_torch.models.layers import LayerNorm, Linear
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import Axis, copy_to_group, reduce_from_group
 
 
 def sinusoidal_positions(t: int, d: int) -> np.ndarray:
@@ -108,7 +114,28 @@ class TransformerLayer(nn.Module):
         return self.norms[-1](x + self.fc2(h))
 
 
-class TransformerLM(nn.Module):
+class _SplitOutProj(nn.Module):
+    """An LM whose ``out_proj`` tensor parallelism may split by its input
+    rows over ``tp``."""
+
+    tp: Optional[Axis] = None
+
+    @staticmethod
+    def check_split(leaves, mp: int) -> None:
+        if set(leaves) != {"out_proj.weight"}:
+            raise ValueError(f"an LM splits only out_proj over the model axis, the rule splits {sorted(leaves)}")
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp is None:
+            return self.out_proj(x)
+        part = x.shape[-1] // tp.size
+        x = copy_to_group(x, tp)[..., tp.rank * part:(tp.rank + 1) * part]
+        logits = reduce_from_group(F.linear(x, self.out_proj.weight.to(x.dtype)), tp)
+        return logits + self.out_proj.bias.to(x.dtype)
+
+
+class TransformerLM(_SplitOutProj):
     """Pronunciation→word encoder-decoder LM: (B, S) source ids and (B, T)
     teacher-forced target ids → (B, T, tgt_vocab) next-word logits."""
 
@@ -137,10 +164,10 @@ class TransformerLM(nn.Module):
         dec = dec + _positions(tgt_ids.shape[1], self.d, dec)
         for layer in self.dec:
             dec = layer(dec, enc_out=enc, mask=tgt_mask, enc_mask=src_mask)
-        return self.out_proj(dec)
+        return self.project(dec)
 
 
-class CausalWordLM(nn.Module):
+class CausalWordLM(_SplitOutProj):
     """Decoder-only word LM: (B, T) ids → (B, T, vocab) next-token logits."""
 
     def __init__(self, vocab: int, d: int = 256, heads: int = 4, ffn: int = 512, layers: int = 2,
@@ -157,7 +184,7 @@ class CausalWordLM(nn.Module):
         x = x + _positions(ids.shape[1], self.d, x)
         for layer in self.layers:
             x = layer(x)
-        return self.out_proj(x)
+        return self.project(x)
 
 
 def shallow_fusion(

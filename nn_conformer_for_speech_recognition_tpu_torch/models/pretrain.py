@@ -35,6 +35,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import ModelConfig, PretrainConfig
@@ -42,6 +43,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.models.asr import BiLSTM
 from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import ConformerEncoder, length_mask
 from nn_conformer_for_speech_recognition_tpu_torch.models.layers import Linear
 from nn_conformer_for_speech_recognition_tpu_torch.models.subsampling import ConvSubsampling
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import Axis, all_reduce_sum
 
 
 @dataclasses.dataclass
@@ -52,6 +54,11 @@ class PretrainDraws:
     mask: torch.Tensor
     gumbel: Optional[torch.Tensor]
     distractors: torch.Tensor
+
+    def rows(self, rows: slice) -> "PretrainDraws":
+        """The draws of a data rank's ``rows`` of the batch."""
+        return PretrainDraws(self.mask[rows], None if self.gumbel is None else self.gumbel[rows],
+                             self.distractors[rows])
 
 
 def draw_pretrain(
@@ -117,11 +124,20 @@ def contrastive_loss(
     distractor_u: torch.Tensor,
     temperature: float = 0.1,
     diversity_alpha: float = 0.1,
+    global_rows: bool = False,
+    axis: Optional[Axis] = None,
 ) -> torch.Tensor:
     """InfoNCE over the masked positions with K within-utterance
     distractors, plus α·diversity.  ``distractor_u`` (B, T, K) uniform
     draws pick each distractor's offset from its frame: 1 + ⌊u·max(len−1, 1)⌋,
-    modulo the row's length, so never the frame itself where len > 1."""
+    modulo the row's length, so never the frame itself where len > 1.
+
+    With ``global_rows`` the rows are a data rank's share of a batch: the
+    masked positions are counted, and the target distribution averaged,
+    over the data group ``axis`` (the world where None), and the
+    diversity term, which every rank then computes whole, enters each
+    rank's loss divided by the group's size, so that the ranks' losses and
+    gradients add up to the global batch's."""
     b, t, _ = context.shape
     unit_ctx, unit_tgt = _unit(context), _unit(targets)
     pos_sim = torch.sum(unit_ctx * unit_tgt, dim=-1) / temperature  # (B, T)
@@ -137,13 +153,19 @@ def contrastive_loss(
     logits = torch.cat([pos_sim[..., None], neg_sim], dim=-1)
     nce = -(pos_sim - torch.logsumexp(logits, dim=-1))
     w = mask_pos.to(nce.dtype)
-    loss = torch.sum(nce * w) / torch.clamp_min(torch.sum(w), 1.0)
+    spread = global_rows and (axis is None or axis.spread)
+    count = all_reduce_sum(torch.sum(w), axis) if spread else torch.sum(w)
+    loss = torch.sum(nce * w) / torch.clamp_min(count, 1.0)
 
     if diversity_alpha > 0:
         # the entropy of the mean target distribution over valid frames
         valid = (torch.arange(t, device=context.device)[None, :] < lengths[:, None])[..., None].to(targets.dtype)
         probs = torch.softmax(targets, dim=-1)
-        mean_p = torch.sum(probs * valid, dim=(0, 1)) / torch.clamp_min(torch.sum(valid), 1.0)
+        sums = torch.cat([torch.sum(probs * valid, dim=(0, 1)), torch.sum(valid).reshape(1)])
+        if spread:
+            sums = all_reduce_sum(sums, axis)
+        mean_p = sums[:-1] / torch.clamp_min(sums[-1], 1.0)
         entropy = -torch.sum(mean_p * torch.log(mean_p + 1e-10))
-        loss = loss - diversity_alpha * entropy
+        ranks = (dist.get_world_size() if axis is None else axis.size) if spread else 1
+        loss = loss - diversity_alpha * entropy / ranks
     return loss

@@ -1,7 +1,8 @@
 """CTC decoding, port of
 `nn_conformer_for_speech_recognition_tpu/ops/decode.py`: ``greedy_decode``,
-``collapse_repeats`` and the fixed-width CTC prefix beam search
-(``BeamState``, ``_beam_step_core``, ``ctc_beam_search``).
+``collapse_repeats``, the fixed-width CTC prefix beam search
+(``BeamState``, ``_beam_step_core``, ``ctc_beam_search``) and its
+vocabulary-sharded variant (``ctc_beam_search_sharded``).
 
 The beam search keeps the JAX package's formulation (Hannun et al. 2014 on
 dense arrays): a beam of ``beam`` hypotheses per utterance, per frame only
@@ -18,8 +19,12 @@ What decides hypotheses and is therefore kept exactly: ties in every
 selection go to the lower index (stable descending sorts: most candidates
 tie at −1e30, and which dummy beam survives decides later merges); the
 prefix hash is 32-bit with wrap-around (held in int64, masked); everything
-is float32; −1e30 stands in for −inf.  The vocabulary-sharded variant
-waits for the multi-GPU slice.
+is float32; −1e30 stands in for −inf.
+
+`ctc_beam_search_sharded` decodes log-probs split over the vocabulary
+across a model group (`parallel.mesh.Axis`), one frame's V-dependent
+pieces exchanged by collectives, and gives every rank the hypotheses of
+`ctc_beam_search` on the whole log-probs.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import Axis, all_gather
 
 NEG_INF = -1e30
 _HASH_MULT = 1000003
@@ -179,6 +187,19 @@ def ctc_beam_search(
     tok_lp = lp_noblank.gather(2, tok_ids)
     lp_blank = lp[:, :, blank_id]
 
+    def last_lp(state: BeamState, frame: int) -> torch.Tensor:
+        return lp[:, frame].gather(1, torch.clamp_min(state.last, 0).to(torch.int64))
+
+    return _search(tok_lp, tok_ids, lp_blank, last_lp, frame_lengths, t, beam=beam, prune=prune,
+                   max_label_len=max_label_len)
+
+
+def _search(tok_lp, tok_ids, lp_blank, last_lp, frame_lengths, t: int, *, beam: int, prune: int,
+            max_label_len: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The frame loop of both searches, from the (B, T, P) candidates, the
+    (B, T) blank log-probs and ``last_lp(state, frame)``, the (B, beam)
+    log-prob of each beam's last token (any value where it has none)."""
+    bsz, dev = tok_lp.shape[0], tok_lp.device
     first = torch.arange(beam, device=dev) == 0
     state = BeamState(
         prefixes=torch.full((bsz, beam, max_label_len), -1, dtype=torch.int32, device=dev),
@@ -194,7 +215,7 @@ def ctc_beam_search(
     # frames at or beyond the longest row change nothing: stop there
     for frame in range(min(t, int(frame_lengths.max())) if bsz else 0):
         has_last = state.last >= 0
-        lp_last = lp[:, frame].gather(1, torch.clamp_min(state.last, 0).to(torch.int64))
+        lp_last = last_lp(state, frame)
         state = _beam_step_core(
             state, tok_lp[:, frame], tok_ids[:, frame], lp_blank[:, frame], torch.where(has_last, lp_last, neg),
             frame < frame_lengths, beam=beam, prune=prune,
@@ -208,7 +229,66 @@ def ctc_beam_search(
     )
 
 
-def ctc_beam_search_sharded(*args, **kwargs):
-    """The vocabulary-sharded beam search (log-probs split over a model
-    axis, candidates exchanged by collectives)."""
-    raise NotImplementedError("ctc_beam_search_sharded is not ported yet: ROADMAP Queue 1 item 13b, Multi-GPU")
+@torch.no_grad()
+def ctc_beam_search_sharded(
+    lp_local: torch.Tensor,
+    frame_lengths: Optional[torch.Tensor] = None,
+    *,
+    axis: Axis,
+    blank_id: int = 0,
+    beam: int = 8,
+    prune: int = 8,
+    max_label_len: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Vocabulary-sharded CTC prefix beam search over the model group
+    ``axis`` (every rank of it calls this).  Each rank holds ``lp_local``,
+    its (B, T, V/mp) slice of the log-probs (rank r: vocabulary entries
+    r·V/mp onwards), so the whole log-probs never sit on one card.  As the
+    JAX function under ``shard_map``:
+
+    * per-frame candidates: local top-``prune``, ``all_gather``, global
+      top-``prune`` (exact: the global top-P lies in the union of the
+      local ones; ties go to the lower rank, then the lower index, so to
+      the lower token id, as in `ctc_beam_search`);
+    * the blank log-prob: a masked all-reduce (one rank owns blank);
+    * the repeat-of-last lookup, frame by frame: a one-hot selection over
+      the local slice and an all-reduce, in exact float32 (one nonzero
+      term: no tensor-core product, whose TF32 inputs would round it).
+
+    The V-independent bookkeeping (`_beam_step_core`) runs alike on every
+    rank, so every rank returns the same (tokens, lengths, scores), those
+    of `ctc_beam_search` on the whole log-probs."""
+    bsz, t, v_local = lp_local.shape
+    dev = lp_local.device
+    mp = axis.size
+    lp = lp_local.to(torch.float32)
+    if frame_lengths is None:
+        frame_lengths = torch.full((bsz,), t, dtype=torch.int32, device=dev)
+    frame_lengths = frame_lengths.to(dev)
+    local_ids = axis.rank * v_local + torch.arange(v_local, device=dev)
+    is_blank = local_ids == blank_id
+
+    # per-frame candidates for all frames at once: local top-P, gathered, global top-P
+    lp_noblank = torch.where(is_blank, NEG_INF, lp)
+    p_local = min(prune, v_local)
+    loc_idx = _top_indices(lp_noblank, p_local)
+    loc_lp = lp_noblank.gather(2, loc_idx)
+    all_lp = all_gather(loc_lp, axis, dim=2)  # (B, T, mp·Pl), rank by rank
+    all_ids = all_gather(loc_idx + axis.rank * v_local, axis, dim=2)
+    prune = min(prune, mp * p_local, mp * v_local - 1)
+    sel = _top_indices(all_lp, prune)
+    tok_lp, tok_ids = all_lp.gather(2, sel), all_ids.gather(2, sel)
+    # the blank log-prob: exactly one rank owns it, the others add zeros
+    lp_blank = torch.where(is_blank, lp, 0.0).sum(dim=2)
+    if axis.spread:
+        dist.all_reduce(lp_blank, group=axis.group)
+
+    def last_lp(state: BeamState, frame: int) -> torch.Tensor:
+        onehot = state.last[:, :, None] == local_ids  # (B, beam, Vl)
+        picked = torch.where(onehot, lp[:, frame, None, :], 0.0).sum(dim=2)
+        if axis.spread:
+            dist.all_reduce(picked, group=axis.group)
+        return picked
+
+    return _search(tok_lp, tok_ids, lp_blank, last_lp, frame_lengths, t, beam=beam, prune=prune,
+                   max_label_len=max_label_len)

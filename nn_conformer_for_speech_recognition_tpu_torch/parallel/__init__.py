@@ -1,4 +1,6 @@
-"""Data parallelism over processes, one card a process: the port of the JAX
-package's ``parallel/`` for its data-parallel half (`mesh`, `multihost`).
-Tensor parallelism, sequence parallelism and the sharded beam search are
-not ported yet (ROADMAP Queue 1 item 13b)."""
+"""Parallelism over processes, one card a process: the port of the JAX
+package's ``parallel/``.  `mesh` lays the processes out as ``('data',
+'model')`` and holds the data- and tensor-parallel collectives and the rule
+table, `sequence` the Ulysses attention over the data group, `multihost`
+the host-side gathers.  ``kernel_sharding`` has no counterpart: a process's
+kernels see only its rows."""

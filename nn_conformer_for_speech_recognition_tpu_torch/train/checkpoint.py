@@ -17,7 +17,12 @@ Restoring copies into the template state's own tensors, so the step
 functions bound to its model keep working, and returns that state.
 
 Under a process group (data parallelism) rank 0 writes and rotates while
-the others wait at a barrier; every rank restores.
+the others wait at a barrier; every rank restores.  Under tensor
+parallelism every rank first gathers its model group's shares of the
+split parameters and of their optimizer slots, so that rank 0 writes the
+whole state, the state a one-process run holds: a checkpoint does not
+depend on ``model_parallel_size``, and a rank restoring it cuts its own
+shares from it.
 """
 
 from __future__ import annotations
@@ -28,18 +33,37 @@ from typing import Dict, Optional
 
 import torch
 
-from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import barrier, is_main_process
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import (
+    barrier,
+    full_state_dict,
+    gather_shards,
+    is_main_process,
+    local_state_dict,
+    tensor_parallel_plan,
+)
 from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
 
 STATE_FILE = "state.pt"
+
+
+def whole_optimizer_slots(state: TrainState) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The optimizer's slots, those of split parameters gathered whole over
+    the model group (a collective)."""
+    plan = tensor_parallel_plan(state.model)
+    slots = state.optimizer.state
+    if plan is None:
+        return slots
+    specs = state.optimizer.slot_specs
+    return {name: {k: v if specs[name][k] is None else gather_shards(v, specs[name][k], plan.axis)
+                   for k, v in st.items()} for name, st in slots.items()}
 
 
 def _payload(state: TrainState, iterator: Optional[dict] = None) -> dict:
     return {
         "step": state.step,
         "seed": state.seed,
-        "model": state.model.state_dict(),
-        "optimizer": {"count": state.optimizer.count, "state": state.optimizer.state},
+        "model": full_state_dict(state.model),
+        "optimizer": {"count": state.optimizer.count, "state": whole_optimizer_slots(state)},
         "generator": state.generator.get_state(),
         # (epoch, step) of the next batch; epoch -1: no cursor was given
         "iterator": {
@@ -49,20 +73,30 @@ def _payload(state: TrainState, iterator: Optional[dict] = None) -> dict:
     }
 
 
+def _gathered(state: TrainState, iterator: Optional[dict]) -> Optional[dict]:
+    """The payload where this rank writes it (rank 0), None elsewhere; every
+    rank of a split model takes part in the gathers."""
+    if tensor_parallel_plan(state.model) is None and not is_main_process():
+        return None
+    payload = _payload(state, iterator)
+    return payload if is_main_process() else None
+
+
 def save_state(path: str, state: TrainState, iterator: Optional[dict] = None) -> None:
     """Writes ``path/state.pt``; the file appears under its name only once
     it is complete.  Under a process group rank 0 writes and every rank
     returns once it has."""
-    if is_main_process():
-        _write_state(path, state, iterator)
+    payload = _gathered(state, iterator)
+    if payload is not None:
+        _write_state(path, payload)
     barrier()
 
 
-def _write_state(path: str, state: TrainState, iterator: Optional[dict]) -> None:
+def _write_state(path: str, payload: dict) -> None:
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f"{STATE_FILE}.{os.getpid()}.tmp")
-    torch.save(_payload(state, iterator), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
 
 
@@ -76,14 +110,17 @@ def restore_state(path: str, template: TrainState, with_iterator: bool = False):
     None where the checkpoint was saved without one."""
     device = next(template.model.parameters()).device
     saved = _load(path, device)
-    template.model.load_state_dict(saved["model"], strict=True)
+    template.model.load_state_dict(local_state_dict(template.model, saved["model"]), strict=True)
+    plan = tensor_parallel_plan(template.model)
     opt = template.optimizer
     if set(saved["optimizer"]["state"]) != set(opt.state):
         raise ValueError("checkpoint and optimizer hold different parameters")
     for name, slots in saved["optimizer"]["state"].items():
         if set(slots) != set(opt.state[name]):
             raise ValueError(f"checkpoint and optimizer disagree on the state of {name}")
-        opt.state[name] = {k: v.to(device) for k, v in slots.items()}
+        specs = opt.slot_specs[name]
+        opt.state[name] = {k: (v if plan is None or specs[k] is None else specs[k].local(v, plan.axis.rank)).to(device)
+                           for k, v in slots.items()}
     opt.count = int(saved["optimizer"]["count"])
     template.step, template.seed = int(saved["step"]), int(saved["seed"])
     if saved["generator"] is None:  # converted from the JAX package (`convert.train_state_from_flax`)
@@ -100,7 +137,7 @@ def restore_encoder_params(path: str, model: torch.nn.Module) -> None:
     """Copies only the encoder's and the subsampling's parameters from the
     checkpoint into ``model`` (the 'load a pretrained conformer' path): the
     head, every batch statistic and whatever the checkpoint lacks stay."""
-    saved: Dict[str, torch.Tensor] = _load(path, "cpu")["model"]
+    saved: Dict[str, torch.Tensor] = local_state_dict(model, _load(path, "cpu")["model"])
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.startswith(("encoder.", "subsampling.")) and name in saved:
@@ -133,8 +170,9 @@ class CheckpointManager:
         best = metric is not None and (self.best_metric is None or metric < self.best_metric)
         if best:
             self.best_metric = metric
-        if is_main_process():
-            _write_state(path, state, iterator)
+        payload = _gathered(state, iterator)
+        if payload is not None:
+            _write_state(path, payload)
             if best:
                 shutil.rmtree(os.path.join(self.directory, "best"), ignore_errors=True)
                 shutil.copytree(path, os.path.join(self.directory, "best"))

@@ -20,21 +20,31 @@ one call of `make_epoch_scan_step` (in chunks where mid-epoch checkpoints
 are asked for) that pulls nothing to the host before it ends.  It runs on
 the first CUDA device unless the caller asks for ``device="cpu"``.
 
-Data parallelism (`parallel.mesh`): under a process group, one card a
-process, the trainer reads every global batch on every rank and computes on
-its contiguous share of the rows (`parallel.mesh.DataShard`).  The loss
-divides by the global count of rows with a target, the masked BatchNorm
-takes the global batch's statistics, one all-reduce of the flat gradient
-follows the backward, and the optimizer then runs alike on every rank;
-SpecAugment and the waveform noise are drawn for the global batch and
-sliced, so the ranks together compute one process's step on the whole
-batch.  `Trainer.evaluate` and `Trainer.generate_labels` gather their
-results (`parallel.multihost`); checkpoints are written by rank 0.
+Parallelism (`parallel.mesh`): under a process group, one card a process,
+the trainer lays its processes out as ``('data', 'model')``
+(`parallel.mesh.make_mesh`, from ``MeshConfig``).  Each data rank reads
+every global batch and computes on its contiguous share of the rows
+(`parallel.mesh.DataShard`).  The loss divides by the global count of rows
+with a target, the masked BatchNorm takes the global batch's statistics,
+one all-reduce of the flat gradient over the data group follows the
+backward, and the optimizer then runs alike on every rank; SpecAugment,
+the waveform noise and dropout are drawn for the global batch and sliced,
+so the ranks together compute one process's step on the whole batch.
+With ``model_parallel_size`` > 1 each model rank holds its share of the
+FFN and attention weights (`parallel.mesh.shard_module`), the gradient
+norm sums the split leaves' squares over the model group, and Adafactor
+computes the whole parameters' update (`train.optim`).  With
+``seq_parallel`` the attention layers run Ulysses over the data group
+(`parallel.sequence`).  ``shard_map_kernels`` is how the JAX package keeps
+its kernels to a device's rows; here every rank's kernels see only its
+rows anyway, and the field's engagement is counted
+(`parallel.sequence.fallback_stats`).  `Trainer.evaluate` and
+`Trainer.generate_labels` gather their results (`parallel.multihost`);
+checkpoints are written whole by rank 0.
 
 Not ported, as TPU scheduler workarounds: the ``optimization_barrier``
 fence between the augment and train halves and the hardware-RNG dropout
-key.  Not ported yet, and refused with ``NotImplementedError``: a device
-mesh, model or sequence parallelism (ROADMAP Queue 1 item 13b).
+key.
 
 Shallow LM fusion: ``lm_apply`` (context ids → LM logits, e.g.
 `models.lm.make_pron_lm_apply`) given to `make_eval_step`,
@@ -53,7 +63,6 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import (
     FeatureConfig,
@@ -80,15 +89,24 @@ from nn_conformer_for_speech_recognition_tpu_torch.ops.specaugment import (
 )
 from nn_conformer_for_speech_recognition_tpu_torch.parallel import multihost as MH
 from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import (
-    ITEM_13B,
+    Axis,
     DataShard,
+    Mesh,
+    all_reduce_,
     all_reduce_sum,
     batch_rows,
     broadcast_module,
-    check_mesh_config,
-    data_shard,
+    check_mesh,
     is_main_process,
     process_group_active,
+    shard_module,
+    tensor_parallel_plan,
+    unshard_module,
+)
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.sequence import (
+    kernel_sharding_applicable,
+    sequence_mesh_engaged,
+    set_sequence_mesh,
 )
 from nn_conformer_for_speech_recognition_tpu_torch.train import metrics as M
 from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import (
@@ -112,41 +130,76 @@ def _select_ctc(ctc_impl: str) -> Callable[..., torch.Tensor]:
 
 
 def _batch_loss(
-    ctc, log_probs, targets, out_lengths, target_lengths, blank_id, global_rows: bool = False
+    ctc, log_probs, targets, out_lengths, target_lengths, blank_id, global_rows: bool = False,
+    axis: Optional[Axis] = None,
 ) -> torch.Tensor:
     """Per-sequence CTC over the target length, averaged over the rows
     that have a target (``target_lengths > 0``).  With ``global_rows`` (a
     data-parallel rank's share of a batch) the count of such rows is
-    summed over the process group: each rank's loss is then its share of
-    the global batch's mean, and a rank that holds only batch padding adds
-    zero."""
+    summed over the data group ``axis`` (the world where None): each
+    rank's loss is then its share of the global batch's mean, and a rank
+    that holds only batch padding adds zero."""
     per_seq = ctc(log_probs, targets, out_lengths, target_lengths, blank_id=blank_id, reduction=None)
     w = (target_lengths > 0).to(per_seq.dtype)
     denom = torch.clamp_min(target_lengths, 1).to(per_seq.dtype)
     count = w.sum()
-    if global_rows:
-        count = all_reduce_sum(count)
+    if global_rows and (axis is None or axis.spread):
+        count = all_reduce_sum(count, axis)
     return (per_seq / denom * w).sum() / torch.clamp_min(count, 1.0)
 
 
-def _all_reduce_gradients(model: torch.nn.Module, loss: torch.Tensor) -> torch.Tensor:
-    """Sums every parameter's gradient, and the loss, over the process
-    group in one all-reduce of a flat buffer; returns the global loss."""
+def all_reduce_gradients(model: torch.nn.Module, loss: torch.Tensor, axis: Optional[Axis] = None) -> torch.Tensor:
+    """Sums every parameter's gradient, and the loss, over the data group
+    ``axis`` (the world where None) in one all-reduce of a flat buffer;
+    returns the global loss.
+
+    Under tensor parallelism the split parameters' shares are summed over
+    the data group, and the replicated parameters' gradients over every
+    rank and divided by the model axis's size: each model rank computes its
+    own copy of them, which library kernels that sum in no fixed order
+    (cuDNN's float32 weight gradients) can leave a few ulps apart, and the
+    mean makes them one, so that the model ranks' copies never drift."""
     named = list(model.named_parameters())
     missing = [name for name, p in named if p.grad is None]
     if missing:
         raise RuntimeError(f"no gradient for {missing[:4]}: every rank must reduce the same buffer")
-    grads = [p.grad for _, p in named]
-    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1).to(grads[0].dtype)])
-    dist.all_reduce(flat)
-    with torch.no_grad():  # one multi-tensor copy back, not one launch a parameter
-        parts = torch.split(flat[:-1], [g.numel() for g in grads])
-        torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(grads, parts)])
-    return flat[-1].to(loss.dtype)
+    plan = tensor_parallel_plan(model)
+    split = plan is not None and plan.axis.spread
+    buckets = [([p.grad for n, p in named if not split or n not in plan.specs], None if split else axis,
+                plan.axis.size if split else 1)]
+    if split:
+        buckets.append(([p.grad for n, p in named if n in plan.specs], axis, 1))
+    total = loss
+    for i, (grads, over, ranks) in enumerate(buckets):
+        if over is not None and not over.spread:
+            continue
+        with_loss = [loss.detach().reshape(1).to(grads[0].dtype)] if i == 0 else []
+        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads] + with_loss), over)
+        if ranks > 1:
+            flat /= ranks
+        with torch.no_grad():  # one multi-tensor copy back, not one launch a parameter
+            parts = torch.split(flat[:flat.numel() - len(with_loss)], [g.numel() for g in grads])
+            torch._foreach_copy_(grads, [part.view_as(g) for g, part in zip(grads, parts)])
+        if with_loss:
+            total = flat[-1].to(loss.dtype)
+    return total
 
 
 def optax_global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x)) for x in tensors))
+
+
+def gradient_norm(model: torch.nn.Module) -> torch.Tensor:
+    """The global norm of the model's gradients.  Under tensor parallelism
+    the squares of the split parameters' shares are summed over the model
+    group and each replicated parameter counts once."""
+    plan = tensor_parallel_plan(model)
+    if plan is None:
+        return optax_global_norm(p.grad for p in model.parameters())
+    named = list(model.named_parameters())
+    split = sum(torch.sum(torch.square(p.grad)) for n, p in named if n in plan.specs)
+    whole = sum(torch.sum(torch.square(p.grad)) for n, p in named if n not in plan.specs)
+    return torch.sqrt(all_reduce_(split, plan.axis) + whole)
 
 
 def make_augment_step(
@@ -189,6 +242,7 @@ def make_feature_train_step(
     emit_ids: bool = False,
     pad_id: int = 0,
     shard: Optional[DataShard] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns ``train_step(state, feats, frame_lengths, targets,
     target_lengths) → (state, metrics)``: forward in train mode, CTC loss,
@@ -203,9 +257,12 @@ def make_feature_train_step(
     target, the gradients and the loss are summed over the process group
     after the backward (one all-reduce), so the update, the norm and the
     reported loss are the global batch's on every rank; the dropout seed
-    folds in the rank."""
+    folds in the rank.  ``mesh`` names the data group those sums run over
+    (the world without one); the ranks of a model group share a data rank,
+    so they draw the same dropout masks."""
     ctc = _select_ctc(ctc_impl)
     rank = 0 if shard is None else shard.rank
+    axis = None if mesh is None else mesh.data
 
     def train_step(state: TrainState, feats, frame_lengths, targets, target_lengths):
         if state.model is not model:
@@ -217,11 +274,11 @@ def make_feature_train_step(
             torch.manual_seed(state.dropout_seed(rank))
             log_probs, out_lengths = model(feats, frame_lengths)
             loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id,
-                               global_rows=shard is not None)
+                               global_rows=shard is not None, axis=axis)
             loss.backward()
         if shard is not None:
-            loss = _all_reduce_gradients(model, loss)
-        grad_norm = optax_global_norm(p.grad for p in model.parameters())
+            loss = all_reduce_gradients(model, loss, axis)
+        grad_norm = gradient_norm(model)
         state.apply_gradients()
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
         if emit_ids:
@@ -243,6 +300,7 @@ def make_train_step(
     emit_ids: bool = False,
     pad_id: int = 0,
     shard: Optional[DataShard] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``train_step(state, audio, audio_lengths, targets, target_lengths,
     batch_lengths=None) → (state, metrics)``: `make_augment_step` (drawing
@@ -250,7 +308,8 @@ def make_train_step(
     ``shard``, on that rank's rows of a global batch whose sample counts
     are ``batch_lengths``."""
     augment = make_augment_step(feat_cfg, sa_cfg, use_specaugment, noise_std, shard=shard)
-    core = make_feature_train_step(model, blank_id, ctc_impl, emit_ids=emit_ids, pad_id=pad_id, shard=shard)
+    core = make_feature_train_step(model, blank_id, ctc_impl, emit_ids=emit_ids, pad_id=pad_id, shard=shard,
+                                   mesh=mesh)
 
     def train_step(state: TrainState, audio, audio_lengths, targets, target_lengths, batch_lengths=None):
         feats, frame_lengths = augment(state.generator, audio, audio_lengths, batch_lengths)
@@ -270,6 +329,7 @@ def make_epoch_scan_step(
     batch_sharding: Optional[DataShard] = None,
     emit_ids: bool = False,
     pad_id: int = 0,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[..., Tuple[TrainState, Tuple[torch.Tensor, ...]]]:
     """Returns ``epoch(state, audio, alen, targets, tlen, order) → (state,
     (losses, sizes[, ids]))``: the train steps of an epoch over
@@ -292,7 +352,7 @@ def make_epoch_scan_step(
     if batch_sharding is not None and not isinstance(batch_sharding, DataShard):
         raise TypeError(f"batch_sharding must be a parallel.mesh.DataShard, got {type(batch_sharding).__name__}")
     step = make_train_step(model, feat_cfg, sa_cfg, blank_id, use_specaugment=use_specaugment, noise_std=noise_std,
-                           ctc_impl=ctc_impl, emit_ids=emit_ids, pad_id=pad_id, shard=batch_sharding)
+                           ctc_impl=ctc_impl, emit_ids=emit_ids, pad_id=pad_id, shard=batch_sharding, mesh=mesh)
 
     def epoch(state: TrainState, audio, alen, targets, tlen, order):
         losses, sizes, ids = [], [], []
@@ -438,16 +498,31 @@ def mean_of_steps(losses: List[torch.Tensor]) -> float:
     return sum(float(x) for x in pulled) / max(len(pulled), 1)
 
 
-def refuse_mesh(mesh, mesh_cfg: MeshConfig, data_parallel: bool = False) -> None:
-    """A device mesh, model parallelism, sequence parallelism or kernel
-    sharding raises (ROADMAP Queue 1 item 13b).  A trainer that does not
-    train data-parallel (``data_parallel`` false: the LM and pretraining
-    trainers) also refuses a process group."""
-    if mesh is not None:
-        raise NotImplementedError(f"a device mesh is not ported yet: {ITEM_13B}")
-    check_mesh_config(mesh_cfg)
-    if not data_parallel and process_group_active():
-        raise NotImplementedError(f"this trainer under a process group is not ported yet: {ITEM_13B}")
+def setup_layout(mesh, mesh_cfg: MeshConfig) -> Tuple[Mesh, Optional[DataShard]]:
+    """A trainer's layout: ``mesh`` (a `parallel.mesh.Mesh`) or the one
+    ``mesh_cfg`` lays over the process group (`parallel.mesh.check_mesh`
+    raises for anything else), and the data rank's `DataShard` (None
+    without a process group).  ``seq_parallel`` activates Ulysses over the
+    data axis from now on, as the JAX trainers do at construction."""
+    mesh = check_mesh(mesh, mesh_cfg)
+    shard = DataShard(mesh.data.rank, mesh.data.size) if process_group_active() else None
+    if mesh_cfg.seq_parallel:
+        set_sequence_mesh(mesh, mesh_cfg.data_axis)
+    return mesh, shard
+
+
+def init_split(model: torch.nn.Module, mesh: Mesh, shard: Optional[DataShard], init: Callable[[], None]):
+    """Initialises ``model`` whole by ``init()`` (a split model is gathered
+    whole first), gives every rank rank 0's parameters and buffers, then
+    splits it over the model axis (`parallel.mesh.shard_module`); returns
+    the plan, None without tensor parallelism.  The ranks of a model group
+    start from the weights one process starts from."""
+    if tensor_parallel_plan(model) is not None:
+        unshard_module(model)
+    init()
+    if shard is not None:
+        broadcast_module(model)
+    return shard_module(model, mesh)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -474,10 +549,12 @@ class Trainer:
     `run_nst`) makes that model the trainer's.
 
     Under a process group (``torchrun``, `parallel.mesh.initialize_multihost`)
-    the trainer trains data-parallel over its ranks, one card each, as the
-    JAX trainer trains over every device it sees: each rank reads the same
-    global batches and computes on its share of the rows, and only rank 0
-    logs.  ``mesh`` (a JAX device mesh) has no counterpart and raises.
+    the trainer trains over its ranks, one card each, as the JAX trainer
+    trains over every device it sees: each rank reads the same global
+    batches and computes on its data rank's share of the rows, with
+    ``mesh_cfg``'s tensor and sequence parallelism, and only rank 0 logs.
+    ``mesh`` is a `parallel.mesh.Mesh` (`parallel.mesh.make_mesh`), by
+    default the one ``mesh_cfg`` lays over the process group.
     """
 
     def __init__(
@@ -494,10 +571,9 @@ class Trainer:
         lm_weight: float = 0.3,
         device=None,
     ):
-        refuse_mesh(mesh, mesh_cfg, data_parallel=True)
         self.device = resolve_device(device)
-        # the rank's share of every batch, or None without a process group
-        self.shard: Optional[DataShard] = data_shard() if process_group_active() else None
+        # the layout, and the data rank's share of every batch (None without a process group)
+        self.mesh, self.shard = setup_layout(mesh, mesh_cfg)
         self.vocab = vocab
         self.feat_cfg = feat_cfg
         self.train_cfg = train_cfg
@@ -518,7 +594,8 @@ class Trainer:
         blank, pad = self.vocab.blank_id, self.vocab.pad_id
         cfg = self.train_cfg
         self._train_core = make_feature_train_step(
-            model, blank, ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=pad, shard=self.shard)
+            model, blank, ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=pad, shard=self.shard,
+            mesh=self.mesh)
         # composed (augment ∘ core) steps, keyed by (use_specaugment,
         # noise_std), so that a caller (the NST retrain) can override the
         # augmentation per train() call
@@ -554,26 +631,32 @@ class Trainer:
         model, converted), batch statistics at their start values, a new
         optimizer.  ``example`` is accepted for the JAX package's signature;
         no shape needs tracing here.  Under a process group every rank then
-        takes rank 0's parameters and batch statistics."""
+        takes rank 0's parameters and batch statistics, and under tensor
+        parallelism keeps its model rank's share of them."""
         del example
-        if variables is not None:
-            self.model.load_state_dict(flax_to_state_dict(variables, self.model.config), strict=True)
-        else:
+
+        def init():
+            if variables is not None:
+                self.model.load_state_dict(flax_to_state_dict(variables, self.model.config), strict=True)
+                return
             init_params(self.model, torch.Generator().manual_seed(seed))
             with torch.no_grad():
                 for m in self.model.modules():
                     if isinstance(m, MaskedBatchNorm):
                         m.running_mean.zero_()
                         m.running_var.fill_(1.0)
-        if self.shard is not None:
-            broadcast_module(self.model)
-        optimizer = make_optimizer(self.opt_cfg, self.model.named_parameters())
+
+        plan = init_split(self.model, self.mesh, self.shard, init)
+        optimizer = make_optimizer(self.opt_cfg, self.model.named_parameters(), plan)
         self._state = TrainState.create(self.model, optimizer, seed)
         return self._state
 
     def _local(self, batch: Batch) -> Batch:
         """The rank's rows of a global batch (the batch itself without a
-        process group)."""
+        process group).  Under ``shard_map_kernels`` the split is counted
+        as the JAX package's kernel sharding counts it."""
+        if self.mesh_cfg.shard_map_kernels:
+            kernel_sharding_applicable(self.mesh, self.mesh_cfg.data_axis, len(batch.indices))
         return batch if self.shard is None else batch_rows(batch, self.shard.rank, self.shard.world)
 
     def _batch_lengths(self, batch: Batch) -> Optional[torch.Tensor]:
@@ -796,7 +879,7 @@ class Trainer:
             self._epoch_scans[key] = make_epoch_scan_step(
                 self.model, self.feat_cfg, cfg.specaugment, self.vocab.blank_id, use_specaugment=key[0],
                 noise_std=key[1], ctc_impl=cfg.ctc_impl, batch_sharding=self.shard, emit_ids=cfg.train_wer,
-                pad_id=self.vocab.pad_id)
+                pad_id=self.vocab.pad_id, mesh=self.mesh)
         return self._epoch_scans[key]
 
     def _upload_order(self, order: np.ndarray) -> torch.Tensor:
@@ -984,8 +1067,14 @@ class Trainer:
         Under a process group the ranks' labels are unioned
         (`parallel.multihost.gather_pseudo_labels`): without ``index_map``
         every rank reads the whole ``dataset`` and decodes its rows of each
-        batch; with it ``dataset`` is the rank's own shard, decoded whole."""
+        batch; with it ``dataset`` is the rank's own shard, decoded whole.
+        A rank's own shard would give the ranks of a model group, or of a
+        sequence-parallel data group, different batches: under either,
+        ``index_map`` raises."""
         self._require_state()
+        if index_map is not None and (self.mesh.model.size > 1 or sequence_mesh_engaged()):
+            raise ValueError("generate_labels(index_map=...) decodes a rank's own shard; under tensor or sequence "
+                             "parallelism the ranks must decode the same batches: pass the whole dataset")
         labels: Dict[int, str] = {}
         for batch in dataset.epoch(shuffle=False):
             if index_map is None:

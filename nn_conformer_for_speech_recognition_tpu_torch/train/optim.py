@@ -21,6 +21,17 @@ The two largest axes are picked on the JAX package's layout of each
 parameter (`convert.flax_axes`), so a Linear or Conv weight, stored
 transposed here, is factored over the same logical axes as in optax.
 
+Under tensor parallelism a rank holds its share of the split parameters
+(`parallel.mesh.shard_module`), and the optimizer its share of their
+state.  Given the module's `parallel.mesh.TensorParallelPlan`, Adafactor
+still computes optax's update of the whole parameter: it decides the
+factoring on the whole parameter's shape, sums over the model group the
+means that run along the split axis (a row or column second moment, the
+row moments' mean) and the squares of the clipping RMS.  Adam is
+elementwise and needs nothing.  ``slot_specs`` tells a checkpoint how each
+slot splits, so that it can be gathered whole and cut again
+(`train.checkpoint`).
+
 `Adam` is ``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0, both
 moments debiased) and, with a weight decay, ``optax.adamw``: the decay
 ``rate * param`` is added to the Adam update before the learning rate
@@ -36,6 +47,7 @@ import torch
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import OptimizerConfig
 from nn_conformer_for_speech_recognition_tpu_torch.convert import factored_dims, flax_axes
+from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import ShardSpec, TensorParallelPlan, all_reduce_
 
 Schedule = Union[float, Callable[[int], float]]
 # optax.adafactor's defaults, which the JAX package keeps
@@ -61,9 +73,17 @@ def make_schedule(cfg: OptimizerConfig) -> Schedule:
     raise ValueError(f"unknown schedule {cfg.schedule!r}")
 
 
+def _without(axis: Optional[int], removed: int) -> Optional[int]:
+    """The index of ``axis`` once ``removed`` is taken out (None: gone)."""
+    if axis is None or axis == removed:
+        return None
+    return axis - 1 if axis > removed else axis
+
+
 class Adafactor:
     """Adafactor over named parameters, updated in place from their
-    ``.grad`` by `step`.  State is kept in the JAX package's layout."""
+    ``.grad`` by `step`.  State is kept in the JAX package's layout.  With
+    ``plan`` the parameters it names are this rank's shares of split ones."""
 
     def __init__(
         self,
@@ -73,17 +93,24 @@ class Adafactor:
         clipping_threshold: Optional[float] = 1.0,
         momentum: Optional[float] = None,
         weight_decay_rate: Optional[float] = None,
+        plan: Optional[TensorParallelPlan] = None,
     ):
         self.learning_rate = learning_rate
         self.clipping_threshold, self.momentum = clipping_threshold, momentum
         self.weight_decay_rate = weight_decay_rate
+        self.axis = None if plan is None else plan.axis
         self.count = 0
         self.params = []
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        # {parameter: {slot: its `ShardSpec` (JAX layout), or None where every model rank holds the whole slot}}
+        self.slot_specs: Dict[str, Dict[str, Optional[ShardSpec]]] = {}
         for name, p in named_params:
             axes = flax_axes(name, p.ndim)
             shape = tuple(p.shape[a] for a in axes)
-            dims = factored_dims(shape, MIN_DIM_SIZE_TO_FACTOR)
+            spec = None if plan is None else plan.specs.get(name)
+            split = None if spec is None else axes.index(spec.axis)  # the split axis in the JAX layout
+            whole = shape if spec is None else tuple(spec.size if i == split else n for i, n in enumerate(shape))
+            dims = factored_dims(whole, MIN_DIM_SIZE_TO_FACTOR)  # optax decides on the whole parameter
             like = dict(device=p.device, dtype=p.dtype)
             if dims is None:
                 st = {"v": torch.zeros(shape, **like)}
@@ -94,8 +121,21 @@ class Adafactor:
                 }
             if momentum is not None:
                 st["ema"] = torch.zeros(shape, **like)
-            self.params.append((name, p, axes, dims))
+            self.params.append((name, p, axes, dims, split))
             self.state[name] = st
+            on = {"v": split, "ema": split}
+            if dims is not None:
+                on.update(v_row=_without(split, dims[1]), v_col=_without(split, dims[0]))
+            self.slot_specs[name] = {k: None if on[k] is None else spec.on_axis(on[k]) for k in st}
+
+    def _mean(self, x: torch.Tensor, dim: int, split: Optional[int]) -> torch.Tensor:
+        """Mean over ``dim`` of a tensor split along ``split`` over the model
+        group: where the two agree, the mean of the ranks' equal shares'
+        means."""
+        m = x.mean(dim=dim)
+        if split != dim:
+            return m
+        return all_reduce_(m, self.axis) / self.axis.size
 
     @torch.no_grad()
     def step(self) -> None:
@@ -104,7 +144,7 @@ class Adafactor:
         decay = np.float32(1.0) - t ** np.float32(-DECAY_RATE)
         keep = float(decay)
         take = float(np.float32(1.0) - decay)
-        for name, p, axes, dims in self.params:
+        for name, p, axes, dims, split in self.params:
             if p.grad is None:
                 raise RuntimeError(f"Adafactor: {name} has no gradient")
             st = self.state[name]
@@ -115,15 +155,19 @@ class Adafactor:
                 u = g * st["v"].pow(-0.5)
             else:
                 d1, d0 = dims
-                st["v_row"] = keep * st["v_row"] + take * g_sqr.mean(dim=d0)
-                st["v_col"] = keep * st["v_col"] + take * g_sqr.mean(dim=d1)
+                st["v_row"] = keep * st["v_row"] + take * self._mean(g_sqr, d0, split)
+                st["v_col"] = keep * st["v_col"] + take * self._mean(g_sqr, d1, split)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+                row_col_mean = self._mean(st["v_row"], reduced_d1, _without(split, d0)).unsqueeze(reduced_d1)
                 row_factor = (st["v_row"] / row_col_mean).pow(-0.5)
                 col_factor = st["v_col"].pow(-0.5)
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             if self.clipping_threshold is not None:
-                u = u / torch.clamp_min(u.square().mean().sqrt() / self.clipping_threshold, 1.0)
+                if split is None:
+                    ms = u.square().mean()
+                else:  # the RMS of the whole parameter's update
+                    ms = all_reduce_(u.square().sum(), self.axis) / (u.numel() * self.axis.size)
+                u = u / torch.clamp_min(ms.sqrt() / self.clipping_threshold, 1.0)
             u = lr * u
             if self.momentum is not None:
                 st["ema"] = (1.0 - self.momentum) * u + self.momentum * st["ema"]
@@ -148,15 +192,19 @@ class Adam:
         b2: float = 0.999,
         eps: float = 1e-8,
         weight_decay: Optional[float] = None,
+        plan: Optional[TensorParallelPlan] = None,
     ):
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.count = 0
         self.params = []
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.slot_specs: Dict[str, Dict[str, Optional[ShardSpec]]] = {}  # as Adafactor's: the parameter's own
         for name, p in named_params:
             self.params.append((name, p))
             self.state[name] = {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
+            spec = None if plan is None else plan.specs.get(name)
+            self.slot_specs[name] = {"mu": spec, "nu": spec}
 
     @torch.no_grad()
     def step(self) -> None:
@@ -182,10 +230,12 @@ class Adam:
 ADAMW_WEIGHT_DECAY = 1e-4
 
 
-def make_optimizer(cfg: OptimizerConfig, named_params: Iterable[Tuple[str, torch.nn.Parameter]]):
+def make_optimizer(cfg: OptimizerConfig, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                   plan: Optional[TensorParallelPlan] = None):
     """The optimizer of ``cfg`` over ``named_params`` (e.g.
     ``model.named_parameters()``): 'adafactor' (the train step's), 'adam'
-    (pretraining's) or 'adamw' (decay ``cfg.weight_decay``)."""
+    (pretraining's) or 'adamw' (decay ``cfg.weight_decay``); ``plan``: the
+    module's tensor-parallel plan, where it has one."""
     lr = make_schedule(cfg)
     if cfg.name == "adafactor":
         return Adafactor(
@@ -194,9 +244,10 @@ def make_optimizer(cfg: OptimizerConfig, named_params: Iterable[Tuple[str, torch
             momentum=cfg.momentum,
             clipping_threshold=cfg.clip_threshold,
             weight_decay_rate=cfg.weight_decay or None,
+            plan=plan,
         )
     if cfg.name == "adam":
-        return Adam(named_params, lr)
+        return Adam(named_params, lr, plan=plan)
     if cfg.name == "adamw":
-        return Adam(named_params, lr, weight_decay=cfg.weight_decay)
+        return Adam(named_params, lr, weight_decay=cfg.weight_decay, plan=plan)
     raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -260,7 +260,349 @@ def scenario_data_parallel(args):
     return {**result, **small}, {**tensors, **small_t}
 
 
-SCENARIOS = {"gathers": scenario_gathers, "data_parallel": scenario_data_parallel}
+# ---------------------------------------------------------------------------
+# tensor parallelism, the sharded beam, the LM and pretraining trainers
+# ---------------------------------------------------------------------------
+
+
+def world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def tp_model_config(attention_impl="flash", dropout=0.0):
+    """The tiny model of the tensor-parallel tests: 4 heads, so that two
+    model ranks hold two heads each."""
+    import dataclasses
+
+    cfg = model_config(dropout)
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, num_heads=4, attention_dropout=dropout),
+                               attention_impl=attention_impl)
+
+
+def tp_trainer(vocab, state_dict_path, attention_impl, mesh_cfg, dropout=0.0):
+    from nn_conformer_for_speech_recognition_tpu_torch import config as TC
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import local_state_dict
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
+
+    tcfg = TC.TrainConfig(batch_size=BATCH, optimizer=TC.OptimizerConfig(learning_rate=LR), use_specaugment=False,
+                          log_every=0)
+    trainer = Trainer(ConformerCTC(tp_model_config(attention_impl, dropout), len(vocab)), vocab,
+                      TC.FeatureConfig(n_fft=256, hop_length=256, n_mels=13), tcfg, mesh_cfg, device="cpu",
+                      log_fn=lambda _: None)
+    trainer.init_state(seed=0)
+    whole = torch.load(state_dict_path, weights_only=True)
+    trainer.model.load_state_dict(local_state_dict(trainer.model, whole), strict=True)
+    return trainer
+
+
+def whole_grads(model) -> dict:
+    """Every parameter's gradient, split ones gathered over the model group."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import gather_shards, tensor_parallel_plan
+
+    plan = tensor_parallel_plan(model)
+    return {n: gather_shards(p.grad, plan.specs[n], plan.axis) if plan and n in plan.specs else p.grad.clone()
+            for n, p in model.named_parameters()}
+
+
+def whole_state(trainer) -> dict:
+    """The model's and the optimizer's state as a checkpoint holds it."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import full_state_dict
+    from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import whole_optimizer_slots
+
+    out = {f"model.{k}": v for k, v in full_state_dict(trainer.model).items()}
+    for name, slots in whole_optimizer_slots(trainer.state).items():
+        out.update({f"opt.{name}.{k}": v for k, v in slots.items()})
+    return out
+
+
+# the Adafactor leaves under tensor parallelism: port name → (the port's shape, split axis there, runs); both
+# dims of every split leaf ≥ 128, so that optax factors it
+ADAFACTOR_LEAVES = {
+    "col.weight": ((256, 256), 0, 1),  # JAX (256, 256) split on its columns
+    "row.weight": ((256, 256), 1, 1),  # ... on its rows
+    "ffn.fc1.weight": ((1024, 256), 0, 1),  # JAX (256, 1024), columns
+    "ffn.fc2.weight": ((256, 1024), 1, 1),  # JAX (1024, 256), rows: Megatron's pairing
+    "ffn.fc2t.weight": ((256, 1024), 0, 1),  # JAX (1024, 256), columns: the JAX rule's split
+    "mhsa.qkv.weight": ((768, 256), 0, 3),  # heads-aligned columns
+    "norm.weight": ((256,), None, 1),  # replicated
+    "small.weight": ((64, 64), None, 1),  # replicated, not factored
+}
+ADAFACTOR_STEPS = 5
+
+
+def adafactor_inputs(seed: int = 0):
+    """The leaves' start values and each step's gradients, in the port's layout."""
+    rng = np.random.default_rng(seed)
+    init = {k: rng.standard_normal(shape).astype(np.float32) for k, (shape, _, _) in ADAFACTOR_LEAVES.items()}
+    grads = [{k: (rng.standard_normal(shape) * (1 + 3 * rng.random())).astype(np.float32)
+              for k, (shape, _, _) in ADAFACTOR_LEAVES.items()} for _ in range(ADAFACTOR_STEPS)]
+    return init, grads
+
+
+def run_adafactor(mesh=None):
+    """`ADAFACTOR_STEPS` Adafactor steps (lr 1e-2, momentum 0.9, clipping 1)
+    on the leaves, split over ``mesh.model`` where given; (whole
+    parameters, whole slots)."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import (
+        ShardSpec,
+        TensorParallelPlan,
+        gather_shards,
+    )
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import Adafactor
+
+    init, grads = adafactor_inputs()
+    mp = 1 if mesh is None else mesh.model.size
+    specs = {k: ShardSpec(axis, shape[axis], mp, runs) for k, (shape, axis, runs) in ADAFACTOR_LEAVES.items()
+             if axis is not None and mp > 1}
+    rank = 0 if mesh is None else mesh.model.rank
+    cut = lambda k, x: specs[k].local(torch.from_numpy(x), rank) if k in specs else torch.from_numpy(x.copy())  # noqa: E731
+    params = {k: torch.nn.Parameter(cut(k, v)) for k, v in init.items()}
+    plan = TensorParallelPlan(mesh.model, specs) if specs else None
+    opt = Adafactor(params.items(), 1e-2, momentum=0.9, clipping_threshold=1.0, plan=plan)
+    for g in grads:
+        for k, p in params.items():
+            p.grad = cut(k, g[k])
+        opt.step()
+    whole = lambda x, spec: x if spec is None else gather_shards(x, spec, plan.axis)  # noqa: E731
+    out = {f"param.{k}": whole(p.detach(), specs.get(k)) for k, p in params.items()}
+    for k, slots in opt.state.items():
+        out.update({f"slot.{k}.{s}": whole(v, opt.slot_specs[k][s]) for s, v in slots.items()})
+    return out
+
+
+def lm_corpus(args):
+    from nn_conformer_for_speech_recognition_tpu_torch.data import lm_corpus as TLC
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import WordVocab
+
+    lm = args["lm"]
+    return TLC.LMCorpus(lm["sentences"], TLC.Lexicon(lm["lexicon"]), WordVocab(["<blank>", "<pad>", "<unk>"] + lm["words"]),
+                        max_src_len=12, max_tgt_len=6)
+
+
+def lm_trainer(args, mesh_cfg):
+    from nn_conformer_for_speech_recognition_tpu_torch import config as TC
+    from nn_conformer_for_speech_recognition_tpu_torch.train.lm_loop import LMTrainer
+
+    corpus = lm_corpus(args)
+    tr = LMTrainer(TC.LMConfig(**args["lm"]["config"]), len(corpus.phoneme_vocab), len(corpus.word_vocab),
+                   corpus.word_vocab.pad_id, learning_rate=1e-3, mesh_cfg=mesh_cfg, device="cpu",
+                   log_fn=lambda _: None)
+    tr.init_state(seed=0)
+    return tr, corpus
+
+
+def run_lm(args, mesh_cfg, save=None):
+    """Two `LMTrainer` steps on the first batch of 8 (dropout 0) from seeded
+    weights, written to ``save`` where given; (losses, the evaluation, the
+    whole parameters and AdamW slots)."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import full_state_dict
+    from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import whole_optimizer_slots
+
+    tr, corpus = lm_trainer(args, mesh_cfg)
+    batch = next(corpus.batches(8, seed=0))
+    losses = []
+    for _ in range(2):
+        tr.state, loss = tr._train_step(tr.state, *tr._put(*batch))
+        losses.append(float(loss))
+    if save:
+        tr.save(save)
+    slots = {f"opt.{n}.{k}": v for n, st in whole_optimizer_slots(tr.state).items() for k, v in st.items()}
+    return losses, tr.evaluate(corpus, batch_size=8), {**full_state_dict(tr.model), **slots}
+
+
+def run_pretrain(args):
+    """Two `PretrainTrainer` steps (data-parallel under a process group) on
+    the unlabelled split's first batch of 8; (losses, parameters)."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as TC
+    from nn_conformer_for_speech_recognition_tpu_torch.data import datasets as TD
+    from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import WordVocab
+    from nn_conformer_for_speech_recognition_tpu_torch.train.pretrain_loop import PretrainTrainer
+
+    enc = TC.ConformerConfig(num_blocks=1, d_model=16, num_heads=2, ffn_dim=32, conv_kernel_size=5, dropout=0.0)
+    mcfg = TC.ModelConfig(encoder=enc, decoder=TC.DecoderConfig(projection_dim=8, lstm_hidden=8), n_mels=8,
+                          subsampling=TC.SubsamplingConfig(channels=(4, 4)))
+    pcfg = TC.PretrainConfig(target_dim=16, distractors_k=3, learning_rate=1e-3, mask_probability=0.3)
+    data = TD.BucketedDataset(TD.load_manifest(args["manifests"]["unlabeled"]), WordVocab(["<blank>", "<pad>", "<unk>"]),
+                              batch_size=8, bucket_boundaries=[14000], max_target_len=4)
+    tr = PretrainTrainer(mcfg, pcfg, TC.FeatureConfig(n_fft=256, hop_length=256, n_mels=8), device="cpu",
+                         log_fn=lambda _: None)
+    tr.init_state(seed=0)
+    batch = next(data.epoch(seed=0))
+    rows = slice(None) if tr.shard is None else tr.shard.rows(len(batch.indices))
+    audio, alen = torch.from_numpy(batch.audio[rows]), torch.from_numpy(batch.audio_lengths[rows].astype(np.int32))
+    losses = []
+    for _ in range(2):
+        tr.state, metrics = tr._train_step(tr.state, audio, alen)
+        losses.append(float(metrics["loss"]))
+    return losses, {k: v.clone() for k, v in tr.model.state_dict().items()}
+
+
+def scenario_tensor_parallel(args):
+    """Under a layout whose model axis is the world (two model ranks; one
+    process without a group): one train step of the 4-head model from
+    converted weights on each attention route, its checkpoint written and
+    the other layout's checkpoint restored; Adafactor on split leaves; the
+    vocabulary-sharded beam search; two LM steps with the rule table's
+    split.  Then, data-parallel (the model axis of size 1): two LM and two
+    pretraining steps."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as TC
+    from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import DeviceResidentDataset
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import ctc_beam_search_sharded
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import make_mesh
+    from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import restore_state
+
+    world = world_size()
+    mesh_cfg = TC.MeshConfig(model_parallel_size=world)
+    vocab, data = port_datasets(args["manifests"])
+    batch = next(data["train"].epoch(seed=0))
+    result, tensors = {}, {}
+    for impl in ("flash", "xla", "dropout"):  # 'dropout': the einsum route at dropout 0.1 everywhere
+        tr = tp_trainer(vocab, args["tp_state_dict"], "xla" if impl == "dropout" else impl, mesh_cfg,
+                        0.1 if impl == "dropout" else 0.0)
+        before = whole_state(tr)
+        tr.state, metrics = tr._composed_step(False, 0.0)(tr.state, *tr._put(tr._local(batch)), tr._batch_lengths(batch))
+        result[impl] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+        tensors.update({f"{impl}.grad.{k}": v for k, v in whole_grads(tr.model).items()})
+        tensors.update({f"{impl}.after.{k}": v for k, v in whole_state(tr).items()})
+        if impl == "flash":
+            loss, wer, refs, hyps = tr.evaluate(data["validation"], return_texts=True)
+            result["eval"] = [loss, wer, refs, hyps]
+            result["labels"] = {str(k): v for k, v in tr.generate_labels(data["unlabeled"]).items()}
+            tensors.update({f"before.{k}": v for k, v in before.items()})
+            tr.save(os.path.join(args["ckpt_dir"], f"mp{world}"))
+            other = os.path.join(args["ckpt_dir"], "mp1")
+            if world > 1 and os.path.exists(other):  # the one-process checkpoint, cut to this rank's shares
+                restored = tp_trainer(vocab, args["tp_state_dict"], impl, mesh_cfg)
+                restore_state(other, restored.state)
+                tensors.update({f"restored.{k}": v for k, v in whole_state(restored).items()})
+    resident = tp_trainer(vocab, args["tp_state_dict"], "xla", mesh_cfg)  # a fused resident epoch, split
+    history = resident.train_device_epochs(DeviceResidentDataset(data["train"], device="cpu", sharding=resident.shard), 1)
+    result["resident"] = {k: list(v) for k, v in history.items()}
+    tensors.update({f"resident.{k}": v for k, v in whole_state(resident).items() if k.startswith("model.")})
+    mesh = make_mesh(mesh_cfg)
+    tensors.update({f"adafactor.{k}": v for k, v in run_adafactor(mesh if world > 1 else None).items()})
+    lp = torch.tensor(args["beam"]["lp"])
+    part = lp.shape[2] // world
+    toks, lens, scores = ctc_beam_search_sharded(
+        lp[:, :, mesh.model.rank * part:(mesh.model.rank + 1) * part], torch.tensor(args["beam"]["lengths"]),
+        axis=mesh.model, blank_id=0, beam=4, prune=4, max_label_len=12)
+    tensors.update({"beam.tokens": toks, "beam.lengths": lens, "beam.scores": scores})
+    for layout, cfg in (("tp", mesh_cfg), ("dp", TC.MeshConfig())):
+        save = os.path.join(args["ckpt_dir"], f"lm_mp{world}") if layout == "tp" else None
+        losses, evaluated, state = run_lm(args, cfg, save)
+        result[f"lm_{layout}"] = {"losses": losses, "eval": evaluated}
+        tensors.update({f"lm_{layout}.{k}": v for k, v in state.items()})
+    losses, state = run_pretrain(args)
+    result["pretrain"] = {"losses": losses}
+    tensors.update({f"pretrain.{k}": v for k, v in state.items()})
+    return result, tensors
+
+
+def scenario_tensor_parallel_4(args):
+    """Four processes: Adafactor over a model axis of 4, then the dry run's
+    train step and pseudo-label pass on its 2 × 2 layout."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as TC
+    from nn_conformer_for_speech_recognition_tpu_torch.dryrun import dryrun_multichip
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import make_mesh
+
+    tensors = run_adafactor(make_mesh(TC.MeshConfig(model_parallel_size=world_size())))
+    dry = dryrun_multichip("cpu", log=lambda _: None)
+    labels = {str(k): v for k, v in dry["labels"].items()}
+    return {"dryrun": {"mesh": dry["mesh"], "loss": dry["loss"], "labels": labels}}, tensors
+
+
+def ulysses_inputs(seed: int = 0):
+    """(B=2, T=32, H=4, dh=8) q, k, v, the (63, 4, 8) table, the biases and
+    the lengths of the Ulysses function's test: JAX ``test_sharding.py``'s
+    case, with four heads for two ranks."""
+    rng = np.random.default_rng(seed)
+    b, t, h, dh = 2, 32, 4, 8
+    mk = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    return dict(q=mk(b, t, h, dh), k=mk(b, t, h, dh), v=mk(b, t, h, dh), p=mk(2 * t - 1, h, dh),
+                u=(0.1 * mk(h, dh)).astype(np.float32), vb=(0.1 * mk(h, dh)).astype(np.float32),
+                lengths=np.asarray([32, 23], np.int32), scale=0.25)
+
+
+def run_ulysses(mesh, use_kernel: bool):
+    """This rank's time shard of `ulysses_relpos_attention` on
+    `ulysses_inputs`, and the gradients of the sum of its squared valid
+    rows with respect to its shares of q, k, v and the table."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.sequence import ulysses_relpos_attention
+
+    x = ulysses_inputs()
+    n, rank = mesh.data.size, mesh.data.rank
+    t, h = x["q"].shape[1], x["q"].shape[2]
+    times, heads = slice(rank * t // n, (rank + 1) * t // n), slice(rank * h // n, (rank + 1) * h // n)
+    q, k, v = (torch.from_numpy(x[name][:, times].copy()).requires_grad_(True) for name in "qkv")
+    p = torch.from_numpy(x["p"][:, heads].copy()).requires_grad_(True)
+    out = ulysses_relpos_attention(q, k, v, p, torch.from_numpy(x["u"][heads]), torch.from_numpy(x["vb"][heads]),
+                                   torch.from_numpy(x["lengths"]), x["scale"], mesh, "data", use_kernel=use_kernel)
+    valid = torch.arange(t)[times][None, :] < torch.from_numpy(x["lengths"])[:, None]
+    (torch.where(valid[..., None, None], out, 0.0) ** 2).sum().backward()
+    return {"out": out.detach(), "dq": q.grad, "dk": k.grad, "dv": v.grad, "dp": p.grad}
+
+
+def scenario_sequence_parallel(args):
+    """Sequence parallelism over the data axis (two data ranks; one process
+    without a group, where it falls back): the Ulysses function on both
+    routes; one step of ``seq_parallel=True`` training from converted
+    weights on each attention route, with a spy on the model's Ulysses
+    route, then `evaluate` and `generate_labels`; a forward at an odd T'
+    (the fallback and its reason)."""
+    from nn_conformer_for_speech_recognition_tpu_torch import config as TC
+    from nn_conformer_for_speech_recognition_tpu_torch.models import conformer as CM
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel import sequence as S
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import make_mesh
+
+    world = world_size()
+    result, tensors = {}, {}
+    if world > 1:
+        mesh = make_mesh(TC.MeshConfig())
+        for use_kernel in (False, True):
+            tensors.update({f"ulysses.{use_kernel}.{k}": v for k, v in run_ulysses(mesh, use_kernel).items()})
+    vocab, data = port_datasets(args["manifests"])
+    batch = next(data["train"].epoch(seed=0))
+    calls = {"n": 0}
+    route = CM.ulysses_relpos_attention_rows
+
+    def spy(*a, **kw):
+        calls["n"] += 1
+        return route(*a, **kw)
+
+    CM.ulysses_relpos_attention_rows = spy
+    try:
+        for impl in ("flash", "xla"):
+            S.reset_fallback_stats()
+            tr = tp_trainer(vocab, args["tp_state_dict"], impl, TC.MeshConfig(seq_parallel=True))
+            calls["n"] = 0
+            tr.state, metrics = tr._composed_step(False, 0.0)(tr.state, *tr._put(tr._local(batch)),
+                                                             tr._batch_lengths(batch))
+            result[impl] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                            "calls": calls["n"], "stats": S.fallback_stats("seq_parallel")}
+            tensors.update({f"{impl}.{k}": v.clone() for k, v in tr.model.state_dict().items()})
+            if impl == "flash":
+                loss, wer, refs, hyps = tr.evaluate(data["validation"], return_texts=True)
+                result["eval"] = [loss, wer, refs, hyps]
+                result["labels"] = {str(k): v for k, v in tr.generate_labels(data["unlabeled"]).items()}
+        # an odd T' (5 frames after subsampling): every attention layer falls back, with its reason
+        S.reset_fallback_stats()
+        calls["n"] = 0
+        audio = torch.from_numpy(np.random.default_rng(1).standard_normal((BATCH, 5000)).astype(np.float32))
+        rows = slice(None) if tr.shard is None else tr.shard.rows(BATCH)
+        tr._predict_step(audio[rows], torch.full((BATCH,), 5000, dtype=torch.int32)[rows])
+        result["odd"] = {"stats": S.fallback_stats("seq_parallel"), "calls": calls["n"]}
+    finally:
+        CM.ulysses_relpos_attention_rows = route
+        S.set_sequence_mesh(None)
+    return result, tensors
+
+
+SCENARIOS = {"gathers": scenario_gathers, "data_parallel": scenario_data_parallel,
+             "tensor_parallel": scenario_tensor_parallel, "tensor_parallel_4": scenario_tensor_parallel_4,
+             "sequence_parallel": scenario_sequence_parallel}
 
 
 def worker(scenario: str, args_path: str, out_dir: str) -> None:

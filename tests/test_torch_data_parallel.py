@@ -251,24 +251,18 @@ def test_cli_train_and_eval_under_torchrun(tmp_path, capsys):
     assert got["wer"] == pytest.approx(ref["wer"], rel=1e-12) and got["split"] == "validation"
 
 
-def test_lm_and_pretrain_refuse_a_process_group(monkeypatch):
-    """The LM and pretraining trainers, and ``pretrain`` under ``torchrun``,
-    are not data-parallel yet (item 13b): under a process group (here a
-    one-rank gloo group, left before the test ends) they raise."""
-    import torch.distributed as dist
+def test_cli_pretrain_under_torchrun(tmp_path):
+    """``torchrun --standalone --nproc-per-node 2 -m …cli.main pretrain`` on
+    the CPU: both ranks take their rows of the batch, rank 0 alone logs and
+    writes the checkpoint, which holds the whole pretraining model."""
+    from nn_conformer_for_speech_recognition_tpu_torch.data.audio import make_synthetic_corpus
 
-    from nn_conformer_for_speech_recognition_tpu_torch.cli.main import main
-    from nn_conformer_for_speech_recognition_tpu_torch.train.lm_loop import LMTrainer
-    from nn_conformer_for_speech_recognition_tpu_torch.train.pretrain_loop import PretrainTrainer
-
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0, world_size=1)
-    try:
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            PretrainTrainer(TC.conformer_s(), TC.PretrainConfig(), TC.FeatureConfig(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13b"):
-            LMTrainer(TC.LMConfig(), 10, 10, 0, device="cpu")
-    finally:
-        dist.destroy_process_group()
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="pretrain under torchrun.*item 13b"):
-        main(["pretrain", "--manifest-dir", "unused", "--device", "cpu"])
+    corpus = str(tmp_path / "corpus")
+    make_synthetic_corpus(corpus, ["go", "stop"], n_train=0, n_val=0, n_test=0, n_unlabeled=8, max_words_per_utt=2,
+                          seed=0)
+    save = tmp_path / "pretrained"
+    out = _torchrun(["pretrain", "--manifest-dir", corpus, "--model", "reference", "--n-mels", "8", "--epochs", "1",
+                     "--batch-size", "8", "--lr", "1e-3", "--save", str(save), "--device", "cpu"])
+    assert out.count("pretrain epoch 0:") == 1, out
+    saved = torch.load(save / "state.pt", weights_only=True)
+    assert saved["step"] == 1 and saved["model"]["decoder.lstm_fwd_0_w_hh"].shape == (160, 640)

@@ -128,6 +128,15 @@ def test_hash_wraps_like_uint32():
         np.testing.assert_array_equal(init.numpy(), (np.arange(8, dtype=np.uint32) * np.uint32(2654435761)).astype(np.int64))
 
 
-def test_sharded_variant_raises():
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        TD.ctc_beam_search_sharded(torch.zeros(1, 2, 3), axis="model")
+def test_sharded_variant_on_one_rank_is_the_dense_search(rng):
+    """`ctc_beam_search_sharded` over a model axis of one process (no
+    collective runs) is `ctc_beam_search`, bit for bit; over two processes
+    it is held in ``test_torch_tensor_parallel.py``."""
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import make_mesh
+
+    logits = torch.from_numpy(rng.standard_normal((3, 12, 16)).astype(np.float32))
+    lp, lengths = torch.log_softmax(logits, -1), torch.tensor([12, 8, 5])
+    kw = dict(blank_id=0, beam=4, prune=4, max_label_len=12)
+    got = TD.ctc_beam_search_sharded(lp, lengths, axis=make_mesh().model, **kw)
+    for a, b in zip(got, TD.ctc_beam_search(lp, lengths, **kw)):
+        assert torch.equal(a, b)

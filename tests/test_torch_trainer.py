@@ -239,11 +239,22 @@ def test_what_is_not_ported_raises(corpus):
     with pytest.raises(TypeError, match="DataShard"):
         make_epoch_scan_step(tr.model, tr.feat_cfg, tr.train_cfg.specaugment, 0, batch_sharding=object())
     model, cfgs = tr.model, (tr.vocab, tr.feat_cfg, tr.train_cfg)
-    with pytest.raises(NotImplementedError, match="item 13b, Multi-GPU"):
-        type(tr)(model, *cfgs, mesh_cfg=TC.MeshConfig(seq_parallel=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b, Multi-GPU"):
+    # sequence parallelism in one process: built, and every attention layer records its fallback
+    from nn_conformer_for_speech_recognition_tpu_torch.parallel import sequence as S
+
+    S.reset_fallback_stats()
+    try:
+        sp = type(tr)(model, *cfgs, mesh_cfg=TC.MeshConfig(seq_parallel=True), device="cpu")
+        sp.init_state(seed=0)
+        sp.generate_labels(tdata["validation"])
+    finally:
+        S.set_sequence_mesh(None)
+    assert S.fallback_stats("seq_parallel")["reasons"] == {"axis 'data' has size 1 (need > 1)": 2}
+    S.reset_fallback_stats()
+    # a model axis of 2 asks for a process group of two processes; a mesh must be the port's layout
+    with pytest.raises(ValueError, match="1 processes not divisible by model_parallel_size=2"):
         type(tr)(model, *cfgs, mesh_cfg=TC.MeshConfig(model_parallel_size=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b, Multi-GPU"):
+    with pytest.raises(TypeError, match=r"parallel\.mesh\.Mesh"):
         type(tr)(model, *cfgs, mesh=object(), device="cpu")
     with pytest.raises(RuntimeError, match="init_state"):
         type(tr)(model, *cfgs, device="cpu").evaluate(tdata["validation"])
