@@ -1,0 +1,5 @@
+"""Kernels launched a batch, over the profiled calls (the profiler's kernel rows)."""
+
+
+def read(r):
+    return r.trace.launches / r.profiled_steps
