@@ -1,0 +1,8 @@
+"""The device's idle time under no host range, neither a span nor an op, in % of the profiled span.
+None where `benchmark.spans` finds no span table for the profiled calls."""
+
+from benchmark import spans
+
+
+def read(r):
+    return spans.idle_share(r, "train", spans.UNTRACED)

@@ -51,6 +51,11 @@ Shallow LM fusion: ``lm_apply`` (context ids → LM logits, e.g.
 `make_eval_beam_step` or `Trainer` adds ``lm_weight`` times the LM's
 log-probs to the model's (`models.lm.shallow_fusion`) before the CTC loss
 and the decode; the CTC takes the fused scores as they are, unnormalised.
+
+Phase spans: `Trainer.train`, `Trainer.generate_labels` and the train and
+predict steps mark their phases with `utils.profiling.annotate`, which
+records only while a ``torch.profiler`` records (the span names are listed
+there).
 """
 
 from __future__ import annotations
@@ -117,6 +122,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.train.checkpoint import (
 )
 from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
 from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
+from nn_conformer_for_speech_recognition_tpu_torch.utils.profiling import annotate
 
 
 def _select_ctc(ctc_impl: str) -> Callable[..., torch.Tensor]:
@@ -220,17 +226,19 @@ def make_augment_step(
 
     @torch.no_grad()
     def augment(generator, audio, audio_lengths, batch_lengths=None):
-        batch = None if shard is None else batch_lengths.shape[0]
-        rows = slice(None) if shard is None else shard.rows(batch)
-        if noise_std > 0.0:
-            audio = add_gaussian_noise(audio, generator, noise_std, batch=batch, rows=rows)
-        feats, frame_lengths = featurize(audio, audio_lengths)
-        if use_specaugment and shard is None:
-            feats = specaugment(feats, frame_lengths, sa_cfg, generator)
-        elif use_specaugment:
-            draws = draw_specaugment(frame_lengths_of(batch_lengths, feat_cfg), feats.shape[2], sa_cfg, generator)
-            feats = apply_specaugment(feats, frame_lengths, draws.rows(rows), sa_cfg)
-        return feats, frame_lengths
+        with annotate("train.augment"):
+            batch = None if shard is None else batch_lengths.shape[0]
+            rows = slice(None) if shard is None else shard.rows(batch)
+            if noise_std > 0.0:
+                audio = add_gaussian_noise(audio, generator, noise_std, batch=batch, rows=rows)
+            feats, frame_lengths = featurize(audio, audio_lengths)
+            if use_specaugment and shard is None:
+                feats = specaugment(feats, frame_lengths, sa_cfg, generator)
+            elif use_specaugment:
+                draws = draw_specaugment(frame_lengths_of(batch_lengths, feat_cfg), feats.shape[2], sa_cfg,
+                                         generator)
+                feats = apply_specaugment(feats, frame_lengths, draws.rows(rows), sa_cfg)
+            return feats, frame_lengths
 
     return augment
 
@@ -267,23 +275,28 @@ def make_feature_train_step(
     def train_step(state: TrainState, feats, frame_lengths, targets, target_lengths):
         if state.model is not model:
             raise ValueError("train_step: state.model is not the model the step was made for")
-        model.train()
-        model.zero_grad(set_to_none=True)
         devices = [feats.device] if feats.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(state.dropout_seed(rank))
-            log_probs, out_lengths = model(feats, frame_lengths)
-            loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id,
-                               global_rows=shard is not None, axis=axis)
-            loss.backward()
-        if shard is not None:
-            loss = all_reduce_gradients(model, loss, axis)
-        grad_norm = gradient_norm(model)
-        state.apply_gradients()
+            with annotate("train.forward"):
+                model.train()
+                model.zero_grad(set_to_none=True)
+                torch.manual_seed(state.dropout_seed(rank))
+                log_probs, out_lengths = model(feats, frame_lengths)
+                loss = _batch_loss(ctc, log_probs, targets, out_lengths, target_lengths, blank_id,
+                                   global_rows=shard is not None, axis=axis)
+            with annotate("train.backward"):
+                loss.backward()
+                if shard is not None:
+                    loss = all_reduce_gradients(model, loss, axis)
+        with annotate("train.grad_norm"):
+            grad_norm = gradient_norm(model)
+        with annotate("train.optimizer"):
+            state.apply_gradients()
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm}
         if emit_ids:
-            metrics["ids"] = greedy_decode(log_probs.detach(), out_lengths, pad_id=pad_id)
-            metrics["out_lengths"] = out_lengths
+            with annotate("train.greedy"):
+                metrics["ids"] = greedy_decode(log_probs.detach(), out_lengths, pad_id=pad_id)
+                metrics["out_lengths"] = out_lengths
         return state, metrics
 
     return train_step
@@ -357,14 +370,16 @@ def make_epoch_scan_step(
     def epoch(state: TrainState, audio, alen, targets, tlen, order):
         losses, sizes, ids = [], [], []
         for idx in order:
-            if batch_sharding is None:
-                state, metrics = step(state, *gather_rows(audio, alen, targets, tlen, idx))
-            else:
-                batch_lengths = alen.index_select(0, torch.clamp_min(idx, 0)) * (idx >= 0)
-                local = gather_rows(audio, alen, targets, tlen, idx[batch_sharding.rows(idx.shape[0])])
-                state, metrics = step(state, *local, batch_lengths)
+            with annotate("train.gather"):
+                sizes.append((idx >= 0).sum())
+                if batch_sharding is None:
+                    batch = gather_rows(audio, alen, targets, tlen, idx)
+                else:
+                    batch_lengths = alen.index_select(0, torch.clamp_min(idx, 0)) * (idx >= 0)
+                    local = gather_rows(audio, alen, targets, tlen, idx[batch_sharding.rows(idx.shape[0])])
+                    batch = (*local, batch_lengths)
+            state, metrics = step(state, *batch)
             losses.append(metrics["loss"])
-            sizes.append((idx >= 0).sum())
             if emit_ids:
                 ids.append(metrics["ids"])
         return state, (torch.stack(losses), torch.stack(sizes), *((torch.stack(ids),) if emit_ids else ()))
@@ -413,10 +428,11 @@ def make_predict_step(
 
     @torch.inference_mode()
     def predict_step(audio: torch.Tensor, audio_lengths: torch.Tensor):
-        model.eval()
-        feats, frame_lengths = featurize(audio, audio_lengths)
-        log_probs, out_lengths = model(feats, frame_lengths)
-        return greedy_decode(log_probs, out_lengths, pad_id=pad_id), out_lengths
+        with annotate("label.forward"):
+            model.eval()
+            feats, frame_lengths = featurize(audio, audio_lengths)
+            log_probs, out_lengths = model(feats, frame_lengths)
+            return greedy_decode(log_probs, out_lengths, pad_id=pad_id), out_lengths
 
     return predict_step
 
@@ -765,10 +781,17 @@ class Trainer:
             step_losses, step_sizes = [], []
             step_ids = []  # (ids on the device, indices) when train_wer is on
             step_i = skip
-            for batch in PrefetchIterator(stream):
-                local = self._local(batch)
-                audio, alen, tgt, tlen = self._put(local)
-                self.state, metrics = step_fn(self.state, audio, alen, tgt, tlen, self._batch_lengths(batch))
+            batches = PrefetchIterator(stream)
+            while True:
+                with annotate("train.data_wait"):
+                    batch = next(batches, None)
+                if batch is None:  # the epoch's end
+                    break
+                with annotate("train.put"):
+                    local = self._local(batch)
+                    audio, alen, tgt, tlen = self._put(local)
+                    batch_lengths = self._batch_lengths(batch)
+                self.state, metrics = step_fn(self.state, audio, alen, tgt, tlen, batch_lengths)
                 step_losses.append(metrics["loss"])
                 step_sizes.append(batch.size)
                 if want_wer:
@@ -783,32 +806,34 @@ class Trainer:
                     total = f"/{num_batches}" if num_batches else ""
                     self.log(f"  epoch {epoch_offset + epoch} step {step_i}{total} "
                              f"({audio_seconds / max(time.time() - t0, 1e-9):.1f} audio-s/s)")
-            pulled = torch.stack(step_losses).cpu().numpy() if step_losses else np.zeros((0,), np.float32)
-            for loss, size in zip(pulled, step_sizes):
-                if np.isnan(loss):
-                    nan_steps += 1
-                else:
-                    losses.update(float(loss), size)
-            dt = time.time() - t0
-            self.history["train_loss"].append(losses.result())
-            msg = (f"epoch {epoch_offset + epoch}: loss={losses.result():.4f} "
-                   f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s)")
-            if want_wer:
-                twer = self._train_wer_from_steps(dataset, step_ids)
-                self.history["train_wer"].append(twer)
-                msg += f" train_wer={100 * twer:.2f}"
-            if nan_steps:
-                msg += f" [{nan_steps} NaN steps]"
-            if val_dataset is not None:
-                vloss, vwer = self.evaluate(val_dataset)
-                self.history["val_loss"].append(vloss)
-                self.history["val_wer"].append(vwer)
-                msg += f" val_loss={vloss:.4f} val_wer={100 * vwer:.2f}"
-            self.log(msg)
-            if checkpoint_manager is not None:
-                metric = self.history["val_loss"][-1] if val_dataset is not None else None
-                checkpoint_manager.save(
-                    self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
+            with annotate("train.pull"):
+                pulled = torch.stack(step_losses).cpu().numpy() if step_losses else np.zeros((0,), np.float32)
+            with annotate("train.epilogue"):
+                for loss, size in zip(pulled, step_sizes):
+                    if np.isnan(loss):
+                        nan_steps += 1
+                    else:
+                        losses.update(float(loss), size)
+                dt = time.time() - t0
+                self.history["train_loss"].append(losses.result())
+                msg = (f"epoch {epoch_offset + epoch}: loss={losses.result():.4f} "
+                       f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s)")
+                if want_wer:
+                    twer = self._train_wer_from_steps(dataset, step_ids)
+                    self.history["train_wer"].append(twer)
+                    msg += f" train_wer={100 * twer:.2f}"
+                if nan_steps:
+                    msg += f" [{nan_steps} NaN steps]"
+                if val_dataset is not None:
+                    vloss, vwer = self.evaluate(val_dataset)
+                    self.history["val_loss"].append(vloss)
+                    self.history["val_wer"].append(vwer)
+                    msg += f" val_loss={vloss:.4f} val_wer={100 * vwer:.2f}"
+                self.log(msg)
+                if checkpoint_manager is not None:
+                    metric = self.history["val_loss"][-1] if val_dataset is not None else None
+                    checkpoint_manager.save(
+                        self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
         return self.history
 
     def resume(
@@ -939,21 +964,24 @@ class Trainer:
         arrays = dataset.device_arrays()
         want_wer = self.train_cfg.train_wer
         ckpt_every = self.train_cfg.checkpoint_every_steps
-        alen_host = arrays[1].cpu().numpy()  # one host copy, for the audio-seconds of every epoch
+        alen_host = None  # one host copy, for the audio-seconds of every epoch
         sample_rate = self.feat_cfg.sample_rate
         for epoch in range(epochs):
-            t0 = time.time()
-            order = dataset.order_matrix(seed=self.train_cfg.seed + epoch_offset + epoch)
-            skip = start_step if epoch == 0 else 0
-            order = order[skip:]
-            audio_seconds = float(alen_host[order[order >= 0]].sum()) / sample_rate
-            if not fused:
-                chunk = 1
-            elif ckpt_every and checkpoint_manager is not None:
-                chunk = ckpt_every
-            else:
-                chunk = max(order.shape[0], 1)
-            order_dev = self._upload_order(order)
+            with annotate("train.order"):
+                t0 = time.time()
+                if alen_host is None:
+                    alen_host = arrays[1].cpu().numpy()
+                order = dataset.order_matrix(seed=self.train_cfg.seed + epoch_offset + epoch)
+                skip = start_step if epoch == 0 else 0
+                order = order[skip:]
+                audio_seconds = float(alen_host[order[order >= 0]].sum()) / sample_rate
+                if not fused:
+                    chunk = 1
+                elif ckpt_every and checkpoint_manager is not None:
+                    chunk = ckpt_every
+                else:
+                    chunk = max(order.shape[0], 1)
+                order_dev = self._upload_order(order)
             step_out = []
             step_i = skip
             for s0 in range(0, order.shape[0], chunk):
@@ -962,34 +990,36 @@ class Trainer:
                 step_i += min(chunk, order.shape[0] - s0)
                 if ckpt_every and checkpoint_manager is not None and step_i % ckpt_every == 0:
                     checkpoint_manager.save(self.state, iterator={"epoch": epoch_offset + epoch, "step": step_i})
-            outs = [torch.cat([o[i] for o in step_out]).cpu() for i in range(len(step_out[0]))] if step_out else []
-            losses, sizes = (outs[0].numpy(), outs[1].numpy()) if outs else (np.zeros((0,), np.float32),) * 2
-            dt = time.time() - t0
-            # the mean over the steps whose loss is not NaN, weighted by their valid rows (`train`'s M.Mean)
-            ok = ~np.isnan(losses)
-            wsum = float((sizes * ok).sum())
-            mean_loss = float((losses[ok] * sizes[ok]).sum() / wsum) if wsum else float("nan")
-            nan_steps = int((~ok).sum())
-            self.history["train_loss"].append(mean_loss)
-            msg = (f"epoch {epoch_offset + epoch}: loss={mean_loss:.4f} "
-                   f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s{', fused epoch' if fused else ''})")
-            if want_wer:
-                rows = order if self.shard is None else order[:, self.shard.rows(order.shape[1])]
-                twer = self._train_wer_from_steps(dataset, list(zip(outs[2], rows)) if outs else [])
-                self.history["train_wer"].append(twer)
-                msg += f" train_wer={100 * twer:.2f}"
-            if nan_steps:
-                msg += f" [{nan_steps} NaN steps]"
-            if val_dataset is not None:
-                vloss, vwer = self.evaluate(val_dataset)
-                self.history["val_loss"].append(vloss)
-                self.history["val_wer"].append(vwer)
-                msg += f" val_loss={vloss:.4f} val_wer={100 * vwer:.2f}"
-            self.log(msg)
-            if checkpoint_manager is not None:
-                metric = self.history["val_loss"][-1] if val_dataset is not None else None
-                checkpoint_manager.save(
-                    self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
+            with annotate("train.pull"):
+                outs = [torch.cat([o[i] for o in step_out]).cpu() for i in range(len(step_out[0]))] if step_out else []
+            with annotate("train.epilogue"):
+                losses, sizes = (outs[0].numpy(), outs[1].numpy()) if outs else (np.zeros((0,), np.float32),) * 2
+                dt = time.time() - t0
+                # the mean over the steps whose loss is not NaN, weighted by their valid rows (`train`'s M.Mean)
+                ok = ~np.isnan(losses)
+                wsum = float((sizes * ok).sum())
+                mean_loss = float((losses[ok] * sizes[ok]).sum() / wsum) if wsum else float("nan")
+                nan_steps = int((~ok).sum())
+                self.history["train_loss"].append(mean_loss)
+                msg = (f"epoch {epoch_offset + epoch}: loss={mean_loss:.4f} "
+                       f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s{', fused epoch' if fused else ''})")
+                if want_wer:
+                    rows = order if self.shard is None else order[:, self.shard.rows(order.shape[1])]
+                    twer = self._train_wer_from_steps(dataset, list(zip(outs[2], rows)) if outs else [])
+                    self.history["train_wer"].append(twer)
+                    msg += f" train_wer={100 * twer:.2f}"
+                if nan_steps:
+                    msg += f" [{nan_steps} NaN steps]"
+                if val_dataset is not None:
+                    vloss, vwer = self.evaluate(val_dataset)
+                    self.history["val_loss"].append(vloss)
+                    self.history["val_wer"].append(vwer)
+                    msg += f" val_loss={vloss:.4f} val_wer={100 * vwer:.2f}"
+                self.log(msg)
+                if checkpoint_manager is not None:
+                    metric = self.history["val_loss"][-1] if val_dataset is not None else None
+                    checkpoint_manager.save(
+                        self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
         return self.history
 
     # ------------------------------------------------------------------ eval
@@ -1076,17 +1106,25 @@ class Trainer:
             raise ValueError("generate_labels(index_map=...) decodes a rank's own shard; under tensor or sequence "
                              "parallelism the ranks must decode the same batches: pass the whole dataset")
         labels: Dict[int, str] = {}
-        for batch in dataset.epoch(shuffle=False):
-            if index_map is None:
-                batch = self._local(batch)
-            audio, alen, _, _ = self._put(batch)
-            ids, _ = self._predict_step(audio, alen)
-            ids = ids.cpu().numpy()
-            for row, idx in enumerate(batch.indices):
-                if idx < 0:
-                    continue
-                key = int(idx) if index_map is None else int(index_map[int(idx)])
-                labels[key] = self.vocab.decode_ids(ids[row])
+        batches = iter(dataset.epoch(shuffle=False))
+        while True:
+            with annotate("label.input"):
+                batch = next(batches, None)
+                if batch is not None:
+                    if index_map is None:
+                        batch = self._local(batch)
+                    audio, alen, _, _ = self._put(batch)
+            if batch is None:  # the pass's end
+                break
+            ids, _ = self._predict_step(audio, alen)  # label.forward
+            with annotate("label.pull"):
+                ids = ids.cpu().numpy()
+            with annotate("label.decode"):
+                for row, idx in enumerate(batch.indices):
+                    if idx < 0:
+                        continue
+                    key = int(idx) if index_map is None else int(index_map[int(idx)])
+                    labels[key] = self.vocab.decode_ids(ids[row])
         return labels if self.shard is None else MH.gather_pseudo_labels(labels)
 
     # ------------------------------------------------------------ checkpoints

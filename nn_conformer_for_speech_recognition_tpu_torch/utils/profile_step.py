@@ -18,8 +18,9 @@ log-mel, forward, greedy decode), weights and audio from a seed, up over
 two calls, times five calls unprofiled, then runs three under
 ``torch.profiler`` and prints the device time per call by kernel group
 (first match of `GROUPS` on the kernel's name; whatever matches none is
-elementwise work, reductions and copies), the launches per call and the
-card's busy share.  Needs a CUDA device.
+elementwise work, reductions and copies), the launches per call, the
+card's busy share, and the host and device time per call of each phase span
+the step holds (`utils.profiling.phase_table`).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
     from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predict_step, make_train_step
     from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
     from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
-    from nn_conformer_for_speech_recognition_tpu_torch.utils.profiling import kernel_groups
+    from nn_conformer_for_speech_recognition_tpu_torch.utils.profiling import kernel_groups, phase_table, reset_phases
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -115,6 +116,7 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
 
     run(2)  # warm-up
     plain_ms = run(5)
+    reset_phases()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms = run(PROFILED_STEPS)
     groups = kernel_groups(prof, PROFILED_STEPS)
@@ -126,6 +128,9 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
           f"{device_ms / plain_ms:.3f} of the unprofiled call, {device_ms / profiled_ms:.3f} under the profiler  [{card}]")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name}: {ms:.3f} ms/call ({ms / device_ms:.1%}), {count:.0f} launches/call")
+    for name, (count, host_s, device_s) in phase_table().items():
+        print(f"  span {name}: {count / PROFILED_STEPS:.0f}/call, host {host_s * 1e3 / PROFILED_STEPS:.3f} ms/call, "
+              f"device {device_s * 1e3 / PROFILED_STEPS:.3f} ms/call")
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 The finite reports of both packages on the same seeded arrays, with NaN and
 Inf planted, are equal key for key and count for count; `check_step`
 raises on a NaN loss (a train step of the tiny model on audio holding a
-NaN) and on a NaN gradient with a finite loss; `StepTimer`'s summary keys
-are the JAX class's; `trace` writes a Chrome trace that holds an
-`annotate` region.  Exact comparisons: these are counts, keys and names.
+NaN) and on a NaN gradient with a finite loss; `annotate` records only
+under a profiler, and `trace` writes a Chrome trace that holds a span's
+range, which `phase_table` counts; `kernel_groups` counts kernel rows and
+not the spans' ranges on the device's timeline.  Exact comparisons: these
+are counts, keys and names.
 """
 
 import glob
@@ -18,7 +20,6 @@ import torch
 from _torch_multiproc_helpers import model_config
 
 from nn_conformer_for_speech_recognition_tpu.utils import guards as JG
-from nn_conformer_for_speech_recognition_tpu.utils import profiling as JP
 from nn_conformer_for_speech_recognition_tpu_torch import config as TC
 from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
 from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_train_step
@@ -142,18 +143,8 @@ def test_check_step_raises_on_a_nan_gradient():
         error.throw()
 
 
-def test_step_timer_keys_match_jax():
-    mine, ref = P.StepTimer(sample_rate=16000), JP.StepTimer(sample_rate=16000)
-    for timer in (mine, ref):
-        for _ in range(2):
-            timer.data_ready()
-            timer.step_done(16000)
-    assert mine.summary().keys() == ref.summary().keys()
-    assert mine.summary()["steps"] == ref.summary()["steps"] == 2
-    assert mine.device_seconds() == 0.0  # no card, no events
-
-
 def test_trace_writes_an_annotated_chrome_trace(tmp_path):
+    assert P.annotate("nst_label_pass") is P.OFF  # no profiler records
     with P.trace(str(tmp_path)) as prof:
         with P.annotate("nst_label_pass"):
             torch.ones(64, 64) @ torch.ones(64, 64)
@@ -161,5 +152,35 @@ def test_trace_writes_an_annotated_chrome_trace(tmp_path):
     assert len(files) == 1
     names = {e.get("name") for e in json.load(open(files[0]))["traceEvents"]}
     assert "nst_label_pass" in names
+    table = P.phase_table()
+    assert table.keys() == {"nst_label_pass"} and table["nst_label_pass"][0] == 1
+    assert table["nst_label_pass"][2] is None  # no CUDA device, no event pair
     groups = P.kernel_groups(prof)
     assert all(ms == 0 and n == 0 for ms, n in groups.values())  # the CPU launches no kernel
+
+
+class _Row:
+    """A row of ``key_averages()`` as `kernel_groups` reads it."""
+
+    def __init__(self, key, device_type, user_annotation, us, count):
+        self.key, self.device_type, self.is_user_annotation = key, device_type, user_annotation
+        self.self_device_time_total, self.count = us, count
+
+
+def test_kernel_groups_leave_out_the_spans_ranges():
+    """Under a profiler of the card a span's range shows on the device's
+    timeline as a user annotation as long as the phase: not a kernel."""
+    from torch.autograd import DeviceType
+
+    rows = [_Row("lstm_fwd_kernel", DeviceType.CUDA, False, 4000.0, 2),
+            _Row("vectorized_elementwise_kernel", DeviceType.CUDA, False, 1000.0, 8),
+            _Row("train.forward", DeviceType.CUDA, True, 9000.0, 2),
+            _Row("aten::mul", DeviceType.CPU, False, 0.0, 8)]
+
+    class Prof:
+        def key_averages(self):
+            return rows
+
+    groups = P.kernel_groups(Prof(), calls=2)
+    assert sum(n for _, n in groups.values()) == 5
+    assert sum(ms for ms, _ in groups.values()) == pytest.approx(2.5)
