@@ -74,6 +74,13 @@ the checkout at TREE, this one by default: see `ctc_times_main`;
    float32 step against the plain path at the Noisy Student phase's longer
    bucket, and Conformer-L's 30 s step under
    ``conformer_l(use_pallas=True, conv_impl='pallas')``.
+   Before those passes and steps, Adafactor's and the gradient norm's
+   multi-tensor kernels (``ops/cuda/adafactor.py``) on Conformer-M's 514
+   parameters: five Adafactor steps against the per-tensor loop on the same
+   tensors, bit-equal twice, the run without the clip missing the bar; the
+   norm against float64; their kernels' device time beside the bound of the
+   bytes their passes move.  Every train step counts their launches (4 and
+   2 a step), and the float32 plain path runs the per-tensor loops.
 7. One Noisy Student generation through ``Trainer`` and ``run_nst`` under
    that configuration at Conformer-M's full width and depth in bfloat16: a
    synthetic corpus written to a temporary directory, manifests,
@@ -338,6 +345,7 @@ def nbytes(*tensors) -> int:
 
 def counters() -> dict:
     """Each kernel's wrapper, whose ``launches`` it bumps per launch."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as AF
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import attention as A
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import ctc as K
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import depthwise_conv as D
@@ -355,6 +363,7 @@ def counters() -> dict:
         "depthwise_conv": D.depthwise_conv1d_forward, "depthwise_conv_weight_grad": D.depthwise_conv1d_weight_grad,
         "attention_bias": A.flash_attention_forward,
         "lstm_grid": L.lstm_forward_grid, "lstm_backward_grid": L.lstm_backward_grid,
+        "adafactor_step": AF.adafactor_step, "global_norm": AF.global_norm,
     }
 
 
@@ -365,6 +374,28 @@ def reset_counters() -> None:
 
 def read_counters() -> dict:
     return {name: wrapper.launches for name, wrapper in counters().items()}
+
+
+# a train step's launches of the multi-tensor kernels: Adafactor's four passes (with the clip) and the norm's two
+UPDATE_LAUNCHES = {"adafactor_step": 4, "global_norm": 2}
+
+
+def update_launches(steps: int) -> dict:
+    return {k: v * steps for k, v in UPDATE_LAUNCHES.items()}
+
+
+@contextlib.contextmanager
+def optimizer_loops():
+    """Inside, Adafactor and the gradient norm run their per-tensor loops
+    (the kernels' plain twins) on CUDA tensors too."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as AF
+
+    route = AF.on_kernel_route
+    AF.on_kernel_route = lambda tensors: False
+    try:
+        yield
+    finally:
+        AF.on_kernel_route = route
 
 
 def mixed_lengths(gen: torch.Generator, n: int, full: int, low: int) -> torch.Tensor:
@@ -1303,6 +1334,154 @@ def conv_times_main(tree: Path) -> None:
     conv_times(card)
 
 
+# Adafactor's multi-tensor kernels against the per-tensor loop on the same CUDA tensors, five steps of Conformer-M's
+# 514 parameters: parameters atol 1e-6 (the loop's own bar against optax), slots 1e-5 of their largest magnitude (the
+# means and the clip's sum of squares run in another order; the momentum crosses zero); the norm within 1e-6 of a
+# float64 sum of squares (its partials are float32 sums of 4,096 squares, added in float64)
+OPT_TOL = {"params": 1e-6, "slots": 1e-5, "norm": 1e-6}
+OPT_STEPS, OPT_PROFILED = 5, 10
+OPT_KERNELS = ("adafactor_moments_kernel", "adafactor_factors_kernel", "adafactor_clip_sums_kernel",
+               "adafactor_apply_kernel", "sumsq_partials_kernel", "sumsq_finish_kernel")
+
+
+def adafactor_bytes(opt) -> tuple:
+    """(Adafactor's bytes a step, the norm's): what the passes read and
+    write, each tensor counted once a pass.  Norm: every gradient.  Moments:
+    an unfactored parameter's g and v (read and write), a factored one's g
+    twice (row sums, column sums), v_row and v_col (read and write).
+    Factors: v_row twice, v_col, the factors written.  Clip sums: a
+    factored g again.  Apply: g, p (read and write), ema (read and write),
+    an unfactored v, the factors.  A partial a chunk is written and read."""
+    table = opt._table
+    n = sum(p.numel() for _, p, *_ in opt.params)
+    nf = sum(p.numel() for _, p, _, dims, _ in opt.params if dims is not None)
+    nu, factors, ema = n - nf, table.rows + table.cols, opt.momentum is not None
+    moments = 3 * nu + 2 * nf + 2 * factors + table.chunks
+    factor_pass = 2 * table.rows + table.cols + factors
+    clip = nf + factors + table.chunks
+    apply = 3 * n + 2 * n * ema + nu + factors + table.chunks
+    return 4 * (moments + factor_pass + clip + apply), 4 * (n + 2 * table.chunks)
+
+
+def check_optimizer_kernels(card: str) -> dict:
+    """Adafactor's and the gradient norm's multi-tensor kernels
+    (`ops/cuda/adafactor.py`) on Conformer-M's 514 parameters: five
+    Adafactor steps (lr 1e-2, momentum 0.9, clip 1.0; gradients that grow
+    step by step, so that the clip binds) against the per-tensor loop from
+    the same parameters and gradients at `OPT_TOL`, a second kernel run bit
+    for bit, 4 launches and 514 parameters counted a step, and the kernels
+    without the clip missing the bar; the norm against a float64 sum of
+    squares and ``optax_global_norm``, bit-equal twice, 2 launches.  Then the
+    kernels' own device time (the profiler's kernel rows, `OPT_PROFILED`
+    calls), whole calls on CUDA events (the host's table and pointer reads
+    included) and the loops' calls, beside the bound of the bytes the passes
+    move (`adafactor_bytes`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nn_conformer_for_speech_recognition_tpu_torch.config import OptimizerConfig, conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as AF
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import optax_global_norm
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+
+    model = init_params(ConformerCTC(conformer_m(use_pallas=True), VOCAB), torch.Generator().manual_seed(SEED + 17))
+    init = {k: p.detach().cuda() for k, p in model.named_parameters()}
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    grads = [{k: torch.randn(t.shape, generator=gen, device="cuda") * (1 + 2 * s) for k, t in init.items()}
+             for s in range(OPT_STEPS)]
+
+    def run(loop: bool = False, clip: bool = True):
+        params = {k: torch.nn.Parameter(t.clone()) for k, t in init.items()}
+        opt = make_optimizer(OptimizerConfig(learning_rate=1e-2), params.items())
+        if not clip:
+            opt.clipping_threshold = None
+        with optimizer_loops() if loop else contextlib.nullcontext():
+            for g in grads:
+                for k, p in params.items():
+                    p.grad = g[k]
+                opt.step()
+        torch.cuda.synchronize()
+        return opt
+
+    def gaps(opt, ref) -> tuple:
+        p_gap = max(max_abs(p, q) for (_, p, *_), (_, q, *_) in zip(opt.params, ref.params))
+        s_gap = max((opt.state[n][k] - v).abs().max().item() / v.abs().max().item()
+                    for n, st in ref.state.items() for k, v in st.items())
+        return p_gap, s_gap
+
+    def passes(p_gap, s_gap) -> bool:
+        return p_gap <= OPT_TOL["params"] and s_gap <= OPT_TOL["slots"]
+
+    ref = run(loop=True)
+    before = AF.adafactor_step.launches, AF.adafactor_step.params
+    opt = run()
+    counted = (AF.adafactor_step.launches - before[0], AF.adafactor_step.params - before[1])
+    again = run()
+    p_gap, s_gap = gaps(opt, ref)
+    control = gaps(run(clip=False), ref)
+    moved = min((p - init[n]).abs().max().item() for n, p, *_ in opt.params)
+    equal = all(torch.equal(p, q) for (_, p, *_), (_, q, *_) in zip(opt.params, again.params)) and all(
+        torch.equal(again.state[n][k], v) for n, st in opt.state.items() for k, v in st.items())
+    n_params, n_elements = len(opt.params), sum(p.numel() for _, p, *_ in opt.params)
+
+    gs = list(grads[-1].values())
+    exact = torch.sqrt(sum(g.double().square().sum() for g in gs)).item()
+    before_norm = AF.global_norm.launches
+    norm, norm_again = AF.global_norm(gs), AF.global_norm(gs)
+    norm_launches = (AF.global_norm.launches - before_norm) / 2
+    norm_err = abs(norm.item() - exact) / exact
+    loop_norm_err = abs(optax_global_norm(gs).item() - exact) / exact
+
+    # times: the kernels' rows under the profiler; whole calls on events; the loops' calls
+    profiler_warmup()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        profiler_warmup()
+        for _ in range(OPT_PROFILED):
+            opt.step()
+            AF.global_norm(gs)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernel_ms = {name: sum(e.self_device_time_total for e in rows if name in e.key) / 1e3 / OPT_PROFILED
+                 for name in OPT_KERNELS}
+    ada_ms = sum(v for k, v in kernel_ms.items() if k.startswith("adafactor_"))
+    norm_ms = sum(v for k, v in kernel_ms.items() if k.startswith("sumsq_"))
+    ada_events = cuda_ms(opt.step)
+    norm_events = cuda_ms(lambda: AF.global_norm(gs))
+    with optimizer_loops():
+        ada_loop = cuda_ms(ref.step, iters=3, warmup=1)
+    norm_loop = cuda_ms(lambda: optax_global_norm(gs), iters=5)
+    ada_bytes, norm_bytes = adafactor_bytes(opt)
+    ada = numbers(p_gap, ada_ms, ada_loop, ada_bytes, 18 * n_elements, torch.float32)
+    norm_numbers = numbers(norm_err, norm_ms, norm_loop, norm_bytes, 2 * n_elements, torch.float32)
+    print(f"adafactor_step, Conformer-M ({n_params} parameters, {n_elements} elements), {OPT_STEPS} steps against the "
+          f"per-tensor loop: parameters max|Δ| {p_gap:.3e} (tol {OPT_TOL['params']}), slots max|Δ|/max {s_gap:.3e} "
+          f"(tol {OPT_TOL['slots']}); without the clip {control[0]:.3e} / {control[1]:.3e}; two runs bit-equal "
+          f"{equal}; {counted[0] / OPT_STEPS:g} launches and {counted[1] / OPT_STEPS:g} parameters a step; kernels "
+          f"{ada_ms:.4f} ms device ({', '.join(f'{k} {v:.4f}' for k, v in kernel_ms.items() if 'adafactor' in k)}), "
+          f"a call "
+          f"{ada_events:.4f} ms on events, the loop {ada_loop:.2f} ms; bound {ada['bound_ms']:.4f} ms "
+          f"({ada_bytes / 1e9:.3f} GB), {ada['bound_ms'] / ada_ms:.1%} of it  [{card}]")
+    print(f"global_norm, the same {n_params} gradients: rel err {norm_err:.3e} against float64 (tol {OPT_TOL['norm']}; "
+          f"optax_global_norm {loop_norm_err:.3e}), two calls bit-equal {torch.equal(norm, norm_again)}, "
+          f"{norm_launches:g} launches; kernels {norm_ms:.4f} ms device (partials "
+          f"{kernel_ms['sumsq_partials_kernel']:.4f}, finish {kernel_ms['sumsq_finish_kernel']:.4f}), a call {norm_events:.4f} ms on events, the "
+          f"loop {norm_loop:.2f} ms; bound {norm_numbers['bound_ms']:.4f} ms ({norm_bytes / 1e9:.3f} GB), "
+          f"{norm_numbers['bound_ms'] / norm_ms:.1%} of it  [{card}]")
+    check(passes(p_gap, s_gap), "the Adafactor kernels disagree with the per-tensor loop")
+    check(not passes(*control), "the Adafactor kernels without the clip still meet the bar: it does not separate")
+    check(equal, "two runs of the Adafactor kernels are not bit-equal")
+    check(moved > 1e-3, "a parameter did not move")
+    check(counted == (UPDATE_LAUNCHES["adafactor_step"] * OPT_STEPS, n_params * OPT_STEPS) and n_params == 514,
+          f"Adafactor kernel launches and parameters counted {counted}")
+    check(norm_err <= OPT_TOL["norm"] and torch.equal(norm, norm_again), "the norm kernels disagree or differ")
+    check(norm_launches == UPDATE_LAUNCHES["global_norm"], f"norm launches {norm_launches}")
+    check(all(v > 0 for v in kernel_ms.values()), f"a kernel without rows under the profiler: {kernel_ms}")
+    return {"adafactor_step": {**ada, "events_ms": ada_events, "slots_err": s_gap},
+            "global_norm": {**norm_numbers, "events_ms": norm_events}}
+
+
 def key_padding(lengths: torch.Tensor, t: int, dtype: torch.dtype) -> torch.Tensor:
     """(B, 1, 1, T) additive key mask: 0 on valid keys, −1e30 beyond the length."""
     valid = torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]
@@ -1724,8 +1903,12 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
         check(stats_err <= TRAIN_TOL["batch_stats"], "f32 batch statistics disagree")
         check(step_err <= TRAIN_TOL["step"], "f32 updated parameters disagree")
 
-    kernel_run, plain_run = one_step(True, "auto"), one_step(False, "xla")
+    kernel_run = one_step(True, "auto")
+    with optimizer_loops():
+        plain_run = one_step(False, "xla")
     check(not any(plain_run[3].values()), f"the plain path launched a kernel: {plain_run[3]}")
+    check(all(kernel_run[3][k] == v for k, v in update_launches(1).items()),
+          f"f32 kernel path launches: {kernel_run[3]}")
     check((kernel_run[3]["attention_relpos_bwd_dq"] == blocks) == long_form, f"f32 kernel path launches: {kernel_run[3]}")
     conv_blocks = blocks if conv_impl == "pallas" else 0  # forward and dx in every block, and dw
     check((kernel_run[3]["depthwise_conv"], kernel_run[3]["depthwise_conv_weight_grad"]) == (2 * conv_blocks, conv_blocks),
@@ -1776,7 +1959,7 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, lstm_fwd: n, lstm_bwd: n,
                 "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
                 "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn,
-                "depthwise_conv": conv, "depthwise_conv_weight_grad": conv // 2}
+                "depthwise_conv": conv, "depthwise_conv_weight_grad": conv // 2, **update_launches(n)}
     check(launches == expected, f"train-step launch counts, want {expected}")
     del state
 
@@ -1982,7 +2165,7 @@ def check_nst(card: str) -> dict:
                     "lstm": steps + evals + label_batches, "lstm_backward": steps, "lstm_weight_grad": 2 * steps,
                     "ctc_alpha": steps + evals, "ctc_beta": steps,
                     "depthwise_conv": blocks * (forwards[True] + forwards[False]) + blocks * steps,
-                    "depthwise_conv_weight_grad": blocks * steps}
+                    "depthwise_conv_weight_grad": blocks * steps, **update_launches(steps)}
         print(f"launch counts over the NST generation ({steps} train steps, {evals} validation and {label_batches} "
               f"labelling batches): {launches}")
         check(launches == {**dict.fromkeys(launches, 0), **expected}, f"NST launch counts, want {expected}")
@@ -2939,7 +3122,7 @@ def check_resident(card: str) -> dict:
         launches = read_counters()
         n = RESIDENT_EPOCHS * steps
         expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, "lstm": n, "lstm_backward": n,
-                    "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n}
+                    "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, **update_launches(n)}
         print(f"launch counts over {RESIDENT_EPOCHS} fused epochs ({n} steps): {launches}")
         check(launches == expected and per_step_launches == expected, f"resident launch counts, want {expected}")
         a, b = state_tensors(per_step), state_tensors(fused)
@@ -3015,6 +3198,7 @@ DP_TRACE_KERNELS = {  # counter → a substring of its kernel's name in a profil
     "stft_logmel": "stft_logmel_tc_kernel", "lstm": "lstm_fwd_cluster", "lstm_backward": "lstm_bwd_cluster",
     "lstm_weight_grad": "lstm_dwhh", "ctc_alpha": "ctc_alpha_kernel", "ctc_beta": "ctc_beta_kernel",
     "attention_relpos": "attention_relpos_tc_kernel", "depthwise_conv": "depthwise_conv_kernel",
+    "adafactor_step": "adafactor_apply_kernel", "global_norm": "sumsq_partials_kernel",
 }
 
 
@@ -3459,7 +3643,7 @@ def check_encoder_variants(card: str) -> dict:
                     "lstm_weight_grad": 2 * steps, "ctc_alpha": steps, "ctc_beta": steps,
                     "attention_relpos": blocks if encoder.get("use_relative_attention", True) else 0,
                     "depthwise_conv": blocks * (1 + 2 * steps) if conv else 0,
-                    "depthwise_conv_weight_grad": blocks * steps if conv else 0}
+                    "depthwise_conv_weight_grad": blocks * steps if conv else 0, **update_launches(steps)}
         check(counts == expected, f"{tag}: launch counts {counts}, want {expected}")
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
@@ -4175,6 +4359,7 @@ def main() -> None:
     new_phases_s = time.perf_counter() - t_new
     results.update(check_attention_backward_kernels(card))
     results.update(check_depthwise_conv_kernel(card))
+    results.update(check_optimizer_kernels(card))
     serve = check_slice(card)
     train = check_train(card, BATCH, SECONDS, TARGET_LEN, long_form=False)
     long_train = check_train(card, LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN, long_form=True)
@@ -4249,6 +4434,9 @@ def main() -> None:
         "lstm_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:69"),
         "lstm_backward_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:107"),
         "lstm_weight_grad_pretrain": ("csrc/lstm.cu", f"{pallas}/lstm.py:159"),
+        # no Pallas kernel: the JAX package's optax calls, which XLA fuses
+        "adafactor_step": ("csrc/adafactor.cu", "train/optim.py:31"),
+        "global_norm": ("csrc/adafactor.cu", "train/loop.py:279"),
     }
     m_paths = (serve, train, long_train, serve_conv, train_conv, nst, beam, cli, lm, cli_handoff, resident, variants,
                data_parallel, model_parallel)

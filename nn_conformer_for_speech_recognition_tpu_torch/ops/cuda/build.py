@@ -113,6 +113,12 @@ SIGNATURES = {
     # kernel (0 forward, 1 dw, 2 dw's reduce), is_bf16, vector layout, fixed taps → registers, local bytes
     # (host only)
     "depthwise_kernel_attributes": (_I, _I, _I, _I, _IP, _IP),
+    # meta, pointers, then each pass's jobs and their count (moments, factors, clip sums, apply), the scratch's
+    # partial sums of u², row and column factors, keep, take, eps, lr, clip, threshold, momentum (0, 1), momentum,
+    # 1 - momentum, weight decay (0, 1), its rate, stream
+    "adafactor_step": (_P, _P, *(_P, _I) * 4, _P, _P, _P, _F, _F, _F, _F, _I, _F, _I, _F, _F, _I, _F, _P),
+    # pointers, jobs, their count, partials, out, stream
+    "global_norm": (_P, _P, _I, _P, _P, _P),
 }
 
 

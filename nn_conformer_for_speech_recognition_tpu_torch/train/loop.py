@@ -83,6 +83,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCT
 from nn_conformer_for_speech_recognition_tpu_torch.models.conformer import MaskedBatchNorm
 from nn_conformer_for_speech_recognition_tpu_torch.models.lm import shallow_fusion
 from nn_conformer_for_speech_recognition_tpu_torch.ops.ctc import ctc_loss
+from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as multi_tensor
 from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda.ctc import ctc_loss_kernel
 from nn_conformer_for_speech_recognition_tpu_torch.ops.decode import ctc_beam_search, greedy_decode
 from nn_conformer_for_speech_recognition_tpu_torch.ops.features import frame_lengths_of, make_featurizer
@@ -196,12 +197,15 @@ def optax_global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def gradient_norm(model: torch.nn.Module) -> torch.Tensor:
-    """The global norm of the model's gradients.  Under tensor parallelism
-    the squares of the split parameters' shares are summed over the model
-    group and each replicated parameter counts once."""
+    """The global norm of the model's gradients: the multi-tensor kernels
+    where every gradient is a float32 CUDA tensor, else one reduction a
+    gradient.  Under tensor parallelism the squares of the split
+    parameters' shares are summed over the model group and each replicated
+    parameter counts once."""
     plan = tensor_parallel_plan(model)
     if plan is None:
-        return optax_global_norm(p.grad for p in model.parameters())
+        grads = [p.grad for p in model.parameters()]
+        return multi_tensor.global_norm(grads) if multi_tensor.on_kernel_route(grads) else optax_global_norm(grads)
     named = list(model.named_parameters())
     split = sum(torch.sum(torch.square(p.grad)) for n, p in named if n in plan.specs)
     whole = sum(torch.sum(torch.square(p.grad)) for n, p in named if n not in plan.specs)

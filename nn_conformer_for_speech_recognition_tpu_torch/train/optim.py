@@ -32,6 +32,13 @@ elementwise and needs nothing.  ``slot_specs`` tells a checkpoint how each
 slot splits, so that it can be gathered whole and cut again
 (`train.checkpoint`).
 
+Where every parameter is a float32 CUDA tensor and no tensor-parallel
+plan splits them, `Adafactor.step` takes the multi-tensor kernels of
+`ops.cuda.adafactor` (the same update, four launches a step, whatever the
+number of parameters); elsewhere it runs the per-tensor loop below, their
+plain twin.  The elementwise slots ``v`` and ``ema`` are created in the
+JAX shape over memory in the port's order, as the kernels walk them.
+
 `Adam` is ``optax.adam`` (b1 0.9, b2 0.999, eps 1e-8, eps_root 0, both
 moments debiased) and, with a weight decay, ``optax.adamw``: the decay
 ``rate * param`` is added to the Adam update before the learning rate
@@ -47,6 +54,7 @@ import torch
 
 from nn_conformer_for_speech_recognition_tpu_torch.config import OptimizerConfig
 from nn_conformer_for_speech_recognition_tpu_torch.convert import factored_dims, flax_axes
+from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as multi_tensor
 from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import ShardSpec, TensorParallelPlan, all_reduce_
 
 Schedule = Union[float, Callable[[int], float]]
@@ -102,6 +110,7 @@ class Adafactor:
         self.count = 0
         self.params = []
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._table: Optional[multi_tensor.AdafactorTable] = None  # the kernels' table, built at their first step
         # {parameter: {slot: its `ShardSpec` (JAX layout), or None where every model rank holds the whole slot}}
         self.slot_specs: Dict[str, Dict[str, Optional[ShardSpec]]] = {}
         for name, p in named_params:
@@ -112,15 +121,17 @@ class Adafactor:
             whole = shape if spec is None else tuple(spec.size if i == split else n for i, n in enumerate(shape))
             dims = factored_dims(whole, MIN_DIM_SIZE_TO_FACTOR)  # optax decides on the whole parameter
             like = dict(device=p.device, dtype=p.dtype)
+            # v and ema: the JAX shape over memory in the port's order, so that one index walks them with p and g
+            # (`ops.cuda.adafactor`)
             if dims is None:
-                st = {"v": torch.zeros(shape, **like)}
+                st = {"v": torch.zeros(p.shape, **like).permute(axes)}
             else:  # second moments of the rows and of the columns
                 st = {
                     "v_row": torch.zeros(tuple(np.delete(shape, dims[1])), **like),
                     "v_col": torch.zeros(tuple(np.delete(shape, dims[0])), **like),
                 }
             if momentum is not None:
-                st["ema"] = torch.zeros(shape, **like)
+                st["ema"] = torch.zeros(p.shape, **like).permute(axes)
             self.params.append((name, p, axes, dims, split))
             self.state[name] = st
             on = {"v": split, "ema": split}
@@ -137,6 +148,11 @@ class Adafactor:
             return m
         return all_reduce_(m, self.axis) / self.axis.size
 
+    def _on_kernels(self) -> bool:
+        """Whether the multi-tensor kernels take the step: every parameter is
+        a float32 CUDA tensor and no tensor-parallel plan splits them."""
+        return self.axis is None and multi_tensor.on_kernel_route(p for _, p, *_ in self.params)
+
     @torch.no_grad()
     def step(self) -> None:
         lr = self.learning_rate(self.count) if callable(self.learning_rate) else self.learning_rate
@@ -144,6 +160,16 @@ class Adafactor:
         decay = np.float32(1.0) - t ** np.float32(-DECAY_RATE)
         keep = float(decay)
         take = float(np.float32(1.0) - decay)
+        if self._on_kernels():
+            if self._table is None or self._table.device != self.params[0][1].device:
+                self._table = multi_tensor.AdafactorTable.build(self.params)
+            multi_tensor.adafactor_step(
+                self._table, self.params, self.state, lr=lr, keep=keep, take=take, eps=EPS,
+                clipping_threshold=self.clipping_threshold, momentum=self.momentum,
+                weight_decay_rate=self.weight_decay_rate,
+            )
+            self.count += 1
+            return
         for name, p, axes, dims, split in self.params:
             if p.grad is None:
                 raise RuntimeError(f"Adafactor: {name} has no gradient")

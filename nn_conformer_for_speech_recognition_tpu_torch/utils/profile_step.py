@@ -71,6 +71,7 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
     from nn_conformer_for_speech_recognition_tpu_torch import config as C
     from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, OptimizerConfig, SpecAugmentConfig
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC, init_params
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as multi_tensor
     from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import build
     from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predict_step, make_train_step
     from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
@@ -117,8 +118,10 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
     run(2)  # warm-up
     plain_ms = run(5)
     reset_phases()
+    updated = multi_tensor.adafactor_step.params
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_ms = run(PROFILED_STEPS)
+    updated = (multi_tensor.adafactor_step.params - updated) / PROFILED_STEPS
     groups = kernel_groups(prof, PROFILED_STEPS)
     device_ms, launches = sum(g[0] for g in groups.values()), sum(g[1] for g in groups.values())
     if device_ms <= 0:
@@ -126,6 +129,9 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
     print(f"{what}: {plain_ms:.2f} ms/call unprofiled over 5 calls, {profiled_ms:.2f} ms/call under the profiler over "
           f"{PROFILED_STEPS}; kernel device time {device_ms:.2f} ms/call in {launches:.0f} launches/call; busy share "
           f"{device_ms / plain_ms:.3f} of the unprofiled call, {device_ms / profiled_ms:.3f} under the profiler  [{card}]")
+    if not predict:
+        print(f"  Adafactor: {updated:.0f} of {len(list(model.parameters()))} parameters a call on the multi-tensor "
+              "kernels")
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
         print(f"  {name}: {ms:.3f} ms/call ({ms / device_ms:.1%}), {count:.0f} launches/call")
     for name, (count, host_s, device_s) in phase_table().items():

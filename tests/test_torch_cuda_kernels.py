@@ -35,6 +35,12 @@ ignores it misses that bar fourfold; its gradients (plain
 einsums behind the kernel's forward) 5e-4 against autograd through the twin;
 the beam search on the card against its own CPU run: tokens and lengths
 equal, scores 1e-3 (60 float32 logaddexp steps in two libraries).
+Adafactor's multi-tensor kernels against the per-tensor loop on the same
+CUDA tensors, five steps of Conformer-M's 514 parameters: parameters atol
+1e-6 (the loop's own bar against optax), slots 1e-5 of their largest
+magnitude (means and the clip's sum of squares in another order; the
+momentum crosses zero), bit-equal from run to run; the norm within 1e-6 of
+a float64 sum of squares.
 """
 
 import pytest
@@ -1177,3 +1183,116 @@ def test_beam_search_on_the_card_equals_the_cpu(cuda):
     rtoks, rlens, rscores = ctc_beam_search(lp, lengths, **kw)
     assert torch.equal(lens.cpu(), rlens) and torch.equal(toks.cpu(), rtoks)
     _close(scores, rscores.cuda(), 1e-3)
+
+
+def _conformer_m_params():
+    from nn_conformer_for_speech_recognition_tpu_torch.config import conformer_m
+    from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+
+    torch.manual_seed(0)
+    return ConformerCTC(conformer_m(use_pallas=True), 1024).cuda()
+
+
+def _adafactor_run(init, grads, loop=False, clip=True):
+    """Adafactor (lr 1e-2, momentum 0.9, clip 1.0) from ``init`` over the
+    gradients; ``loop``: the per-tensor loop on the same CUDA tensors."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import OptimizerConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+
+    params = {k: torch.nn.Parameter(t.clone()) for k, t in init.items()}
+    opt = make_optimizer(OptimizerConfig(learning_rate=1e-2), params.items())
+    if loop:
+        opt._on_kernels = lambda: False
+    if not clip:
+        opt.clipping_threshold = None
+    for g in grads:
+        for k, p in params.items():
+            p.grad = g[k].clone()
+        opt.step()
+    torch.cuda.synchronize()
+    return opt
+
+
+def _adafactor_case(cuda, zeros=False):
+    model = _conformer_m_params()
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    grads = [{k: (torch.randn(t.shape, generator=cuda) * (1 + 2 * s)).cuda() for k, t in init.items()}
+             for s in range(5)]
+    if zeros:  # a zero gradient row in every matrix: a kernel without eps divides 0 by 0 there
+        for g in grads:
+            for t in g.values():
+                if t.dim() > 1:
+                    t[0] = 0
+    return init, grads
+
+
+def _adafactor_gap(opt, ref):
+    """The largest parameter gap, and the largest slot gap over the slot's largest magnitude."""
+    p_gap = max(float((p - q).abs().max()) for (_, p, *_), (_, q, *_) in zip(opt.params, ref.params))
+    s_gap = max(float((opt.state[n][k] - v).abs().max() / v.abs().max()) for n, st in ref.state.items()
+                for k, v in st.items())
+    return p_gap, s_gap
+
+
+def test_adafactor_kernels_match_the_loop(cuda):
+    """Conformer-M's 514 parameters, 5 steps: the kernels (4 launches a step,
+    514 parameters counted) against the loop on the same CUDA tensors, and
+    two kernel runs bit-equal."""
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as AF
+
+    init, grads = _adafactor_case(cuda)
+    ref = _adafactor_run(init, grads, loop=True)
+    launches, counted = AF.adafactor_step.launches, AF.adafactor_step.params
+    opt = _adafactor_run(init, grads)
+    assert (AF.adafactor_step.launches - launches, AF.adafactor_step.params - counted) == (4 * 5, 514 * 5)
+    assert all(float((p - init[n]).abs().max()) > 1e-3 for n, p, *_ in opt.params)
+    p_gap, s_gap = _adafactor_gap(opt, ref)
+    assert p_gap <= 1e-6 and s_gap <= 1e-5, (p_gap, s_gap)
+    again = _adafactor_run(init, grads)
+    assert all(torch.equal(p, q) for (_, p, *_), (_, q, *_) in zip(opt.params, again.params))
+    assert all(torch.equal(again.state[n][k], v) for n, st in opt.state.items() for k, v in st.items())
+
+
+@pytest.mark.parametrize("control", ["clip left out", "eps dropped"])
+def test_adafactor_kernel_controls_miss_the_bar(cuda, monkeypatch, control):
+    """The bar separates: the kernels without the clip, or without eps on
+    gradients with zero rows, miss it against the loop."""
+    from nn_conformer_for_speech_recognition_tpu_torch.train import optim
+
+    init, grads = _adafactor_case(cuda, zeros=control == "eps dropped")
+    ref = _adafactor_run(init, grads, loop=True)
+    if control == "eps dropped":
+        monkeypatch.setattr(optim, "EPS", 0.0)
+    opt = _adafactor_run(init, grads, clip=control != "clip left out")
+    p_gap, s_gap = _adafactor_gap(opt, ref)
+    assert not (p_gap <= 1e-6 and s_gap <= 1e-5), (p_gap, s_gap)
+
+
+def test_gradient_norm_and_the_step_launch_at_most_8_kernels(cuda):
+    """`gradient_norm` on the kernels' route within 1e-6 (relative) of a
+    float64 sum of squares, bit-equal twice; the norm and one Adafactor step
+    of Conformer-M are at most 8 kernels on the profiler's rows."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import OptimizerConfig
+    from nn_conformer_for_speech_recognition_tpu_torch.ops.cuda import adafactor as AF
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import gradient_norm
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+
+    model = _conformer_m_params()
+    for p in model.parameters():
+        p.grad = (torch.randn(p.shape, generator=cuda) * 1e-2).cuda()
+    exact = float(torch.sqrt(sum(p.grad.double().square().sum() for p in model.parameters())))
+    before = AF.global_norm.launches
+    norm = gradient_norm(model)
+    assert AF.global_norm.launches == before + 2 and norm.dtype == torch.float32
+    assert abs(float(norm) - exact) <= 1e-6 * exact, (float(norm), exact)
+    assert torch.equal(norm, gradient_norm(model))
+    opt = make_optimizer(OptimizerConfig(), model.named_parameters())
+    opt.step()  # the table is built at the first step
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gradient_norm(model)
+        opt.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    assert 0 < len(kernels) <= 8, [e.name for e in kernels]
