@@ -62,7 +62,7 @@ def _common_data_args(p: argparse.ArgumentParser) -> None:
 
 def _common_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default="conformer_s",
-                   choices=["reference", "conformer_s", "conformer_m", "conformer_l"])
+                   choices=["reference", "conformer_s", "conformer_m", "conformer_l", "e_branchformer_l"])
     p.add_argument("--compute-dtype", default="auto",
                    choices=["auto", "float32", "bfloat16"],
                    help="auto = bfloat16 on a CUDA device, float32 on the CPU")

@@ -3,7 +3,10 @@
 Copied rather than imported: the reference package's ``__init__`` imports
 jax, which the port's machines do not have.  ``tests/test_torch_slice.py``
 holds every field and default equal to the original
-(`nn_conformer_for_speech_recognition_tpu/config.py`).
+(`nn_conformer_for_speech_recognition_tpu/config.py`), except the port's own
+encoder block (``ConformerConfig.block``, ``cgmlp_dim``,
+``merge_conv_kernel``) and the preset `e_branchformer_l`, which the JAX
+package does not have.
 
 Dropped from the copy: ``ModelConfig.resolved_*`` (they key off
 ``jax.default_backend()``).  The port resolves by tensor device instead
@@ -105,7 +108,15 @@ class SubsamplingConfig:
 
 @_frozen
 class ConformerConfig:
-    """Conformer encoder: ½FFN → MHSA(rel-pos) → Conv → ½FFN → LN."""
+    """Conformer encoder: ½FFN → MHSA(rel-pos) → Conv → ½FFN → LN.
+
+    ``block`` 'e_branchformer' (the port's own; Kim et al. 2022) builds
+    E-Branchformer blocks instead: ½FFN → [MHSA(rel-pos) ∥ cgMLP] → merge
+    → ½FFN → LN, with one more LayerNorm after the stack.  Its cgMLP
+    projects to ``cgmlp_dim`` and gates half of it with a depthwise conv of
+    ``conv_kernel_size`` taps; the merge is a depthwise conv of
+    ``merge_conv_kernel`` taps over both branches.  ``conv_expansion`` and
+    ``conv_norm`` are the Conformer block's alone."""
 
     num_blocks: int = 1
     d_model: int = 512
@@ -119,6 +130,10 @@ class ConformerConfig:
     use_relative_attention: bool = True
     # 'batchnorm' (masked) | 'groupnorm' | 'layernorm'
     conv_norm: str = "batchnorm"
+    # 'conformer' | 'e_branchformer'
+    block: str = "conformer"
+    cgmlp_dim: int = 3072  # e_branchformer: the cgMLP's width, half of it gated
+    merge_conv_kernel: int = 31  # e_branchformer: the merge module's depthwise taps
 
 
 @_frozen
@@ -372,6 +387,21 @@ def conformer_l(**overrides) -> ModelConfig:
     return ModelConfig(encoder=enc, decoder=dec, **overrides)
 
 
+def e_branchformer_l(**overrides) -> ModelConfig:
+    """E-Branchformer-L (Kim et al. 2022; ESPnet's LibriSpeech recipe
+    ``train_asr_e_branchformer.yaml``): 17 blocks of d=512, 8 heads, FFNs
+    of 1024, a cgMLP of 3072 with a 31-tap gate conv, a 31-tap merge conv,
+    dropout and attention dropout 0.1, a front end of two 3×3 convs of
+    512 channels; the port's BiLSTM CTC head."""
+    enc = ConformerConfig(
+        num_blocks=17, d_model=512, num_heads=8, ffn_dim=1024, conv_kernel_size=31, dropout=0.1,
+        attention_dropout=0.1, block="e_branchformer", cgmlp_dim=3072, merge_conv_kernel=31,
+    )
+    sub = SubsamplingConfig(channels=(512, 512), kernel_sizes=(3, 3))
+    dec = DecoderConfig(projection_dim=256, lstm_hidden=320, dropout=0.1)
+    return ModelConfig(subsampling=sub, encoder=enc, decoder=dec, **overrides)
+
+
 def reference_parity(**overrides) -> ModelConfig:
     """The reference's active config, which is the dataclasses' defaults:
     1 block, d=512, 8 heads, k=33, dropout .5."""
@@ -383,4 +413,5 @@ MODEL_PRESETS = {
     "conformer_s": conformer_s,
     "conformer_m": conformer_m,
     "conformer_l": conformer_l,
+    "e_branchformer_l": e_branchformer_l,
 }

@@ -130,9 +130,20 @@ def _pack_lstm_cells(
     return out
 
 
+def check_bridgeable(config: ModelConfig) -> None:
+    """Raises for a configuration the JAX package cannot hold: its encoder
+    has Conformer blocks only, so no JAX checkpoint holds the port's
+    E-Branchformer block."""
+    block = getattr(getattr(config, "encoder", None), "block", "conformer")  # None: a caller with no model config
+    if block != "conformer":
+        raise ValueError(f"the JAX package has no {block!r} encoder block: no JAX checkpoint converts to this "
+                         "configuration")
+
+
 def flax_to_state_dict(variables: Mapping, config: ModelConfig) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of the JAX ``ConformerCTC`` → the
     port's ``state_dict`` (load with ``strict=True``)."""
+    check_bridgeable(config)
     return _model_state_dict(variables, "decoder_lstm", lambda: (config.decoder.lstm_layers, config.decoder.bidirectional))
 
 
@@ -364,6 +375,7 @@ def train_state_from_flax(restored: Mapping, config: ModelConfig, seed: int = 0)
     step, the data-iterator cursor.  The PRNG key cannot cross frameworks:
     the port's generator is seeded from ``seed`` at restore, and its dropout
     from ``seed`` and the step (`train.state.TrainState`)."""
+    check_bridgeable(config)
     variables = {"params": restored["params"], "batch_stats": restored.get("batch_stats", {})}
     layout = (lambda: (config.decoder.lstm_layers, config.decoder.bidirectional))
     count, opt = optimizer_state_from_optax(restored["opt_state"], restored["params"], lstm_layout=layout)

@@ -129,7 +129,10 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialisation, as the JAX package's model initialises:
     LeCun-normal matrices (std 1/sqrt(fan_in)), each LSTM direction's
     recurrent ``_w_hh`` (H, 4H) orthogonal, norm scales at 1, every bias
-    (and the attention's u/v) at 0."""
+    (and the attention's u/v) at 0.  The E-Branchformer block's parameters
+    follow the same rules: its depthwise taps (``depthwise.weight`` (C, 1,
+    K) or ``dw_kernel`` (K, C)) fan in over their K taps, ``dw_bias`` and
+    the conv biases start at 0."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p.ndim == 1:

@@ -22,6 +22,14 @@ process draws.  Under sequence parallelism (`parallel.sequence`) an
 attention layer exchanges its rows for its heads over the data group
 where `parallel.sequence.seq_parallel_applicable` allows it.
 
+``ConformerConfig.block`` 'e_branchformer' builds `EBranchformerBlock`s
+(Kim et al. 2022) in place of `ConformerBlock`s: the attention branch and a
+cgMLP branch side by side, merged by a depthwise conv over both, with one
+more LayerNorm after the stack.  Its depthwise convs take the conv
+module's route and carry a bias.  It runs under data and sequence
+parallelism; `parallel.mesh.shard_module` refuses it under tensor
+parallelism.
+
 The encoder variants of ``ConformerConfig``: ``use_relative_attention=False``
 is plain softmax attention over the keys (no position term, no u/v biases,
 no ``pos_proj``; no kernel in either package), and ``conv_norm`` 'groupnorm'
@@ -65,9 +73,11 @@ from nn_conformer_for_speech_recognition_tpu_torch.parallel.sequence import (
     seq_parallel_applicable,
     ulysses_relpos_attention_rows,
 )
+from nn_conformer_for_speech_recognition_tpu_torch.utils.profiling import annotate
 
 NEG_INF = -1e30  # the JAX module's key-mask value
 CONV_NORMS = ("batchnorm", "groupnorm", "layernorm")
+BLOCKS = ("conformer", "e_branchformer")
 
 
 def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
@@ -385,6 +395,103 @@ class ConformerBlock(nn.Module):
         return self.norm(x) * mask[..., None].to(x.dtype)
 
 
+def _add_depthwise(owner: nn.Module, channels: int, kernel_size: int, use_kernel: bool) -> None:
+    """A SAME depthwise conv with a bias on ``owner``, on the conv module's
+    routes: ``use_kernel`` registers ``dw_kernel`` (K, C) and ``dw_bias``
+    (C,) for `ops.cuda.depthwise_conv.depthwise_conv1d`; otherwise
+    ``depthwise`` is a grouped conv1d with its bias."""
+    if use_kernel:
+        owner.dw_kernel = nn.Parameter(torch.empty(kernel_size, channels))
+        owner.dw_bias = nn.Parameter(torch.zeros(channels))
+    else:
+        owner.depthwise = nn.Conv1d(channels, channels, kernel_size, groups=channels)
+
+
+def _depthwise(owner: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """``owner``'s depthwise conv and bias over (B, T, C) ``h``, whose padded
+    frames the caller has zeroed."""
+    if hasattr(owner, "dw_kernel"):
+        return depthwise_conv1d(h, owner.dw_kernel.to(h.dtype)) + owner.dw_bias.to(h.dtype)
+    conv = owner.depthwise
+    h = F.pad(h.transpose(1, 2), same_padding(h.shape[1], conv.kernel_size[0], 1))
+    return F.conv1d(h, conv.weight.to(h.dtype), conv.bias.to(h.dtype), groups=h.shape[1]).transpose(1, 2)
+
+
+class ConvolutionalGatingMLP(nn.Module):
+    """The cgMLP branch: LN → Linear(cgmlp_dim) → GELU → split into halves
+    r and g → g: LN → × mask → depthwise conv (SAME, bias) → r · g →
+    dropout → Linear(d_model) → dropout.  Padded frames are zeroed before
+    the conv, as in `ConvModule`, where ESPnet's gate lets them in."""
+
+    def __init__(self, d_model: int, cgmlp_dim: int, kernel_size: int, dropout: float, use_kernel: bool = False):
+        super().__init__()
+        if cgmlp_dim % 2:
+            raise ValueError(f"cgmlp_dim must be even, got {cgmlp_dim}")
+        self.dropout = dropout
+        self.norm = LayerNorm(d_model)
+        self.channel_proj1 = Linear(d_model, cgmlp_dim)
+        self.gate_norm = LayerNorm(cgmlp_dim // 2)
+        _add_depthwise(self, cgmlp_dim // 2, kernel_size, use_kernel)
+        self.channel_proj2 = Linear(cgmlp_dim // 2, d_model)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        r, g = F.gelu(self.channel_proj1(self.norm(x))).chunk(2, dim=-1)
+        g = _depthwise(self, self.gate_norm(g) * mask[..., None].to(g.dtype))
+        h = F.dropout(r * g, self.dropout, self.training)
+        return F.dropout(self.channel_proj2(h), self.dropout, self.training)
+
+
+class MergeModule(nn.Module):
+    """E-Branchformer's merge: c = [x1, x2] over the channels, c + depthwise
+    conv (SAME, bias) of c × mask, Linear(2·d_model → d_model), dropout."""
+
+    def __init__(self, d_model: int, kernel_size: int, dropout: float, use_kernel: bool = False):
+        super().__init__()
+        self.dropout = dropout
+        _add_depthwise(self, 2 * d_model, kernel_size, use_kernel)
+        self.proj = Linear(2 * d_model, d_model)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        c = torch.cat([x1, x2], dim=-1)
+        c = c + _depthwise(self, c * mask[..., None].to(c.dtype))
+        return F.dropout(self.proj(c), self.dropout, self.training)
+
+
+class EBranchformerBlock(nn.Module):
+    """E-Branchformer block: x + ½FFN; the attention branch (`RelPositionMHSA`,
+    whose output dropout is ``attention_dropout``) and the cgMLP branch on
+    the same x; x + merge of both; x + ½FFN; LayerNorm; × mask.  The cgMLP
+    branch and the merge are the spans ``encoder.cgmlp`` and
+    ``encoder.merge`` (`utils.profiling.annotate`)."""
+
+    tensor_parallel_refused = "an E-Branchformer block has no tensor-parallel split"
+
+    def __init__(self, config: ConformerConfig, conv_kernel: bool = False):
+        super().__init__()
+        d = config.d_model
+        self.ffn1 = FeedForwardModule(d, config.ffn_dim, config.dropout)
+        self.mhsa = RelPositionMHSA(d, config.num_heads, config.attention_dropout,
+                                    use_relative=config.use_relative_attention)
+        self.cgmlp = ConvolutionalGatingMLP(d, config.cgmlp_dim, config.conv_kernel_size, config.dropout,
+                                            use_kernel=conv_kernel)
+        self.merge = MergeModule(d, config.merge_conv_kernel, config.dropout, use_kernel=conv_kernel)
+        self.ffn2 = FeedForwardModule(d, config.ffn_dim, config.dropout)
+        self.norm = LayerNorm(d)
+
+    def forward(
+        self, x: torch.Tensor, mask: torch.Tensor, lengths: torch.Tensor, rel: torch.Tensor,
+        attention_kernel: bool = False,
+    ) -> torch.Tensor:
+        x = x + 0.5 * self.ffn1(x)
+        x1 = self.mhsa(x, lengths, rel, attention_kernel)
+        with annotate("encoder.cgmlp"):
+            x2 = self.cgmlp(x, mask)
+        with annotate("encoder.merge"):
+            x = x + self.merge(x1, x2, mask)
+        x = x + 0.5 * self.ffn2(x)
+        return self.norm(x) * mask[..., None].to(x.dtype)
+
+
 @contextlib.contextmanager
 def _frozen_batch_stats(module: nn.Module):
     """Running statistics untouched inside: a rematerialised block's
@@ -400,7 +507,8 @@ def _frozen_batch_stats(module: nn.Module):
 
 
 class ConformerEncoder(nn.Module):
-    """Stack of Conformer blocks; (B, T, d_model) + lengths → (B, T, d_model).
+    """Stack of Conformer blocks, or of E-Branchformer blocks followed by a
+    LayerNorm (× mask); (B, T, d_model) + lengths → (B, T, d_model).
 
     With ``remat`` each block runs under non-reentrant
     ``torch.utils.checkpoint`` whenever autograd records: its activations
@@ -411,8 +519,13 @@ class ConformerEncoder(nn.Module):
 
     def __init__(self, config: ConformerConfig, remat: bool = False, conv_kernel: bool = False):
         super().__init__()
+        if config.block not in BLOCKS:
+            raise ValueError(f"block must be one of {BLOCKS}, got {config.block!r}")
         self.d_model, self.remat = config.d_model, remat
-        self.blocks = nn.ModuleList(ConformerBlock(config, conv_kernel) for _ in range(config.num_blocks))
+        block = EBranchformerBlock if config.block == "e_branchformer" else ConformerBlock
+        self.blocks = nn.ModuleList(block(config, conv_kernel) for _ in range(config.num_blocks))
+        if config.block == "e_branchformer":
+            self.after_norm = LayerNorm(config.d_model)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor, attention_kernel: bool = False) -> torch.Tensor:
         t = x.shape[1]
@@ -426,4 +539,6 @@ class ConformerEncoder(nn.Module):
                 )
             else:
                 x = block(x, mask, lengths, rel, attention_kernel)
+        if hasattr(self, "after_norm"):
+            x = self.after_norm(x) * mask[..., None].to(x.dtype)
         return x

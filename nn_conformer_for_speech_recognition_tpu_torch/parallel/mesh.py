@@ -314,7 +314,9 @@ def shard_module(module: torch.nn.Module, mesh: Mesh) -> Optional[TensorParallel
     each module that runs a split (``tp``) and each masked BatchNorm
     (``data_axis``) its axis, and records the plan on ``module``
     (``module.tensor_parallel``).  A split the module cannot run (heads or
-    an FFN's pair that do not divide over the model axis) raises.  With a
+    an FFN's pair that do not divide over the model axis) raises, as does
+    a module that holds one with ``tensor_parallel_refused`` set (the
+    E-Branchformer block).  With a
     model axis of size 1 it only gives the BatchNorms the data axis."""
     for m in module.modules():
         if hasattr(m, "data_axis"):
@@ -322,6 +324,9 @@ def shard_module(module: torch.nn.Module, mesh: Mesh) -> Optional[TensorParallel
     mp = mesh.model.size
     if mp == 1:
         return None
+    refused = next((m for m in module.modules() if getattr(m, "tensor_parallel_refused", None)), None)
+    if refused is not None:
+        raise ValueError(f"model_parallel_size={mp}: {refused.tensor_parallel_refused}; train it data-parallel")
     if tensor_parallel_plan(module) is not None:
         raise ValueError("the module is already split over the model axis")
     specs = {name: spec for name, p in module.named_parameters() if (spec := param_split(name, p.shape, mp))}

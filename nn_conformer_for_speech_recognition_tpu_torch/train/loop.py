@@ -158,7 +158,9 @@ def _batch_loss(
 def all_reduce_gradients(model: torch.nn.Module, loss: torch.Tensor, axis: Optional[Axis] = None) -> torch.Tensor:
     """Sums every parameter's gradient, and the loss, over the data group
     ``axis`` (the world where None) in one all-reduce of a flat buffer;
-    returns the global loss.
+    returns the global loss.  Each all-reduce is the span
+    ``train.all_reduce`` (`utils.profiling.annotate`), inside the step's
+    ``train.backward``.
 
     Under tensor parallelism the split parameters' shares are summed over
     the data group, and the replicated parameters' gradients over every
@@ -181,7 +183,9 @@ def all_reduce_gradients(model: torch.nn.Module, loss: torch.Tensor, axis: Optio
         if over is not None and not over.spread:
             continue
         with_loss = [loss.detach().reshape(1).to(grads[0].dtype)] if i == 0 else []
-        flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads] + with_loss), over)
+        flat = torch.cat([g.reshape(-1) for g in grads] + with_loss)
+        with annotate("train.all_reduce"):
+            all_reduce_(flat, over)
         if ranks > 1:
             flat /= ranks
         with torch.no_grad():  # one multi-tensor copy back, not one launch a parameter

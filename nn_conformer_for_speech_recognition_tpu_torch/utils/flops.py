@@ -1,6 +1,7 @@
 """Analytic model-FLOPs accounting for MFU, copied from
 `nn_conformer_for_speech_recognition_tpu/utils/flops.py`
-(``tests/test_torch_train.py`` holds the copy equal to the original).
+(``tests/test_torch_train.py`` holds the copy equal to the original), with
+the port's E-Branchformer block added.
 
 Counts the matmul/conv FLOPs of one ConformerCTC forward from the configs
 alone (a matmul (m,k)x(k,n) = 2·m·k·n FLOPs) and models a train step as 3x
@@ -38,7 +39,8 @@ def conformer_forward_flops(
     mcfg: ModelConfig, vocab_size: int, batch: int, frames: int
 ) -> float:
     """Matmul FLOPs of one ConformerCTC forward: subsampling convs →
-    per-frame projection → N conformer blocks → BiLSTM CTC head."""
+    per-frame projection → N conformer (or E-Branchformer) blocks → BiLSTM
+    CTC head."""
     sub = mcfg.subsampling
     d = mcfg.encoder.d_model
     total = 0.0
@@ -68,11 +70,20 @@ def conformer_forward_flops(
     # matmul) + pos_proj
     relpos = 2 * scores + 2 * (2 * t_enc - 1) * d * d
     out_proj = 2 * batch * t_enc * d * d
-    conv_pw1 = 2 * batch * t_enc * d * (2 * e.conv_expansion * d)
-    conv_dw = 2 * batch * t_enc * (e.conv_expansion * d) * e.conv_kernel_size
-    conv_pw2 = 2 * batch * t_enc * (e.conv_expansion * d) * d
-    block = ffn + qkv + scores + att_v + relpos + out_proj + conv_pw1 + conv_dw + conv_pw2
-    total += e.num_blocks * block
+    if e.block == "e_branchformer":
+        # the cgMLP (d → cgmlp_dim, the gate's depthwise conv over half of it,
+        # cgmlp_dim/2 → d) and the merge (depthwise conv over 2d, 2d → d) in
+        # place of the conv module
+        half = e.cgmlp_dim // 2
+        cgmlp = 2 * batch * t_enc * (d * e.cgmlp_dim + half * e.conv_kernel_size + half * d)
+        merge = 2 * batch * t_enc * (2 * d * e.merge_conv_kernel + 2 * d * d)
+        mixer = cgmlp + merge
+    else:
+        conv_pw1 = 2 * batch * t_enc * d * (2 * e.conv_expansion * d)
+        conv_dw = 2 * batch * t_enc * (e.conv_expansion * d) * e.conv_kernel_size
+        conv_pw2 = 2 * batch * t_enc * (e.conv_expansion * d) * d
+        mixer = conv_pw1 + conv_dw + conv_pw2
+    total += e.num_blocks * (ffn + qkv + scores + att_v + relpos + out_proj + mixer)
 
     # decoder: projection → BiLSTM → vocab head
     dec = mcfg.decoder

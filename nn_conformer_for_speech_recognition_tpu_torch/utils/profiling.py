@@ -18,9 +18,17 @@ A span opens a ``record_function`` range, so it sits in the profiler's
 trace on the kernels' clock, and on a CUDA device records an event on the
 current stream at its entry and at its exit.  Under the stream's ordering
 the pair measures the device time the phase took, busy or idle: from the
-end of the work queued before it to the end of its own.  Spans do not nest:
-a reader of the trace labels each idle gap of the device with the outermost
-host range, so a span around others would take their labels.  A span that
+end of the work queued before it to the end of its own.  The phase spans
+listed below do not nest: a reader of the trace labels each idle gap of the
+device with the outermost host range, so a span around others would take
+their labels.  Three spans sit inside them and are read for their device
+time alone: ``encoder.cgmlp`` and ``encoder.merge`` around each
+E-Branchformer block's cgMLP branch and merge module
+(`models.conformer.EBranchformerBlock`, inside ``train.forward`` or
+``label.forward``; twice under ``remat``, whose backward recomputes them),
+and ``train.all_reduce`` around each all-reduce of the flat gradient
+(`train.loop.all_reduce_gradients`, inside ``train.backward``, only under a
+process group).  A span that
 an exception leaves counts nothing.  Spans are opened on one thread, the
 one that drives the steps.
 

@@ -165,6 +165,8 @@ def test_parser_has_the_jax_flags_plus_device():
         extra = {"--device"} if name in ("train", "eval", "nst", "pretrain", "parity") else set()
         assert set(got[name]) == set(ref[name]) | extra, name
         for flag, spec in ref[name].items():
+            if flag == "--model":  # the port's presets add its own E-Branchformer-L
+                spec = (spec[0], spec[1] + ("e_branchformer_l",), *spec[2:])
             assert got[name][flag] == spec, (name, flag)
         if extra:
             assert got[name]["--device"][:2] == ("cuda", ("cuda", "cpu"))

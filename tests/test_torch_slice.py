@@ -38,14 +38,31 @@ from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_predic
 REPO = Path(__file__).resolve().parents[1]
 
 
+# the port's own encoder block (`models.conformer.EBranchformerBlock`): fields and a preset the JAX package lacks
+PORT_ONLY_FIELDS = {"block": "conformer", "cgmlp_dim": 3072, "merge_conv_kernel": 31}
+
+
+def _jax_view(cfg):
+    """``repr`` of a port config as the JAX package's: its Conformer encoder
+    without the port-only fields, which must sit at their defaults."""
+    enc = cfg.encoder if isinstance(cfg, TC.ModelConfig) else cfg
+    if isinstance(enc, TC.ConformerConfig):
+        assert {k: getattr(enc, k) for k in PORT_ONLY_FIELDS} == PORT_ONLY_FIELDS
+        fields = [f.name for f in dataclasses.fields(enc) if f.name not in PORT_ONLY_FIELDS]
+        text = "ConformerConfig(" + ", ".join(f"{k}={getattr(enc, k)!r}" for k in fields) + ")"
+        return repr(cfg).replace(repr(enc), text)
+    return repr(cfg)
+
+
 def test_config_copies_equal():
     for name in ("FeatureConfig", "SpecAugmentConfig", "SubsamplingConfig", "ConformerConfig", "DecoderConfig",
                  "ModelConfig", "OptimizerConfig", "MeshConfig", "TrainConfig", "NSTConfig"):
-        assert repr(getattr(TC, name)()) == repr(getattr(C, name)()), name
+        assert _jax_view(getattr(TC, name)()) == repr(getattr(C, name)()), name
     for preset in ("conformer_s", "conformer_m", "conformer_l", "reference_parity"):
-        assert repr(getattr(TC, preset)()) == repr(getattr(C, preset)()), preset
-    assert list(TC.MODEL_PRESETS) == list(C.MODEL_PRESETS)
-    assert all(repr(TC.MODEL_PRESETS[k](n_mels=13)) == repr(C.MODEL_PRESETS[k](n_mels=13)) for k in C.MODEL_PRESETS)
+        assert _jax_view(getattr(TC, preset)()) == repr(getattr(C, preset)()), preset
+    assert list(TC.MODEL_PRESETS) == list(C.MODEL_PRESETS) + ["e_branchformer_l"]
+    assert all(_jax_view(TC.MODEL_PRESETS[k](n_mels=13)) == repr(C.MODEL_PRESETS[k](n_mels=13)) for k in C.MODEL_PRESETS)
+    assert [f.name for f in dataclasses.fields(TC.ConformerConfig)][-3:] == list(PORT_ONLY_FIELDS)
     assert TC.SubsamplingConfig().subsampled_length(938) == C.SubsamplingConfig().subsampled_length(938) == 235
     assert TC.FeatureConfig().num_frames(480000) == C.FeatureConfig().num_frames(480000) == 938
 
