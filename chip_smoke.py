@@ -207,6 +207,8 @@ N_TRAIN_STEPS = 5  # bf16 train steps timed and counted, after two warm-up steps
 LOSS_STEPS, LOSS_LR = 10, 1e-3  # the loss must fall over 10 steps at this lr
 LONG_BATCH, LONG_SECONDS, LONG_TARGET_LEN = 4, 120.0, 400  # the long-form step: T'=938, S=801
 T_SUB, LONG_T_SUB = 235, 938  # frames after subsampling; check_train holds them to the model's own count
+# the benchmark's conformer_m.train step: 64 rows of 30 s clips at 10 ms hops, T'=751, rows of 20-30 s
+CELL_BATCH, CELL_T_SUB = 64, 751
 DIRECTIONS = (False, True)  # a BiLSTM's two directions: reverse flags
 # The Noisy Student phase: a synthetic corpus of ten words, up to 8 an utterance (0.4 s a word, gaps of 0.05 s),
 # two length buckets; its batches are (16, 28400) and (16, 56800) samples, T' = 14 and 28, at most 8 targets
@@ -382,6 +384,26 @@ UPDATE_LAUNCHES = {"adafactor_step": 4, "global_norm": 2}
 
 def update_launches(steps: int) -> dict:
     return {k: v * steps for k, v in UPDATE_LAUNCHES.items()}
+
+
+TRAIN_ATTENTION_KERNELS = ("attention_relpos_lse", "attention_relpos_bwd_dq", "attention_relpos_bwd_dkv",
+                           "attention_relpos_bwd_dband")
+
+
+def train_attention_launches(cfg, t_sub: int, block_steps: int) -> dict:
+    """The rel-pos kernels' launches over ``block_steps`` (blocks × train
+    steps) at ``t_sub`` subsampled frames: the forward with lse and the
+    three backward kernels once each a block and step where training takes
+    the kernels, none on the einsum route.  Written from the
+    configuration's own fields and not from `config.attention_route`, so
+    that a change to the route rule shows here as a wrong count: the
+    kernels need ``use_pallas``, relative attention and ``attention_impl``
+    'auto' or 'flash'; under 'auto' they train from 768 frames on, and
+    below that only where no attention probability is dropped."""
+    enc = cfg.encoder
+    on = (cfg.use_pallas and enc.use_relative_attention and cfg.attention_impl in ("auto", "flash")
+          and (cfg.attention_impl == "flash" or t_sub >= 768 or enc.attention_dropout == 0))
+    return dict.fromkeys(TRAIN_ATTENTION_KERNELS, block_steps if on else 0)
 
 
 @contextlib.contextmanager
@@ -1076,8 +1098,11 @@ def check_grid_route(card: str, b: int, t: int) -> dict:
 def check_attention_backward_kernels(card: str) -> dict:
     """The lse forward and the dq, dkv and dband kernels against their
     plain twins, float32 and bf16, at the long-form step's shape (ragged:
-    one row full, one short, one shorter than a tile) and at the 30 s
-    shape; the bf16 numbers at the long-form shape go into the result.
+    one row full, one short, one shorter than a tile), at the 30 s shape
+    and at the benchmark's training cell's shape (64 rows, T'=751, lengths
+    from 500 to 751 with one row ending at a tile edge and one just past
+    it); the bf16 numbers at the long-form shape go into the result, with
+    those at the cell's shape under ``cell_shape``.
     In bf16 every one of them is a tensor-core kernel: their registers,
     spills and blocks an SM are read first (no spill at dh = 64, two
     blocks an SM), the forward's output is held to one bf16 ulp at the
@@ -1097,8 +1122,10 @@ def check_attention_backward_kernels(card: str) -> dict:
                           f"{pl['smem_bytes']} B shared, {pl['blocks_per_sm']} blocks an SM" for w, pl in plans.items()))
         check(plans[dh]["local_bytes"] == 0, f"the bf16 {kernel} kernel spills at dh = {dh}")
         check(plans[dh]["blocks_per_sm"] >= 2, f"the bf16 {kernel} kernel holds fewer than two blocks an SM")
+    cell_lengths = mixed_lengths(gen, CELL_BATCH, CELL_T_SUB, 500)
+    cell_lengths[1:3] = torch.tensor([640, 641], dtype=torch.int32)  # the end of a 64-row (and 32-row) tile, one past
     shapes = [(LONG_BATCH, 938, torch.tensor([938, 500, 20, 811], dtype=torch.int32)),
-              (BATCH, 235, mixed_lengths(gen, BATCH, 235, 235 // 3))]
+              (BATCH, 235, mixed_lengths(gen, BATCH, 235, 235 // 3)), (CELL_BATCH, CELL_T_SUB, cell_lengths)]
     for b, t, lengths in shapes:
         qu, qv, k, v, g = (torch.randn(b, t, h, dh, generator=gen) * 0.5 for _ in range(5))
         p = torch.randn(2 * t - 1, h, dh, generator=gen) * 0.5
@@ -1169,7 +1196,7 @@ def check_attention_backward_kernels(card: str) -> dict:
             print(f"  times, ms: " + ", ".join(f"{n} {x:.4f}" for n, x in times.items())
                   + f"  (plain_bwd computes all five gradients; *_autograd: forward + backward); device ms: "
                   + ", ".join(f"{n} {x:.4f}" for n, x in device.items()) + f"  [{card}]")
-            if (b, dtype) != (LONG_BATCH, torch.bfloat16):
+            if dtype != torch.bfloat16 or b not in (LONG_BATCH, CELL_BATCH):
                 continue
             # bytes: each (B,T,H,dh) input and output once, the table, lse and delta; operations per
             # (query, valid key) pair and head: 6·dh forward, 10·dh dq, 10·dh dkv, 8·dh dband
@@ -1180,8 +1207,12 @@ def check_attention_backward_kernels(card: str) -> dict:
                      "dkv": max(errs["dk"], errs["dv"]), "dband": errs["dp"]}
             for key, (moved, units) in work.items():
                 full = "attention_relpos_lse" if key == "lse" else f"attention_relpos_bwd_{key}"
-                results[full] = numbers(worst[key], times[key], times["plain_fwd" if key == "lse" else "plain_bwd"],
-                                        moved, units * h * dh * pairs, dtype)
+                entry = numbers(worst[key], times[key], times["plain_fwd" if key == "lse" else "plain_bwd"],
+                                moved, units * h * dh * pairs, dtype)
+                if b == LONG_BATCH:
+                    results[full] = entry
+                else:
+                    results[full]["cell_shape"] = {"shape": [b, t, h, dh], "device_ms": device[key], **entry}
     return results
 
 
@@ -1795,8 +1826,9 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     """The supervised train step of ``preset`` (a `config` preset at full
     width and depth): float32 kernel path vs plain path, then the bf16 step
     as a user runs it.  ``long_form``: the subsampled length is at least
-    768, so 'auto' trains the attention through the flash kernels; the
-    einsum route's peak memory and one step under remat are measured too.
+    768 (the presets drop no attention probability, so 'auto' trains the
+    attention through the flash kernels at every length); the einsum
+    route's peak memory and one step under remat are measured too.
     ``conv_impl='pallas'``: the depthwise conv is the hand-written kernel
     (its plain path the grouped conv1d with the same taps), and one step
     under remat is counted at this shape too."""
@@ -1909,7 +1941,8 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
     check(not any(plain_run[3].values()), f"the plain path launched a kernel: {plain_run[3]}")
     check(all(kernel_run[3][k] == v for k, v in update_launches(1).items()),
           f"f32 kernel path launches: {kernel_run[3]}")
-    check((kernel_run[3]["attention_relpos_bwd_dq"] == blocks) == long_form, f"f32 kernel path launches: {kernel_run[3]}")
+    check(all(kernel_run[3][k] == v for k, v in train_attention_launches(f32(True), t_sub, blocks).items()),
+          f"f32 kernel path launches: {kernel_run[3]}")
     conv_blocks = blocks if conv_impl == "pallas" else 0  # forward and dx in every block, and dw
     check((kernel_run[3]["depthwise_conv"], kernel_run[3]["depthwise_conv_weight_grad"]) == (2 * conv_blocks, conv_blocks),
           f"f32 kernel path launches: {kernel_run[3]}")
@@ -1951,14 +1984,14 @@ def check_train(card: str, batch: int, seconds: float, target_len: int, long_for
           f"{N_TRAIN_STEPS} steps, {batch * seconds / dt:.1f} audio-s/s, MFU {mfu:.4%} of the card's dense bf16 peak "
           f"({flops / 1e12:.3f} model TFLOP/step), peak memory {peak / 2**20:.1f} MiB  [{card}]")
     print(f"launch counts over {N_TRAIN_STEPS} bf16 train steps: {launches}")
-    n, attn = N_TRAIN_STEPS, blocks * N_TRAIN_STEPS if long_form else 0
+    n = N_TRAIN_STEPS
     conv = 2 * blocks * N_TRAIN_STEPS if conv_impl == "pallas" else 0  # forward and dx in every block
     # one launch of each recurrence serves both directions (the cluster's, or past its H the grid's); dW_hh is one
     # launch a direction
     lstm_fwd, lstm_bwd = lstm_route_counters(preset, batch)
     expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, lstm_fwd: n, lstm_bwd: n,
-                "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, "attention_relpos_lse": attn,
-                "attention_relpos_bwd_dq": attn, "attention_relpos_bwd_dkv": attn, "attention_relpos_bwd_dband": attn,
+                "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n,
+                **train_attention_launches(cfg16, t_sub, blocks * n),
                 "depthwise_conv": conv, "depthwise_conv_weight_grad": conv // 2, **update_launches(n)}
     check(launches == expected, f"train-step launch counts, want {expected}")
     del state
@@ -2165,7 +2198,8 @@ def check_nst(card: str) -> dict:
                     "lstm": steps + evals + label_batches, "lstm_backward": steps, "lstm_weight_grad": 2 * steps,
                     "ctc_alpha": steps + evals, "ctc_beta": steps,
                     "depthwise_conv": blocks * (forwards[True] + forwards[False]) + blocks * steps,
-                    "depthwise_conv_weight_grad": blocks * steps, **update_launches(steps)}
+                    "depthwise_conv_weight_grad": blocks * steps, **update_launches(steps),
+                    **train_attention_launches(model_cfg, 1, blocks * steps)}  # every bucket below 768 frames
         print(f"launch counts over the NST generation ({steps} train steps, {evals} validation and {label_batches} "
               f"labelling batches): {launches}")
         check(launches == {**dict.fromkeys(launches, 0), **expected}, f"NST launch counts, want {expected}")
@@ -3120,9 +3154,10 @@ def check_resident(card: str) -> dict:
         fused.train_device_epochs(dev, epochs=RESIDENT_EPOCHS)
         torch.cuda.synchronize()
         launches = read_counters()
-        n = RESIDENT_EPOCHS * steps
+        n, cfg = RESIDENT_EPOCHS * steps, per_step.model.config
         expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, "lstm": n, "lstm_backward": n,
-                    "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, **update_launches(n)}
+                    "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, **update_launches(n),
+                    **train_attention_launches(cfg, T_SUB, cfg.encoder.num_blocks * n)}
         print(f"launch counts over {RESIDENT_EPOCHS} fused epochs ({n} steps): {launches}")
         check(launches == expected and per_step_launches == expected, f"resident launch counts, want {expected}")
         a, b = state_tensors(per_step), state_tensors(fused)
@@ -3199,6 +3234,9 @@ DP_TRACE_KERNELS = {  # counter → a substring of its kernel's name in a profil
     "lstm_weight_grad": "lstm_dwhh", "ctc_alpha": "ctc_alpha_kernel", "ctc_beta": "ctc_beta_kernel",
     "attention_relpos": "attention_relpos_tc_kernel", "depthwise_conv": "depthwise_conv_kernel",
     "adafactor_step": "adafactor_apply_kernel", "global_norm": "sumsq_partials_kernel",
+    # the forward with lse is the same template as the forward without, the backward one kernel each
+    "attention_relpos_lse": "attention_relpos_tc_kernel", "attention_relpos_bwd_dq": "bwd_dq_tc_kernel",
+    "attention_relpos_bwd_dkv": "bwd_dkv_tc_kernel", "attention_relpos_bwd_dband": "bwd_dband_tc_kernel",
 }
 
 
@@ -3636,14 +3674,15 @@ def check_encoder_variants(card: str) -> dict:
         reset_counters()
         blocks = m.config.encoder.num_blocks
         conv = conv_impl == "pallas"
-        # the kernel pass, then the steps: a log-mel for the pass and one for the augment draw; attention in the
-        # pass only (einsum in training at T' = 235), and none without relative positions; kernel 10 forward once a
-        # block in the pass, forward and dx a step, dw a step
+        # the kernel pass, then the steps: a log-mel for the pass and one for the augment draw; attention kernel 2
+        # in the pass, the forward with lse and the backward kernels in the steps (no probability dropout), none
+        # without relative positions; kernel 10 forward once a block in the pass, forward and dx a step, dw a step
         expected = {**dict.fromkeys(counts, 0), "stft_logmel": 2, "lstm": 1 + steps, "lstm_backward": steps,
                     "lstm_weight_grad": 2 * steps, "ctc_alpha": steps, "ctc_beta": steps,
                     "attention_relpos": blocks if encoder.get("use_relative_attention", True) else 0,
                     "depthwise_conv": blocks * (1 + 2 * steps) if conv else 0,
-                    "depthwise_conv_weight_grad": blocks * steps if conv else 0, **update_launches(steps)}
+                    "depthwise_conv_weight_grad": blocks * steps if conv else 0, **update_launches(steps),
+                    **train_attention_launches(m.config, T_SUB, blocks * steps)}
         check(counts == expected, f"{tag}: launch counts {counts}, want {expected}")
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v

@@ -16,8 +16,10 @@ hand-written kernels run; on the CPU the compute dtype is float32 and every
 kernel wrapper runs its plain PyTorch twin.  In eval mode the attention
 kernel runs at every sequence length; in training `attention_route` keeps
 the JAX package's switch at 768 subsampled frames
-(`ATTENTION_KERNEL_MIN_T_TRAINING`), because there it decides what is
-computed, not only how fast.
+(`ATTENTION_KERNEL_MIN_T_TRAINING`) only for a configuration that drops
+attention probabilities, because there it decides what is computed; without
+probability dropout both routes compute the same function and training
+takes the kernels at every length.
 """
 
 from __future__ import annotations
@@ -313,13 +315,18 @@ def uses_attention_kernel(config: ModelConfig) -> bool:
             and config.encoder.use_relative_attention)
 
 
-# In training the two attention routes compute different things: the einsum
-# route drops attention probabilities, the kernel route (as the JAX
-# package's flash path) drops the attention output only.  The JAX package
-# resolves attention_impl='auto' to its flash kernels from 768 subsampled
-# frames on (its FLASH_ATTENTION_MIN_T), so the port switches at the same
-# length: one config must train the same model in both packages.  It is not
-# a claim about which route is faster on a GPU.
+# In training the two attention routes compute different things only where
+# attention probabilities are dropped: the einsum route drops them, the
+# kernel route (as the JAX package's flash path) drops the attention output
+# only.  The JAX package resolves attention_impl='auto' to its flash kernels
+# from 768 subsampled frames on (its FLASH_ATTENTION_MIN_T), so a
+# configuration with ``attention_dropout > 0`` switches at the same length:
+# one config must train the same model in both packages.  With
+# ``attention_dropout == 0`` no probability mask is drawn and the two routes
+# compute the same function at the same precision (bf16 products with
+# float32 sums and softmax, probabilities cast to bf16 before the value
+# product, the same masked keys), so training takes the kernels at every
+# length, which keeps no (B, H, T, T) tensor for the backward.
 ATTENTION_KERNEL_MIN_T_TRAINING = 768
 
 
@@ -332,11 +339,14 @@ def attention_route(config: ModelConfig, training: bool, t: int) -> str:
     (no dropout there, so both routes give the same result).  Training:
     ``attention_impl='xla'`` or ``use_pallas=False`` → einsum; 'flash' →
     kernel at every length; 'auto' → kernel where
-    ``t >= ATTENTION_KERNEL_MIN_T_TRAINING``, einsum below.
+    ``t >= ATTENTION_KERNEL_MIN_T_TRAINING`` or where the configuration
+    drops no attention probability (``encoder.attention_dropout == 0``),
+    einsum below that length when it does.
     """
     if not uses_attention_kernel(config):
         return "einsum"
-    if training and config.attention_impl == "auto" and t < ATTENTION_KERNEL_MIN_T_TRAINING:
+    if (training and config.attention_impl == "auto" and t < ATTENTION_KERNEL_MIN_T_TRAINING
+            and config.encoder.attention_dropout > 0):
         return "einsum"
     return "kernel"
 

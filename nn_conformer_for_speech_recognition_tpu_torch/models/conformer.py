@@ -258,11 +258,17 @@ class RelPositionMHSA(nn.Module):
         ``use_kernel`` sends the attention through the flash kernels, forward
         and backward (dropout on the output only, as the JAX flash path);
         otherwise the einsum attention also drops probabilities in training.
-        Without relative positions the attention is always the einsum route
+        `config.attention_route` picks the einsum route in training only
+        below 768 frames and only where ``attention_dropout > 0``: without a
+        probability mask both routes compute the same function.  Without
+        relative positions the attention is always the einsum route
         (`config.attention_route` never picks the kernels for it).  Under
         sequence parallelism, where applicable, the rel-pos attention is
         `parallel.sequence.ulysses_relpos_attention_rows` on the same route,
-        without probability dropout, as the JAX Ulysses path."""
+        without probability dropout, as the JAX Ulysses path.  The
+        attention core, from the biased queries (or the Ulysses exchange) to
+        the heads' output before ``out_proj``, is the span
+        ``encoder.attention`` (`utils.profiling.annotate`)."""
         b, t, _ = x.shape
         tp = self.tp
         dh = self.d_model // self.num_heads
@@ -272,9 +278,8 @@ class RelPositionMHSA(nn.Module):
         q, k, v = self.qkv(xn).reshape(b, t, 3, h, dh).unbind(dim=2)
         scale = 1.0 / float(np.sqrt(dh))
         drop = self.dropout if self.training else 0.0
-        if not self.use_relative:
-            out = self._dot_attention(q, k, v, lengths, scale)
-        else:
+        axis = None
+        if self.use_relative:
             u, vb = self.u_bias, self.v_bias
             if tp is not None:
                 u, vb = copy_to_group(u, tp)[heads], copy_to_group(vb, tp)[heads]
@@ -283,9 +288,14 @@ class RelPositionMHSA(nn.Module):
                 axis = seq[0].axis(seq[1])
                 cols = _share(h * dh, axis)  # the table of this rank's heads only
                 p = F.linear(rel, self.pos_proj.weight[cols].to(rel.dtype)).reshape(2 * t - 1, h // axis.size, dh)
-                out = ulysses_relpos_attention_rows(q, k, v, p, u, vb, lengths, scale, axis, use_kernel)
             else:
                 p = self.pos_proj(rel).reshape(2 * t - 1, h, dh)
+        with annotate("encoder.attention"):
+            if not self.use_relative:
+                out = self._dot_attention(q, k, v, lengths, scale)
+            elif axis is not None:
+                out = ulysses_relpos_attention_rows(q, k, v, p, u, vb, lengths, scale, axis, use_kernel)
+            else:
                 args = (q + u.to(x.dtype), q + vb.to(x.dtype), k, v, p, lengths, scale)
                 if use_kernel:
                     out = flash_relpos_attention(*args)

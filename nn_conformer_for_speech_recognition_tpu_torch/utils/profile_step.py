@@ -3,6 +3,7 @@ time, by kernel group.
 
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step long    # B=4 × 120 s, 400 targets
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short   # B=16 × 30 s, 100 targets
+    python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step b64     # B=64 × 30 s at T'=751
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step pass    # pseudo-labels, B=16 × 30 s
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short pallas   # conv_impl='pallas'
     python -m nn_conformer_for_speech_recognition_tpu_torch.utils.profile_step short conformer_l
@@ -10,7 +11,11 @@ time, by kernel group.
 A further word ``pallas`` profiles the configuration whose depthwise conv is
 the hand-written kernel (``conv_impl='pallas'``) instead of the grouped
 conv1d; ``conformer_l`` profiles Conformer-L (its BiLSTM, H = 640, on the
-grid kernels) instead of Conformer-M.  Builds the hand-written kernels,
+grid kernels) instead of Conformer-M.  ``b64`` takes the benchmark's
+``conformer_m.train`` shape: B=64 and the features of the benchmark's
+``conformer_m`` configuration (`cell_features`: 80 mels from 25 ms windows
+every 10 ms), so 30 s clips give T'=751; the other shapes keep
+`FeatureConfig`'s defaults (T'=235 from 30 s).  Builds the hand-written kernels,
 warms the preset's train step
 (`train.loop.make_train_step`: log-mel, SpecAugment, forward, CTC,
 backward, Adafactor) or its pseudo-label pass (`train.loop.make_predict_step`:
@@ -25,13 +30,18 @@ the step holds (`utils.profiling.phase_table`).  Needs a CUDA device.
 
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 import time
+from pathlib import Path
+from typing import Optional
 
 import torch
 
-SHAPES = {"long": (4, 120.0, 400), "short": (16, 30.0, 100)}  # batch, clip seconds, targets per row
+# batch, clip seconds, targets per row
+SHAPES = {"long": (4, 120.0, 400), "short": (16, 30.0, 100), "b64": (64, 30.0, 100)}
+CELL_CONFIG = Path(__file__).resolve().parents[2] / "benchmark" / "configs" / "conformer_m.json"
 VOCAB, SEED, PROFILED_STEPS = 1024, 3, 3
 REST = "elementwise, reductions, copies"
 GROUPS = (
@@ -61,11 +71,19 @@ def group_of(kernel_name: str) -> str:
     return next((group for group, words in GROUPS if any(w in key for w in words)), REST)
 
 
+def cell_features() -> dict:
+    """`FeatureConfig` fields of the benchmark's ``conformer_m``
+    configuration, read from its file in the checkout: the ``b64`` shape's
+    features."""
+    return json.loads(CELL_CONFIG.read_text())["features"]
+
+
 def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: str = "auto",
-                       predict: bool = False, preset: str = "conformer_m") -> None:
+                       predict: bool = False, preset: str = "conformer_m", features: Optional[dict] = None) -> None:
     """Profiles ``preset``'s bf16 train step at (batch, seconds,
     target_len), or with ``predict`` its pseudo-label pass at (batch,
-    seconds)."""
+    seconds); ``features``: `FeatureConfig` fields other than its
+    defaults (the model takes their ``n_mels``)."""
     from torch.profiler import ProfilerActivity, profile
 
     from nn_conformer_for_speech_recognition_tpu_torch import config as C
@@ -82,20 +100,22 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     build.build()
     gen = torch.Generator().manual_seed(SEED)
-    model = init_params(ConformerCTC(getattr(C, preset)(use_pallas=True, conv_impl=conv_impl), VOCAB), gen).cuda()
-    n_samples = int(seconds * FeatureConfig().sample_rate)
+    feat = FeatureConfig(**(features or {}))
+    model_cfg = getattr(C, preset)(use_pallas=True, conv_impl=conv_impl, n_mels=feat.n_mels)
+    model = init_params(ConformerCTC(model_cfg, VOCAB), gen).cuda()
+    n_samples = int(seconds * feat.sample_rate)
     freqs = 100.0 + 3000.0 * torch.rand(batch, 1, generator=gen)
     tones = torch.sin(2 * torch.pi * freqs * torch.arange(n_samples) / 16000.0)
     audio = (0.1 * tones + 0.05 * torch.randn(batch, n_samples, generator=gen)).cuda()
     audio_lengths = torch.full((batch,), n_samples, device="cuda")
     if predict:
         model.eval()
-        predict_step = make_predict_step(model, FeatureConfig(), pad_id=0)
+        predict_step = make_predict_step(model, feat, pad_id=0)
         call = lambda: predict_step(audio, audio_lengths)  # noqa: E731
         what = f"{preset} bf16 pseudo-label pass (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips"
     else:
         state = TrainState.create(model, make_optimizer(OptimizerConfig(), model.named_parameters()), SEED)
-        train_step = make_train_step(model, FeatureConfig(), SpecAugmentConfig(), blank_id=0)
+        train_step = make_train_step(model, feat, SpecAugmentConfig(), blank_id=0)
         args = (audio, audio_lengths, torch.randint(3, VOCAB, (batch, target_len), generator=gen).cuda(),
                 torch.full((batch,), target_len, device="cuda"))
 
@@ -103,8 +123,8 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
             nonlocal state
             state, _ = train_step(state, *args)
 
-        what = (f"{preset} bf16 train step (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips, {target_len} "
-                "targets")
+        what = (f"{preset} bf16 train step (conv_impl={conv_impl!r}), B={batch}, {seconds:.0f} s clips, T'="
+                f"{model_cfg.subsampled_length(feat.num_frames(n_samples))}, {target_len} targets")
 
     def run(n: int) -> float:
         """Milliseconds per call over ``n`` calls, host clock around a synchronise."""
@@ -141,10 +161,12 @@ def profile_main_path(batch: int, seconds: float, target_len: int, conv_impl: st
 
 if __name__ == "__main__":
     words = sys.argv[2:]
-    if sys.argv[1:2] not in (["long"], ["short"], ["pass"]) or any(w not in ("pallas", "conformer_l") for w in words):
+    if sys.argv[1:2] not in (["long"], ["short"], ["b64"], ["pass"]) or any(w not in ("pallas", "conformer_l")
+                                                                           for w in words):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     shape = SHAPES["short" if sys.argv[1] == "pass" else sys.argv[1]]
     profile_main_path(*shape, conv_impl="pallas" if "pallas" in words else "auto", predict=sys.argv[1] == "pass",
-                      preset="conformer_l" if "conformer_l" in words else "conformer_m")
+                      preset="conformer_l" if "conformer_l" in words else "conformer_m",
+                      features=cell_features() if sys.argv[1] == "b64" else None)

@@ -21,12 +21,13 @@ the pair measures the device time the phase took, busy or idle: from the
 end of the work queued before it to the end of its own.  The phase spans
 listed below do not nest: a reader of the trace labels each idle gap of the
 device with the outermost host range, so a span around others would take
-their labels.  Three spans sit inside them and are read for their device
-time alone: ``encoder.cgmlp`` and ``encoder.merge`` around each
-E-Branchformer block's cgMLP branch and merge module
-(`models.conformer.EBranchformerBlock`, inside ``train.forward`` or
-``label.forward``; twice under ``remat``, whose backward recomputes them),
-and ``train.all_reduce`` around each all-reduce of the flat gradient
+their labels.  Four spans sit inside them and are read for their device
+time alone: ``encoder.attention`` around each block's attention core
+(`models.conformer.RelPositionMHSA`, both routes, both block kinds),
+``encoder.cgmlp`` and ``encoder.merge`` around each E-Branchformer block's
+cgMLP branch and merge module (`models.conformer.EBranchformerBlock`);
+these three inside ``train.forward`` or ``label.forward``, twice under
+``remat``, whose backward recomputes them; and ``train.all_reduce`` around each all-reduce of the flat gradient
 (`train.loop.all_reduce_gradients`, inside ``train.backward``, only under a
 process group).  A span that
 an exception leaves counts nothing.  Spans are opened on one thread, the

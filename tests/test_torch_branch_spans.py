@@ -1,5 +1,6 @@
 """The spans inside the phase spans (`utils.profiling.annotate`): each
-E-Branchformer block's ``encoder.cgmlp`` and ``encoder.merge``, inside
+block's ``encoder.attention`` (both block kinds, both training routes) and
+each E-Branchformer block's ``encoder.cgmlp`` and ``encoder.merge``, inside
 ``train.forward`` and ``label.forward``, and the data-parallel step's
 ``train.all_reduce``, inside ``train.backward``, under a process group only
 (here one gloo process).  Without a profiler each costs one check of the
@@ -23,7 +24,7 @@ from nn_conformer_for_speech_recognition_tpu_torch.train import loop as L
 from nn_conformer_for_speech_recognition_tpu_torch.utils import profiling as P
 
 BATCH, BLOCKS = 4, 2
-INNER = ("encoder.cgmlp", "encoder.merge", "train.all_reduce")
+INNER = ("encoder.attention", "encoder.cgmlp", "encoder.merge", "train.all_reduce")
 
 
 @pytest.fixture(scope="module")
@@ -35,9 +36,9 @@ def corpus(tmp_path_factory):
     return vocab, {k: BucketedDataset(load_manifest(v), vocab, **kw) for k, v in manifests.items() if v}
 
 
-def _trainer(vocab, block="e_branchformer"):
+def _trainer(vocab, block="e_branchformer", attention_dropout=0.0):
     enc = TC.ConformerConfig(num_blocks=BLOCKS, d_model=32, num_heads=2, ffn_dim=64, conv_kernel_size=5, dropout=0.1,
-                             block=block, cgmlp_dim=64, merge_conv_kernel=5)
+                             attention_dropout=attention_dropout, block=block, cgmlp_dim=64, merge_conv_kernel=5)
     model = TC.ModelConfig(encoder=enc, decoder=TC.DecoderConfig(projection_dim=16, lstm_hidden=16, dropout=0.1),
                            n_mels=13, use_pallas=True, compute_dtype="float32")
     train = TC.TrainConfig(batch_size=BATCH, optimizer=TC.OptimizerConfig(learning_rate=1e-3), log_every=0)
@@ -102,13 +103,41 @@ def test_branch_spans_in_training_and_labelling(corpus):
     _phases_contiguous(ranges)
 
 
+@pytest.mark.parametrize("attention_dropout", [0.0, 0.1])
+@pytest.mark.parametrize("block", ["conformer", "e_branchformer"])
+def test_attention_span_in_training_and_labelling(corpus, monkeypatch, block, attention_dropout):
+    """``encoder.attention`` opens once a block inside ``train.forward`` (on
+    the kernel route without probability dropout, on the einsum route with
+    it) and inside ``label.forward`` (the kernel route), for both block
+    kinds."""
+    from nn_conformer_for_speech_recognition_tpu_torch.models import conformer as TCM
+
+    vocab, data = corpus
+    trainer = _trainer(vocab, block=block, attention_dropout=attention_dropout)
+    routes = []
+    for name in ("flash_relpos_attention", "flash_relpos_attention_plain"):
+        real = getattr(TCM, name)
+        monkeypatch.setattr(TCM, name, lambda *a, real=real, name=name, **kw: routes.append(name) or real(*a, **kw))
+    ranges, table = _profiled(lambda: trainer.train(DeviceResidentDataset(data["train"], device="cpu"), epochs=1))
+    steps = table["train.optimizer"][0]
+    assert _inside(ranges, "encoder.attention", "train.forward") == table["encoder.attention"][0] == BLOCKS * steps
+    want = "flash_relpos_attention_plain" if attention_dropout > 0 else "flash_relpos_attention"
+    assert routes == [want] * (BLOCKS * steps)
+    _phases_contiguous(ranges)
+    routes.clear()
+    ranges, table = _profiled(lambda: trainer.generate_labels(DeviceResidentDataset(data["unlabeled"], device="cpu")))
+    assert _inside(ranges, "encoder.attention", "label.forward") == table["encoder.attention"][0] == BLOCKS
+    assert routes == ["flash_relpos_attention"] * BLOCKS
+    _phases_contiguous(ranges)
+
+
 def test_all_reduce_span_under_a_process_group(corpus, one_process_group):
     vocab, data = corpus
     trainer = _trainer(vocab, block="conformer")
     assert trainer.shard is not None
     ranges, table = _profiled(lambda: trainer.train(DeviceResidentDataset(data["train"], device="cpu"), epochs=1))
     assert _inside(ranges, "train.all_reduce", "train.backward") == table["train.all_reduce"][0] == 2
-    assert not any(name.startswith("encoder.") for name in table)  # Conformer blocks
+    assert {name for name in table if name.startswith("encoder.")} == {"encoder.attention"}  # Conformer blocks
     _phases_contiguous(ranges)
 
 
@@ -128,7 +157,7 @@ def test_off_each_span_costs_one_state_check(corpus, monkeypatch, one_process_gr
     P.reset_phases()
     with torch.no_grad():
         got = model(feats, lengths)[0]
-    assert len(checks) == 2 * BLOCKS and torch.equal(got, want)
+    assert len(checks) == 3 * BLOCKS and torch.equal(got, want)  # attention, cgMLP, merge
     model.train()
     loss = model(feats, lengths)[0].sum()
     loss.backward()

@@ -1296,3 +1296,56 @@ def test_gradient_norm_and_the_step_launch_at_most_8_kernels(cuda):
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
     assert 0 < len(kernels) <= 8, [e.name for e in kernels]
+
+
+def test_conformer_m_training_step_takes_the_attention_kernels(cuda, monkeypatch):
+    """One Conformer-M training step at (B=4, T'=751, H=4, dh=64), ragged
+    lengths, ``attention_impl`` 'auto' (no probability dropout, below 768
+    frames): the forward with lse and the three backward wrappers launch
+    once a block each, and every block's kernel gradients (dqu, dqv, dk,
+    dv, dp) lie within one bf16 ulp at the einsum route's largest entry
+    (never below 5e-4) of autograd through the einsum route on the same
+    inputs and the same cotangent."""
+    from nn_conformer_for_speech_recognition_tpu_torch.config import OptimizerConfig, attention_route
+    from nn_conformer_for_speech_recognition_tpu_torch.models import conformer as CM
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_feature_train_step
+    from nn_conformer_for_speech_recognition_tpu_torch.train.optim import make_optimizer
+    from nn_conformer_for_speech_recognition_tpu_torch.train.state import TrainState
+
+    model = _conformer_m_params()
+    cfg, frames, names = model.config, 3001, ("qu", "qv", "k", "v", "p")
+    assert cfg.subsampled_length(frames) == 751 and attention_route(cfg, True, 751) == "kernel"
+    blocks = cfg.encoder.num_blocks
+    seen, real = [], CM.flash_relpos_attention
+
+    def spy(*args):
+        out = real(*args)
+        grads = {}
+        for name, x in zip(("out",) + names, (out,) + args[:5]):  # each has no other consumer
+            x.register_hook(lambda g, name=name: grads.__setitem__(name, g))
+        seen.append(([x.detach() for x in args[:5]], args[5], args[6], grads))
+        return out
+
+    monkeypatch.setattr(CM, "flash_relpos_attention", spy)
+    state = TrainState.create(model, make_optimizer(OptimizerConfig(), model.named_parameters()), seed=0)
+    step = make_feature_train_step(model, blank_id=0)
+    feats = torch.randn((4, frames, cfg.n_mels), generator=cuda).cuda()
+    lengths = torch.tensor([frames, 2400, 1700, 900]).cuda()
+    targets = torch.randint(3, 1024, (4, 20), generator=cuda).cuda()
+    target_lengths = torch.tensor([20, 15, 10, 5]).cuda()
+    wrappers = (A.flash_relpos_attention_forward_lse, A.flash_relpos_attention_bwd_dq,
+                A.flash_relpos_attention_bwd_dkv, A.flash_relpos_attention_bwd_dband)
+    before = [w.launches for w in wrappers]
+    step(state, feats, lengths, targets, target_lengths)
+    torch.cuda.synchronize()
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [blocks] * 4
+    assert len(seen) == blocks
+    for block, (inputs, lens, scale, grads) in enumerate(seen):
+        assert inputs[0].dtype == torch.bfloat16 and inputs[0].shape == (4, 751, 4, 64)
+        leaves = [x.clone().requires_grad_(True) for x in inputs]
+        A.flash_relpos_attention_plain(*leaves, lens, scale).backward(grads["out"])
+        for name, leaf in zip(names, leaves):
+            ref = leaf.grad.float()
+            err = (grads[name].float() - ref).abs().max().item()
+            bar = max(2.0 ** -7 * ref.abs().max().item(), 5e-4)
+            assert err <= bar, (block, name, err, bar)

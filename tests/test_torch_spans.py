@@ -3,7 +3,8 @@ over resident data and over a stream, and in `Trainer.generate_labels`.
 
 Under a CPU ``torch.profiler`` the profiler's own events hold each span
 once a step or a batch, in the path's order, and none inside another;
-`phase_table` counts them.  Without a profiler `annotate` is the shared
+`phase_table` counts them, and the blocks' ``encoder.attention`` spans
+inside each ``train.forward`` and ``label.forward``.  Without a profiler `annotate` is the shared
 no-op and nothing is recorded, and the losses, the state and the labels are
 bit-equal with and without one.  A ``StopIteration`` raised inside a step
 or a batch leaves the call, with or without a profiler: only the data's
@@ -25,12 +26,14 @@ from nn_conformer_for_speech_recognition_tpu_torch.data.audio import make_synthe
 from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset, load_manifest
 from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import DeviceResidentDataset
 from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
+from nn_conformer_for_speech_recognition_tpu_torch.models import conformer as CM
 from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
 from nn_conformer_for_speech_recognition_tpu_torch.train import loop as L
 from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
 from nn_conformer_for_speech_recognition_tpu_torch.utils import profiling as P
 
 BATCH = 4
+BLOCKS = 2
 STEP_SPANS = ("train.augment", "train.forward", "train.backward", "train.grad_norm", "train.optimizer")
 LABEL_SPANS = ("label.input", "label.forward", "label.pull", "label.decode")
 
@@ -48,7 +51,7 @@ def corpus(tmp_path_factory):
 def _trainer(vocab, train_wer=False):
     """A tiny Conformer with dropout and SpecAugment on: the draws must not
     move under the profiler."""
-    enc = TC.ConformerConfig(num_blocks=2, d_model=32, num_heads=2, ffn_dim=64, conv_kernel_size=7, dropout=0.1)
+    enc = TC.ConformerConfig(num_blocks=BLOCKS, d_model=32, num_heads=2, ffn_dim=64, conv_kernel_size=7, dropout=0.1)
     dec = TC.DecoderConfig(projection_dim=16, lstm_hidden=16, dropout=0.1)
     model = TC.ModelConfig(encoder=enc, decoder=dec, n_mels=13, use_pallas=True, conv_impl="pallas",
                            compute_dtype="float32")
@@ -102,10 +105,13 @@ def test_spans_under_a_profiler(corpus, route):
     assert [name for _, _, name in ranges] == ORDER[route]
     for (s0, e0, a), (s1, e1, b) in zip(ranges, ranges[1:]):
         assert e0 <= s1, (a, b)  # contiguous, none inside another
-    assert {name: row[0] for name, row in table.items()} == Counter(ORDER[route])
+    phases = {name: row for name, row in table.items() if name != "encoder.attention"}
+    assert {name: row[0] for name, row in phases.items()} == Counter(ORDER[route])
+    forwards = ORDER[route].count("train.forward") + ORDER[route].count("label.forward")
+    assert table["encoder.attention"][0] == BLOCKS * forwards  # inside the forwards, one a block
     for name, (count, host, device) in table.items():
         assert device is None and host > 0, name
-    assert sum(row[1] for row in table.values()) <= (ranges[-1][1] - ranges[0][0]) * 1e-9
+    assert sum(row[1] for row in phases.values()) <= (ranges[-1][1] - ranges[0][0]) * 1e-9
 
 
 def test_no_profiler_no_spans(corpus):
@@ -232,5 +238,6 @@ def test_kernel_groups_count_the_kernels_of_a_step_without_spans(corpus, monkeyp
 
     spans_ms, spans_n = groups()
     monkeypatch.setattr(L, "annotate", lambda name: P.OFF)
+    monkeypatch.setattr(CM, "annotate", lambda name: P.OFF)  # the blocks' spans too
     plain_ms, plain_n = groups()
     assert spans_n == plain_n and spans_ms == pytest.approx(plain_ms, rel=0.2), (spans_ms, plain_ms)

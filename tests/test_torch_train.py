@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from nn_conformer_for_speech_recognition_tpu import config as C
 from nn_conformer_for_speech_recognition_tpu.models import conformer as JCM
@@ -211,35 +212,46 @@ def test_masked_batchnorm_update_matches_jax(rng):
 # -- faults of the port's train mode ---------------------------------------
 
 
-def test_attention_route():
+def _with_attention_dropout(cfg, rate: float):
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, attention_dropout=rate))
+
+
+@pytest.mark.parametrize("attention_dropout", [0.0, 0.1])
+def test_attention_route(attention_dropout):
     """Fault 1 and its long-form sequel: eval goes through the kernel at
     every length; training with 'flash' does too; training with 'auto'
-    switches to the kernel at 768 subsampled frames, where the JAX package
-    switches (below it the einsum route, which drops probabilities); 'xla'
-    and ``use_pallas=False`` never take the kernel."""
-    cfg = TC.conformer_m(use_pallas=True)
+    takes the kernel from 768 subsampled frames on, where the JAX package
+    switches, and below it too where no attention probability is dropped
+    (the routes then compute the same function); below 768 with
+    ``attention_dropout > 0`` the einsum route, which drops probabilities;
+    'xla' and ``use_pallas=False`` never take the kernel."""
+    cfg = _with_attention_dropout(TC.conformer_m(use_pallas=True), attention_dropout)
     assert TC.ATTENTION_KERNEL_MIN_T_TRAINING == C.FLASH_ATTENTION_MIN_T == 768
     for t in (1, 235, 767, 768, 938):
         assert TC.attention_route(cfg, training=False, t=t) == "kernel"
-        assert TC.attention_route(cfg, training=True, t=t) == ("kernel" if t >= 768 else "einsum")
+        below = t < 768 and attention_dropout > 0
+        assert TC.attention_route(cfg, training=True, t=t) == ("einsum" if below else "kernel")
         flash = dataclasses.replace(cfg, attention_impl="flash")
         assert TC.attention_route(flash, False, t) == TC.attention_route(flash, True, t) == "kernel"
         xla = dataclasses.replace(cfg, attention_impl="xla")
         assert TC.attention_route(xla, False, t) == TC.attention_route(xla, True, t) == "einsum"
-        assert TC.attention_route(TC.conformer_m(), True, t) == TC.attention_route(TC.conformer_m(), False, t) == "einsum"
-        assert TC.attention_route(TC.conformer_m(attention_impl="flash"), True, t) == "einsum"
+        plain = dataclasses.replace(cfg, use_pallas=False)
+        assert TC.attention_route(plain, True, t) == TC.attention_route(plain, False, t) == "einsum"
+        assert TC.attention_route(dataclasses.replace(plain, attention_impl="flash"), True, t) == "einsum"
 
 
-def test_attention_route_in_the_model_follows_the_length(rng, monkeypatch):
+@pytest.mark.parametrize("attention_dropout", [0.0, 0.1])
+def test_attention_route_in_the_model_follows_the_length(rng, monkeypatch, attention_dropout):
     """'auto' in training: the encoder gets the kernel route from 768
-    frames on and the einsum route below; the switch is passed the
-    subsampled length."""
+    frames on; below, the kernel route without probability dropout and the
+    einsum route with it; the switch is passed the subsampled length."""
     from nn_conformer_for_speech_recognition_tpu_torch.models import asr as TA
 
     seen = []
     route = TC.attention_route
     monkeypatch.setattr(TA, "attention_route", lambda c, tr, t: seen.append((tr, t)) or route(c, tr, t))
-    tm = init_params(TorchCTC(_tiny(TC), VOCAB), torch.Generator().manual_seed(0))
+    tm = init_params(TorchCTC(_with_attention_dropout(_tiny(TC), attention_dropout), VOCAB),
+                     torch.Generator().manual_seed(0))
     kernel = []
     tm.encoder.register_forward_pre_hook(lambda _, args: kernel.append(args[2]))
     feats = torch.from_numpy(rng.standard_normal((1, 3069, 40)).astype(np.float32))
@@ -248,7 +260,65 @@ def test_attention_route_in_the_model_follows_the_length(rng, monkeypatch):
         tm.train()(feats[:, :3064], torch.tensor([3064]))  # → 766
         tm.eval()(feats[:, :64], torch.tensor([64]))
     assert seen == [(True, 768), (True, 766), (False, 16)]
-    assert kernel == [True, False, True]
+    assert kernel == [True, attention_dropout == 0, True]
+
+
+def _train_forward(cfg, feats, lengths, seed: int = 0):
+    """A tiny Conformer-CTC of ``cfg`` in train mode, its weights from
+    ``seed``, its dropout masks from the global generator seeded 1: (the
+    CTC loss, {parameter name: gradient}, the global generator's state
+    after the forward)."""
+    tm = init_params(TorchCTC(cfg, VOCAB), torch.Generator().manual_seed(seed)).train()
+    torch.manual_seed(1)
+    log_probs, out_len = tm(feats, lengths)
+    state = torch.get_rng_state()
+    targets, tlen = torch.tensor([[3, 4, 5], [6, 7, 0]]), torch.tensor([3, 2])
+    loss = F.ctc_loss(log_probs.transpose(0, 1), targets, out_len, tlen, blank=0, reduction="sum")
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in tm.named_parameters()}, state
+
+
+def test_training_routes_agree_without_probability_dropout(rng, monkeypatch):
+    """Below 768 frames with ``attention_dropout`` 0 the kernel route ('auto'
+    now takes it; here forced by 'flash', through `RelPosFlashAttention`'s
+    plain twins and its recompute-from-lse backward) and the einsum route
+    ('xla', autograd over the plain attention) give the same CTC loss and
+    the same gradient of every parameter, within 1e-5 of the leaf's largest
+    entry (float32 sums in another order: the gaps read up to 1.4e-6), with
+    the other dropouts on and drawn alike."""
+    from nn_conformer_for_speech_recognition_tpu_torch.models import conformer as TCM_
+
+    cfg = _tiny(TC)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout=0.1))
+    feats = torch.from_numpy(rng.standard_normal((2, 400, 40)).astype(np.float32))
+    lengths = torch.tensor([400, 260])
+    assert TC.attention_route(cfg, True, cfg.subsampled_length(400)) == "kernel"
+    calls = []
+    real = TCM_.flash_relpos_attention
+    monkeypatch.setattr(TCM_, "flash_relpos_attention", lambda *a: calls.append(1) or real(*a))
+    loss_k, grads_k, _ = _train_forward(dataclasses.replace(cfg, attention_impl="flash"), feats, lengths)
+    assert len(calls) == cfg.encoder.num_blocks
+    loss_e, grads_e, _ = _train_forward(dataclasses.replace(cfg, attention_impl="xla"), feats, lengths)
+    assert len(calls) == cfg.encoder.num_blocks
+    torch.testing.assert_close(loss_k, loss_e, rtol=1e-5, atol=1e-5)
+    assert grads_k.keys() == grads_e.keys()
+    for name, g in grads_k.items():
+        assert g is not None and grads_e[name] is not None, name
+        torch.testing.assert_close(g, grads_e[name], rtol=0, atol=1e-5 * grads_e[name].abs().max().item(), msg=name)
+
+
+def test_auto_route_with_probability_dropout_draws_the_mask():
+    """With ``attention_dropout`` > 0, the 'auto' training forward below 768
+    frames still draws the (B, H, T, T) probability mask: the global
+    generator ends where the einsum route's ('xla') ends, and not where the
+    kernel route's ('flash', no probability mask) does."""
+    cfg = _with_attention_dropout(_tiny(TC), 0.1)
+    feats = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 400, 40)).astype(np.float32))
+    lengths = torch.tensor([400, 260])
+    states = {impl: _train_forward(dataclasses.replace(cfg, attention_impl=impl), feats, lengths)[2]
+              for impl in ("auto", "xla", "flash")}
+    assert torch.equal(states["auto"], states["xla"])
+    assert not torch.equal(states["auto"], states["flash"])
 
 
 def test_attention_gradients_reach_every_input(rng):
