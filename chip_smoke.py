@@ -140,13 +140,12 @@ the checkout at TREE, this one by default: see `ctc_times_main`;
    clips of 28-30 s with 100-word transcripts, vocabulary 1024, written to
    a temporary directory): the native WAV decode against the pure-Python
    one, sample for sample and through ``BucketedDataset.make_batch``;
-   ``DeviceResidentDataset`` on the card; ``Trainer.train`` over it (one
-   call of the epoch step an order row) against
-   ``Trainer.train_device_epochs`` (one call an epoch) from one seed, every
-   loss and state tensor bit-equal; one fused epoch under
-   ``torch.cuda.set_sync_debug_mode('error')``; then each route's ms/step,
-   audio-s/s, device ms and busy share over an epoch, beside the stepwise
-   ``train`` over the host dataset.  Then the encoder variants at
+   ``DeviceResidentDataset`` on the card; ``Trainer.train`` over it (its
+   resident source) against ``Trainer.train`` over the host dataset's same
+   batches (its host source) from one seed, every loss and state tensor
+   bit-equal, with the launch counts of both; one epoch of
+   ``make_epoch_scan_step`` under
+   ``torch.cuda.set_sync_debug_mode('error')``.  Then the encoder variants at
    Conformer-M's size (``use_relative_attention=False``; ``conv_norm``
    'groupnorm' and 'layernorm' under ``conv_impl`` 'auto' and 'pallas'):
    the float32 pass, kernel path against plain path, and three bf16 train
@@ -157,11 +156,11 @@ the checkout at TREE, this one by default: see `ctc_times_main`;
    without a process group, ``evaluate`` and ``generate_labels`` through
    their gathers, ms/step and device ms/step with and without the group
    and the launches it adds, a ``utils.profiling.trace`` of one step that
-   must name every hand-written kernel the step launched, and the fused
-   resident epoch under ``set_sync_debug_mode('error')`` with the group
-   on; then two processes sharing the card over gloo (Conformer-M's
-   widths at two blocks, float32) against one process at the CPU tests'
-   bars; then ``utils.guards.check_step`` on a step fed a NaN, which must
+   must name every hand-written kernel the step launched, and a resident
+   epoch of ``make_epoch_scan_step`` under ``set_sync_debug_mode('error')``
+   with the group on; then two processes sharing the card over gloo
+   (Conformer-M's widths at two blocks, float32) against one process at the
+   CPU tests' bars; then ``utils.guards.check_step`` on a step fed a NaN, which must
    raise.
 15. Tensor and sequence parallelism (`check_model_parallel`; Conformer-M
    bf16 at full width, two blocks, the long-form batch B=4 × ≤120 s):
@@ -3033,38 +3032,20 @@ def python_decoder():
         native_loader._load_native = load
 
 
-def profiled_epoch(fn) -> tuple:
-    """(device ms, device launches) of one call of ``fn`` under
-    ``torch.profiler``, tracing the card's activity alone (kernels and
-    copies; without the host's op rows, which cost the trace most of its
-    time and repeat their kernels' time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    ms = sum(e.self_device_time_total for e in rows) / 1e3
-    check(ms > 0, "the profiler recorded no device time")
-    return ms, sum(e.count for e in rows)
-
-
 def check_resident(card: str) -> dict:
-    """Device-resident data and the whole-epoch step at full width: the
-    native WAV decode against the pure-Python one (sample for sample, and
-    `BucketedDataset.make_batch` over each), `DeviceResidentDataset` on the
-    card, then Conformer-M (bf16, ``use_pallas=True``, ``conv_impl='auto'``,
-    Adafactor as the 30 s step, SpecAugment and dropout on) trained from one
-    seed by ``Trainer.train`` over it (one call of the epoch step a row) and
-    by ``Trainer.train_device_epochs`` (one call an epoch): every loss,
-    parameter, batch statistic and optimizer slot bit-equal.  One further
-    fused epoch runs with ``torch.cuda.set_sync_debug_mode('error')``: a
-    call that waits for the card inside it raises.  Then each route's
-    ms/step, audio-s/s, device ms and busy share over one epoch, beside the
-    stepwise ``train`` over the host `BucketedDataset` of the same corpus.
-    Returns the launch counts of the fused route's two epochs."""
+    """Device-resident data at full width: the native WAV decode against the
+    pure-Python one (sample for sample, and `BucketedDataset.make_batch`
+    over each), `DeviceResidentDataset` on the card, then Conformer-M (bf16,
+    ``use_pallas=True``, ``conv_impl='auto'``, Adafactor as the 30 s step,
+    SpecAugment and dropout on) trained from one seed by ``Trainer.train``
+    over it (its resident source: each order row gathered on the card) and
+    over the host `BucketedDataset`'s batches in the same order (its host
+    source: each batch copied to the card): every loss, parameter, batch
+    statistic and optimizer slot bit-equal, and the launch counts of both.
+    One further epoch, `make_epoch_scan_step` over the trainer's model,
+    runs with ``torch.cuda.set_sync_debug_mode('error')``: a call that
+    waits for the card inside it raises.  Returns the resident source's
+    launch counts over its two epochs."""
     from nn_conformer_for_speech_recognition_tpu_torch.config import FeatureConfig, TrainConfig, conformer_m
     from nn_conformer_for_speech_recognition_tpu_torch.data import native_loader
     from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset
@@ -3145,41 +3126,41 @@ def check_resident(card: str) -> dict:
             out.update({f"opt.{n}.{k}": v for n, slots in tr.state.optimizer.state.items() for k, v in slots.items()})
             return out
 
-        # -- the two routes from one seed, bit for bit
-        per_step, fused = trainer(), trainer()
+        # -- the two sources from one seed, bit for bit
+        on_host, resident = trainer(), trainer()
         reset_counters()
-        per_step.train(dev, epochs=RESIDENT_EPOCHS)
-        per_step_launches = read_counters()
+        on_host.train(InResidentOrder(host, dev), epochs=RESIDENT_EPOCHS)
+        host_launches = read_counters()
         reset_counters()
-        fused.train_device_epochs(dev, epochs=RESIDENT_EPOCHS)
+        resident.train(dev, epochs=RESIDENT_EPOCHS)
         torch.cuda.synchronize()
         launches = read_counters()
-        n, cfg = RESIDENT_EPOCHS * steps, per_step.model.config
+        n, cfg = RESIDENT_EPOCHS * steps, resident.model.config
         expected = {**dict.fromkeys(launches, 0), "stft_logmel": n, "lstm": n, "lstm_backward": n,
                     "lstm_weight_grad": 2 * n, "ctc_alpha": n, "ctc_beta": n, **update_launches(n),
                     **train_attention_launches(cfg, T_SUB, cfg.encoder.num_blocks * n)}
-        print(f"launch counts over {RESIDENT_EPOCHS} fused epochs ({n} steps): {launches}")
-        check(launches == expected and per_step_launches == expected, f"resident launch counts, want {expected}")
-        a, b = state_tensors(per_step), state_tensors(fused)
+        print(f"launch counts over {RESIDENT_EPOCHS} resident epochs ({n} steps): {launches}")
+        check(launches == expected and host_launches == expected, f"resident launch counts, want {expected}")
+        a, b = state_tensors(on_host), state_tensors(resident)
         differ = [k for k in a if not torch.equal(a[k], b[k])]
-        losses = fused.history["train_loss"]
-        print(f"resident routes, {RESIDENT_EPOCHS} epochs: losses fused {losses} / per step "
-              f"{per_step.history['train_loss']}; {len(a) - len(differ)}/{len(a)} state tensors bit-equal")
-        check(losses == per_step.history["train_loss"] and bool(np.isfinite(losses).all()), "the routes' losses differ")
-        check(not differ, f"the routes' state differs in {differ[:5]}")
-        check((fused.state.step, fused.state.optimizer.count) == (per_step.state.step, per_step.state.optimizer.count)
-              == (n, n), "the routes' step counts differ")
-        check(torch.equal(fused.state.generator.get_state(), per_step.state.generator.get_state()),
-              "the routes' SpecAugment generators differ")
+        losses = resident.history["train_loss"]
+        print(f"train's two sources, {RESIDENT_EPOCHS} epochs: losses resident {losses} / host "
+              f"{on_host.history['train_loss']}; {len(a) - len(differ)}/{len(a)} state tensors bit-equal")
+        check(losses == on_host.history["train_loss"] and bool(np.isfinite(losses).all()), "the sources' losses differ")
+        check(not differ, f"the sources' state differs in {differ[:5]}")
+        check((resident.state.step, resident.state.optimizer.count)
+              == (on_host.state.step, on_host.state.optimizer.count) == (n, n), "the sources' step counts differ")
+        check(torch.equal(resident.state.generator.get_state(), on_host.state.generator.get_state()),
+              "the sources' SpecAugment generators differ")
 
-        # -- (b): nothing waits for the card inside a fused epoch
+        # -- (b): nothing waits for the card inside an epoch
         order = dev.order_matrix(seed=SEED + RESIDENT_EPOCHS)
-        epoch = fused._epoch_scan_fn()
+        epoch = epoch_step(resident)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            order_dev = fused._upload_order(order)
-            fused.state, out = epoch(fused.state, *arrays, order_dev)
+            order_dev = resident._upload_order(order)
+            resident.state, out = epoch(resident.state, *arrays, order_dev)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         sync_free = out[0].cpu().numpy()
@@ -3193,34 +3174,42 @@ def check_resident(card: str) -> dict:
             control = f"raised ({e})"
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        print(f"one fused epoch under set_sync_debug_mode('error'): no wait for the card; losses {sync_free.tolist()}; "
-              f"the control, a pageable copy of the rel-pos table under the same mode, {control}")
+        print(f"one epoch of make_epoch_scan_step under set_sync_debug_mode('error'): no wait for the card; losses "
+              f"{sync_free.tolist()}; the control, a pageable copy of the rel-pos table under the same mode, {control}")
         check(sync_free.shape == (steps,) and bool(np.isfinite(sync_free).all()), "the sync-checked epoch's losses")
         check(control.startswith("raised"), "set_sync_debug_mode('error') did not catch a pageable host-to-device copy")
-
-        # -- each route's time: in turns, then one epoch of each under the profiler
-        uncached = host_dataset(False)  # the host route decodes every batch, as a corpus larger than memory would
-        routes = {"fused": lambda: fused.train_device_epochs(dev, epochs=1),
-                  "per-step": lambda: fused.train(dev, epochs=1),
-                  "host": lambda: fused.train(uncached, epochs=1)}
-        walls = {name: [] for name in routes}
-        for name in (*routes, *reversed(routes)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            routes[name]()
-            torch.cuda.synchronize()
-            walls[name].append(time.perf_counter() - t0)
-        epoch_audio = float(host._lengths.sum()) / 16000
-        for name, fn in routes.items():
-            device, count = profiled_epoch(fn)
-            wall = float(np.mean(walls[name]))
-            print(f"resident phase, {name} route (Conformer-M bf16, B={BATCH}, {steps} steps an epoch): "
-                  + " / ".join(f"{w / steps * 1e3:.2f}" for w in walls[name]) + f" ms/step, "
-                  + " / ".join(f"{epoch_audio / w:.1f}" for w in walls[name]) + " audio-s/s (two epochs in turns); "
-                  f"one epoch under the profiler: device {device / steps:.2f} ms/step in {count / steps:.0f} "
-                  f"launches/step, busy share {device / 1e3 / wall:.3f} of the unprofiled epoch  [{card}]")
-        check(bool(np.isfinite(fused.history["train_loss"]).all()), "a timed epoch's loss is not finite")
     return launches
+
+
+class InResidentOrder:
+    """A host `BucketedDataset` read in a `DeviceResidentDataset`'s order:
+    each row of the resident ``order_matrix(seed)`` built by the host's
+    ``make_batch`` at its largest bucket, so that `Trainer.train`'s host
+    source takes the batches its resident source gathers."""
+
+    def __init__(self, host, dev):
+        self._host, self._dev = host, dev
+
+    def epoch(self, seed=None, shuffle=True):
+        for row in self._dev.order_matrix(seed, shuffle):
+            yield self._host.make_batch(row[row >= 0], max(self._host.bucket_boundaries))
+
+    def num_batches(self):
+        return self._dev.num_batches()
+
+    def __getattr__(self, name):
+        return getattr(self._host, name)
+
+
+def epoch_step(tr):
+    """`make_epoch_scan_step` over a trainer's model, with its augmentation,
+    CTC, ids and data-parallel layout."""
+    from nn_conformer_for_speech_recognition_tpu_torch.train.loop import make_epoch_scan_step
+
+    cfg = tr.train_cfg
+    return make_epoch_scan_step(tr.model, tr.feat_cfg, cfg.specaugment, tr.vocab.blank_id,
+                                use_specaugment=cfg.use_specaugment, ctc_impl=cfg.ctc_impl, batch_sharding=tr.shard,
+                                emit_ids=cfg.train_wer, pad_id=tr.vocab.pad_id, mesh=tr.mesh)
 
 
 DP_STEPS, DP_GLOO_BLOCKS = 3, 2  # train steps of the data-parallel phase; the gloo phase's encoder depth
@@ -3356,7 +3345,7 @@ def check_data_parallel(card: str) -> dict:
       step under the profiler); `evaluate` and `generate_labels` through
       their gathers, equal to the plain trainer's; a `utils.profiling.trace`
       of one step whose Chrome trace names every hand-written kernel the
-      step launched; the fused resident epoch under
+      step launched; a resident epoch of `make_epoch_scan_step` under
       ``set_sync_debug_mode('error')`` with the group on;
     * two processes on the one card over gloo (NCCL refuses two ranks on
       one GPU), Conformer-M's widths at `DP_GLOO_BLOCKS` blocks in float32,
@@ -3481,9 +3470,9 @@ def check_data_parallel(card: str) -> dict:
                   f"{sorted(traced)}, each named in the trace: {not missing}")
             check(traced and not missing, f"the trace does not name {missing}")
 
-            # -- the fused resident epoch with the group on: nothing waits for the card inside it
+            # -- a resident epoch with the group on: nothing waits for the card inside it
             dev = DeviceResidentDataset(train, sharding=data_shard())
-            epoch = dp._epoch_scan_fn()
+            epoch = epoch_step(dp)
             arrays = dev.device_arrays()
             order = dev.order_matrix(seed=SEED + 1)
             epoch(dp.state, *arrays, dp._upload_order(order[:1]))  # one step first: NCCL's setup may wait
@@ -3493,10 +3482,11 @@ def check_data_parallel(card: str) -> dict:
                 dp.state, out = epoch(dp.state, *arrays, dp._upload_order(order))
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            fused = out[0].cpu().numpy()
-            print(f"one fused resident epoch under set_sync_debug_mode('error') with the process group on: no wait "
-                  f"for the card; losses {fused.tolist()}")
-            check(fused.shape == (order.shape[0],) and bool(np.isfinite(fused).all()), "the sync-checked epoch")
+            sync_free = out[0].cpu().numpy()
+            print(f"one resident epoch of make_epoch_scan_step under set_sync_debug_mode('error') with the process "
+                  f"group on: no wait for the card; losses {sync_free.tolist()}")
+            check(sync_free.shape == (order.shape[0],) and bool(np.isfinite(sync_free).all()),
+                  "the sync-checked epoch")
         finally:
             dist.destroy_process_group()
         without_group.append(timings(timer, "without a process group (after it)"))
@@ -3735,6 +3725,7 @@ def repeat_worker(out_dir: str) -> None:
     from nn_conformer_for_speech_recognition_tpu_torch.data.datasets import BucketedDataset, load_manifest
     from nn_conformer_for_speech_recognition_tpu_torch.data.vocab import build_vocab
     from nn_conformer_for_speech_recognition_tpu_torch.models.asr import ConformerCTC
+    from nn_conformer_for_speech_recognition_tpu_torch.train import loop
     from nn_conformer_for_speech_recognition_tpu_torch.train.loop import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3767,7 +3758,7 @@ def repeat_worker(out_dir: str) -> None:
         model.register_forward_hook(on_output)
         for name, p in model.named_parameters():
             p.register_post_accumulate_grad_hook(lambda p, name=name: grads.__setitem__(name, bits(p.grad)))
-        put, core = tr._put, tr._train_core
+        put, make_core = tr._put, loop.make_feature_train_step
 
         def put_recorded(batch):
             record.clear()
@@ -3776,22 +3767,30 @@ def repeat_worker(out_dir: str) -> None:
             record[F2_STAGES[0]] = hash((bits(audio), bits(alen), bits(tgt), bits(tlen)))
             return audio, alen, tgt, tlen
 
-        def core_recorded(state, feats, frame_lengths, targets, target_lengths):
-            note(F2_STAGES[1], feats)
-            state, metrics = core(state, feats, frame_lengths, targets, target_lengths)
-            note(F2_STAGES[6], metrics["loss"])
-            losses.append(metrics["loss"].item())
-            params = dict(model.named_parameters())
-            for group in F2_GROUPS:
-                record[f"gradients: {group}"] = hash(tuple(grads[n] for n in names[group]))
-            for group in F2_GROUPS:
-                record[f"parameters after Adafactor: {group}"] = hash(tuple(bits(params[n]) for n in names[group]))
-            record["batch statistics"] = hash(tuple(bits(b) for _, b in model.named_buffers()))
-            steps.append({**{stage: record[stage] for stage in F2_STAGES}, **record})  # in the order computed
-            return state, metrics
+        def make_core_recorded(*args, **kwargs):  # the trainer builds its train step on this at its first step
+            core = make_core(*args, **kwargs)
 
-        tr._put, tr._train_core = put_recorded, core_recorded
-        tr.train(FirstBatches(data, F2_STEPS_PER_EPOCH), epochs=F2_EPOCHS)
+            def core_recorded(state, feats, frame_lengths, targets, target_lengths):
+                note(F2_STAGES[1], feats)
+                state, metrics = core(state, feats, frame_lengths, targets, target_lengths)
+                note(F2_STAGES[6], metrics["loss"])
+                losses.append(metrics["loss"].item())
+                params = dict(model.named_parameters())
+                for group in F2_GROUPS:
+                    record[f"gradients: {group}"] = hash(tuple(grads[n] for n in names[group]))
+                for group in F2_GROUPS:
+                    record[f"parameters after Adafactor: {group}"] = hash(tuple(bits(params[n]) for n in names[group]))
+                record["batch statistics"] = hash(tuple(bits(b) for _, b in model.named_buffers()))
+                steps.append({**{stage: record[stage] for stage in F2_STAGES}, **record})  # in the order computed
+                return state, metrics
+
+            return core_recorded
+
+        tr._put, loop.make_feature_train_step = put_recorded, make_core_recorded
+        try:
+            tr.train(FirstBatches(data, F2_STEPS_PER_EPOCH), epochs=F2_EPOCHS)
+        finally:
+            loop.make_feature_train_step = make_core
         torch.cuda.synchronize()
         with open(os.path.join(out_dir, "record.json"), "w") as f:
             json.dump({"losses": [x.hex() for x in losses], "steps": steps}, f)
@@ -4429,7 +4428,7 @@ def main() -> None:
     new_phases_s += time.perf_counter() - t_new
     print(f"the pretraining and LM phases with the H = 160 kernel check at B=16 × 30 s took {new_phases_s:.1f} s; "
           f"the script so far {time.perf_counter() - t0:.1f} s")
-    # device-resident data with the whole-epoch step and the native WAV decode, then the encoder variants
+    # device-resident data through train's two sources and the native WAV decode, then the encoder variants
     t_new = time.perf_counter()
     resident = check_resident(card)
     variants = check_encoder_variants(card)

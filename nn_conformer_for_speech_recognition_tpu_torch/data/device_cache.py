@@ -7,9 +7,10 @@ are uploaded once and every batch is gathered on the device
 build and no host-to-device copy of audio.  ``DeviceResidentDataset``
 duck-types `BucketedDataset`'s surface for `Trainer` (``epoch``,
 ``utterances``, ``vocab``, ``num_batches``, ``with_pseudo_labels``) and
-adds ``device_arrays`` and ``order_matrix`` for the whole-epoch step
-(`train.loop.Trainer.train_device_epochs`).  Its batches carry tensors on
-the dataset's device, and ``indices`` as numpy.
+adds ``device_arrays``, ``host_lengths`` and ``order_matrix`` for the
+trainer's resident source (`train.loop.Trainer.train`, which gathers each
+order row on the device).  Its batches carry tensors on the dataset's
+device, and ``indices`` as numpy.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ def gather_rows(audio, alen, targets, tlen, idx):
     """One batch (rows ``idx``) of the resident tensors.  ``idx`` entries
     of -1 are batch padding: their audio, lengths and targets are zeroed,
     so the train step's ``target_lengths == 0`` row weight ignores them.
-    Used per batch (`DeviceResidentDataset.epoch`) and by each step of the
-    whole-epoch step (`train.loop.make_epoch_scan_step`)."""
+    Used per batch (`DeviceResidentDataset.epoch`) and for each order row
+    a train step takes (`train.loop.gather_order_row`)."""
     rows = torch.clamp_min(idx, 0)
     valid = idx >= 0
     a = audio.index_select(0, rows)
@@ -49,8 +50,8 @@ class DeviceResidentDataset:
     ``sharding`` (a `parallel.mesh.DataShard`, data parallelism): every
     rank holds the whole corpus, as the JAX class placed by a replicated
     sharding does, and its trainer gathers the rank's rows of each global
-    batch from the one order matrix (`train.loop.make_epoch_scan_step`);
-    the batch size must divide over the ranks."""
+    batch from the one order matrix (`train.loop.gather_order_row`); the
+    batch size must divide over the ranks."""
 
     def __init__(self, source: BucketedDataset, pad_to: Optional[int] = None, device=None, sharding=None):
         from nn_conformer_for_speech_recognition_tpu_torch.parallel.mesh import DataShard
@@ -85,13 +86,14 @@ class DeviceResidentDataset:
                 tlen[i] = len(ids)
         self._audio_dev, self._alen_dev, self._targets_dev, self._tlen_dev = (
             torch.from_numpy(x).to(self.device) for x in (audio, alen, targets, tlen))
+        self.host_lengths = alen  # (n,) the resident rows' sample counts, read on the host without a wait
 
     def __len__(self) -> int:
         return len(self.utterances)
 
     def device_arrays(self):
         """(audio, alen, targets, tlen) resident on the device, for the
-        whole-epoch step (`train.loop.Trainer.train_device_epochs`)."""
+        trainer's resident source (`train.loop.Trainer.train`)."""
         return self._audio_dev, self._alen_dev, self._targets_dev, self._tlen_dev
 
     def order_matrix(self, seed: Optional[int] = None, shuffle: bool = True) -> np.ndarray:

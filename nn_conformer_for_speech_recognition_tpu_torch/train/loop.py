@@ -13,12 +13,13 @@ attention route) for the train step, eval mode for the others.
 
 `Trainer` is the host-side epoch loop around them: shuffled bucketed
 batches, per-epoch validation, WER on decoded strings, checkpoints with
-resume cursors, and the Noisy Student pseudo-label pass.  Over a
-device-resident dataset (`data/device_cache.py`) an epoch gathers its
-batches on the device and, through `Trainer.train_device_epochs`, runs as
-one call of `make_epoch_scan_step` (in chunks where mid-epoch checkpoints
-are asked for) that pulls nothing to the host before it ends.  It runs on
-the first CUDA device unless the caller asks for ``device="cpu"``.
+resume cursors, and the Noisy Student pseudo-label pass.  Its one epoch
+loop, `Trainer.train`, takes each step's batch from one of two sources: a
+host dataset's batches copied to the device, or, over a device-resident
+dataset (`data/device_cache.py`), the rows of the epoch's order matrix
+gathered on the device (`gather_order_row`).  Either way the epoch pulls
+nothing to the host before it ends.  It runs on the first CUDA device
+unless the caller asks for ``device="cpu"``.
 
 Parallelism (`parallel.mesh`): under a process group, one card a process,
 the trainer lays its processes out as ``('data', 'model')``
@@ -339,6 +340,21 @@ def make_train_step(
     return train_step
 
 
+def gather_order_row(arrays, idx: torch.Tensor, shard: Optional[DataShard] = None):
+    """The train step's batch for one row ``idx`` of an epoch's order matrix
+    on the device (-1: a batch-padding row): the rows of the resident
+    ``arrays`` (audio, alen, targets, tlen) gathered by `gather_rows`, then
+    the (B,) sample counts of the whole row.  With ``shard`` (a
+    data-parallel rank) only the rank's share of the row is gathered, and
+    the counts feed the augment step's draws for the global batch; without
+    one they are None."""
+    audio, alen, targets, tlen = arrays
+    if shard is None:
+        return (*gather_rows(audio, alen, targets, tlen, idx), None)
+    batch_lengths = alen.index_select(0, torch.clamp_min(idx, 0)) * (idx >= 0)
+    return (*gather_rows(audio, alen, targets, tlen, idx[shard.rows(idx.shape[0])]), batch_lengths)
+
+
 def make_epoch_scan_step(
     model: ConformerCTC,
     feat_cfg: FeatureConfig,
@@ -357,13 +373,14 @@ def make_epoch_scan_step(
     device-resident tensors (`data/device_cache.DeviceResidentDataset`).
     ``order`` is the (steps, B) int32 index tensor on the device (-1: a
     batch-padding row, `DeviceResidentDataset.order_matrix`); each row is
-    gathered on the device (`gather_rows`) and taken by one `make_train_step`
-    step.  The outputs stay on the device: (steps,) losses, (steps,)
-    valid-row counts (the weights of the epoch's mean loss) and, with
-    ``emit_ids``, the (steps, B, T') greedy ids of the training forwards.
-    Nothing is pulled to the host, so an epoch on the card is queued
-    without a wait; a call over one row at a time runs the same operations
-    in the same order as one call over all of them.
+    gathered on the device (`gather_order_row`) and taken by one
+    `make_train_step` step, as `Trainer.train`'s resident source does.  The
+    outputs stay on the device: (steps,) losses, (steps,) valid-row counts
+    (the weights of the epoch's mean loss) and, with ``emit_ids``, the
+    (steps, B, T') greedy ids of the training forwards.  Nothing is pulled
+    to the host, so an epoch on the card is queued without a wait.  (The
+    JAX package compiles the epoch into one ``lax.scan``; here it is a
+    Python loop over the same step.)
 
     ``batch_sharding`` (a `parallel.mesh.DataShard`, data parallelism):
     every rank holds the whole resident corpus and the same order, and
@@ -380,12 +397,7 @@ def make_epoch_scan_step(
         for idx in order:
             with annotate("train.gather"):
                 sizes.append((idx >= 0).sum())
-                if batch_sharding is None:
-                    batch = gather_rows(audio, alen, targets, tlen, idx)
-                else:
-                    batch_lengths = alen.index_select(0, torch.clamp_min(idx, 0)) * (idx >= 0)
-                    local = gather_rows(audio, alen, targets, tlen, idx[batch_sharding.rows(idx.shape[0])])
-                    batch = (*local, batch_lengths)
+                batch = gather_order_row((audio, alen, targets, tlen), idx, batch_sharding)
             state, metrics = step(state, *batch)
             losses.append(metrics["loss"])
             if emit_ids:
@@ -613,16 +625,14 @@ class Trainer:
         self._bind(model.to(self.device))
 
     def _bind(self, model: ConformerCTC) -> None:
-        """Makes ``model`` the trainer's and builds the steps over it."""
+        """Makes ``model`` the trainer's and builds the eval and predict
+        steps over it; its train steps are built at first use
+        (`_composed_step`)."""
         self.model = model
         blank, pad = self.vocab.blank_id, self.vocab.pad_id
         cfg = self.train_cfg
-        self._train_core = make_feature_train_step(
-            model, blank, ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=pad, shard=self.shard,
-            mesh=self.mesh)
-        # composed (augment ∘ core) steps, keyed by (use_specaugment,
-        # noise_std), so that a caller (the NST retrain) can override the
-        # augmentation per train() call
+        # train steps keyed by (use_specaugment, noise_std), so that a caller
+        # (the NST retrain) can override the augmentation per train() call
         self._step_cache: Dict[Tuple[bool, float], Callable] = {}
         lm = dict(lm_apply=self.lm_apply, lm_weight=self.lm_weight)
         self._eval_step = make_eval_step(model, self.feat_cfg, blank, pad, ctc_impl=cfg.ctc_impl, **lm)
@@ -630,7 +640,6 @@ class Trainer:
             model, self.feat_cfg, blank, beam=cfg.beam, prune=cfg.prune, max_label_len=cfg.max_label_len,
             ctc_impl=cfg.ctc_impl, **lm)
         self._predict_step = make_predict_step(model, self.feat_cfg, pad)
-        self._epoch_scans: Dict[Tuple[bool, float], Callable] = {}  # `_epoch_scan_fn`'s, over this model
 
     @property
     def state(self) -> Optional[TrainState]:
@@ -707,19 +716,16 @@ class Trainer:
                 put(batch.target_lengths, np.int32))
 
     def _composed_step(self, sa: bool, noise_std: float):
-        """(augment ∘ core) step for the given augmentation settings, cached
-        per (sa, noise_std)."""
+        """The train step (`make_train_step`: augment, then the feature train
+        step) for the given augmentation settings, cached per (sa,
+        noise_std)."""
         key = (bool(sa), float(noise_std))
         if key not in self._step_cache:
-            augment = make_augment_step(self.feat_cfg, self.train_cfg.specaugment,
-                                        use_specaugment=key[0], noise_std=key[1], shard=self.shard)
-            core = self._train_core
-
-            def step(state, audio, audio_lengths, targets, target_lengths, batch_lengths=None):
-                feats, frame_lengths = augment(state.generator, audio, audio_lengths, batch_lengths)
-                return core(state, feats, frame_lengths, targets, target_lengths)
-
-            self._step_cache[key] = step
+            cfg = self.train_cfg
+            self._step_cache[key] = make_train_step(
+                self.model, self.feat_cfg, cfg.specaugment, self.vocab.blank_id, use_specaugment=key[0],
+                noise_std=key[1], ctc_impl=cfg.ctc_impl, emit_ids=cfg.train_wer, pad_id=self.vocab.pad_id,
+                shard=self.shard, mesh=self.mesh)
         return self._step_cache[key]
 
     def _resolve_noise(self, add_noise: Optional[bool], noise_std: Optional[float]) -> float:
@@ -742,36 +748,33 @@ class Trainer:
         noise_std: Optional[float] = None,
         start_step: int = 0,
     ) -> Dict[str, List[float]]:
-        """Epoch loop; with ``checkpoint_manager`` a rotated checkpoint is
+        """The epoch loop; with ``checkpoint_manager`` a rotated checkpoint is
         written per epoch, keyed best-by-val-loss.  If
         ``TrainConfig.checkpoint_dir`` is set and no manager is passed, one
         is created there (rotation = ``keep_checkpoints``).
         ``add_noise``/``noise_std`` override the config's waveform-noise
         augmentation per call (`run_nst`'s noisy-student knob).
 
-        Epoch ``e`` draws its batches from ``dataset.epoch(seed =
-        train_cfg.seed + epoch_offset + e)``.  ``start_step`` skips that
-        many batches of the FIRST epoch: the resume cursor written by
+        Epoch ``e`` draws its batches from ``seed = train_cfg.seed +
+        epoch_offset + e``.  ``start_step`` skips that many batches of the
+        FIRST epoch: the resume cursor written by
         ``TrainConfig.checkpoint_every_steps`` checkpoints (the stream is a
         function of the seed, so skip-and-continue reproduces an
         uninterrupted run exactly; see `resume`).
 
-        Per-step losses stay on the device and are pulled once per epoch: a
-        ``.item()`` per step would serialise the host against the device.
-
-        A device-resident dataset (`data/device_cache.DeviceResidentDataset`)
-        goes through the epoch step of `train_device_epochs`, one order row
-        a call: the same operations in the same order, so the two give
-        bit-equal losses and state."""
+        The batches come from one of two sources, chosen by the dataset: a
+        host dataset's ``epoch(seed)``, read ahead and copied to the device
+        (`_host_batches`), or a device-resident dataset's
+        (`data/device_cache.DeviceResidentDataset`) order matrix, uploaded
+        once an epoch and gathered on the device row by row
+        (`_resident_batches`).  Per-step losses stay on the device and are
+        pulled once per epoch: a ``.item()`` per step would serialise the
+        host against the device."""
         self._require_state()
         sa = self.train_cfg.use_specaugment if use_specaugment is None else use_specaugment
-        noise = self._resolve_noise(add_noise, noise_std)
+        step_fn = self._composed_step(sa, self._resolve_noise(add_noise, noise_std))
         checkpoint_manager = self._auto_ckpt_manager(checkpoint_manager)
-        if hasattr(dataset, "device_arrays"):
-            return self._train_resident(
-                dataset, epochs, val_dataset=val_dataset, use_specaugment=sa, epoch_offset=epoch_offset,
-                checkpoint_manager=checkpoint_manager, fused=False, noise_std=noise, start_step=start_step)
-        step_fn = self._composed_step(sa, noise)
+        source = self._resident_batches if hasattr(dataset, "device_arrays") else self._host_batches
         want_wer = self.train_cfg.train_wer
         log_every = self.train_cfg.log_every
         num_batches = dataset.num_batches() if hasattr(dataset, "num_batches") else None
@@ -779,32 +782,19 @@ class Trainer:
 
         for epoch in range(epochs):
             t0 = time.time()
-            losses = M.Mean()
-            nan_steps = 0
-            audio_seconds = 0.0
-            stream = dataset.epoch(seed=self.train_cfg.seed + epoch_offset + epoch)
             skip = start_step if epoch == 0 else 0
-            if skip:
-                stream = itertools.islice(stream, skip, None)
             step_losses, step_sizes = [], []
-            step_ids = []  # (ids on the device, indices) when train_wer is on
+            step_ids, step_rows = [], []  # when train_wer is on: the ids on the device, the rank's rows
+            audio_seconds = 0.0
             step_i = skip
-            batches = PrefetchIterator(stream)
-            while True:
-                with annotate("train.data_wait"):
-                    batch = next(batches, None)
-                if batch is None:  # the epoch's end
-                    break
-                with annotate("train.put"):
-                    local = self._local(batch)
-                    audio, alen, tgt, tlen = self._put(local)
-                    batch_lengths = self._batch_lengths(batch)
-                self.state, metrics = step_fn(self.state, audio, alen, tgt, tlen, batch_lengths)
+            for args, size, rows, samples in source(dataset, self.train_cfg.seed + epoch_offset + epoch, skip):
+                self.state, metrics = step_fn(self.state, *args)
                 step_losses.append(metrics["loss"])
-                step_sizes.append(batch.size)
+                step_sizes.append(size)
                 if want_wer:
-                    step_ids.append((metrics["ids"], local.indices.copy()))
-                audio_seconds += float(batch.audio_lengths.sum()) / self.feat_cfg.sample_rate
+                    step_ids.append(metrics["ids"])
+                    step_rows.append(rows)
+                audio_seconds += samples / self.feat_cfg.sample_rate
                 step_i += 1
                 if ckpt_every and checkpoint_manager is not None and step_i % ckpt_every == 0:
                     checkpoint_manager.save(
@@ -816,18 +806,23 @@ class Trainer:
                              f"({audio_seconds / max(time.time() - t0, 1e-9):.1f} audio-s/s)")
             with annotate("train.pull"):
                 pulled = torch.stack(step_losses).cpu().numpy() if step_losses else np.zeros((0,), np.float32)
+                step_ids = [ids.cpu().numpy() for ids in step_ids]
             with annotate("train.epilogue"):
+                losses = M.Mean()
+                nan_steps = 0
                 for loss, size in zip(pulled, step_sizes):
                     if np.isnan(loss):
                         nan_steps += 1
                     else:
                         losses.update(float(loss), size)
+                # an epoch without a finite step has no mean loss
+                mean_loss = losses.result() if losses.count else float("nan")
                 dt = time.time() - t0
-                self.history["train_loss"].append(losses.result())
-                msg = (f"epoch {epoch_offset + epoch}: loss={losses.result():.4f} "
+                self.history["train_loss"].append(mean_loss)
+                msg = (f"epoch {epoch_offset + epoch}: loss={mean_loss:.4f} "
                        f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s)")
                 if want_wer:
-                    twer = self._train_wer_from_steps(dataset, step_ids)
+                    twer = self._train_wer_from_steps(dataset, zip(step_ids, step_rows))
                     self.history["train_wer"].append(twer)
                     msg += f" train_wer={100 * twer:.2f}"
                 if nan_steps:
@@ -843,6 +838,42 @@ class Trainer:
                     checkpoint_manager.save(
                         self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
         return self.history
+
+    def _host_batches(self, dataset: BucketedDataset, seed: int, skip: int):
+        """The host source of an epoch: ``dataset.epoch(seed)``'s batches
+        after the first ``skip``, read ahead (`PrefetchIterator`), the rank's
+        rows copied to the device.  Yields (the step's arguments, the
+        batch's valid rows, the rank's row indices, the batch's audio
+        samples)."""
+        stream = dataset.epoch(seed=seed)
+        batches = PrefetchIterator(itertools.islice(stream, skip, None) if skip else stream)
+        while True:
+            with annotate("train.data_wait"):
+                batch = next(batches, None)
+            if batch is None:  # the epoch's end
+                return
+            with annotate("train.put"):
+                local = self._local(batch)
+                args = (*self._put(local), self._batch_lengths(batch))
+            yield args, batch.size, local.indices.copy(), int(batch.audio_lengths.sum())
+
+    def _resident_batches(self, dataset, seed: int, skip: int):
+        """The resident source of an epoch: the order matrix of ``seed``
+        without its first ``skip`` rows, uploaded once, each row gathered on
+        the device (`gather_order_row`, the rank's share of it under a
+        process group).  Yields what `_host_batches` yields; the counts come
+        from the order and the dataset's host lengths, so nothing waits for
+        the device."""
+        with annotate("train.order"):
+            order = dataset.order_matrix(seed=seed)[skip:]
+            order_dev = self._upload_order(order)
+        arrays, lengths = dataset.device_arrays(), dataset.host_lengths
+        share = slice(None) if self.shard is None else self.shard.rows(order.shape[1])
+        for idx, row in zip(order_dev, order):
+            with annotate("train.gather"):
+                args = gather_order_row(arrays, idx, self.shard)
+            valid = row[row >= 0]
+            yield args, len(valid), row[share], int(lengths[valid].sum())
 
     def resume(
         self,
@@ -884,13 +915,13 @@ class Trainer:
         return checkpoint_manager
 
     def _train_wer_from_steps(self, dataset, step_ids) -> float:
-        """Corpus WER of the training forward's greedy decodes, pulled at
-        epoch end; under a process group each rank scores its rows and the
-        WERs are reduced weighted by their reference words."""
+        """Corpus WER of the training forward's greedy decodes, (ids, row
+        indices) a step, pulled at epoch end; under a process group each
+        rank scores its rows and the WERs are reduced weighted by their
+        reference words."""
         refs: List[str] = []
         hyps: List[str] = []
-        for ids_dev, indices in step_ids:
-            ids = ids_dev.cpu().numpy()
+        for ids, indices in step_ids:
             for row, idx in enumerate(indices):
                 if idx < 0:
                     continue
@@ -901,19 +932,6 @@ class Trainer:
             twer, total = MH.gather_metric(M.wer(refs, hyps), words)
             return twer if total else float("nan")
         return M.wer(refs, hyps) if refs else float("nan")
-
-    def _epoch_scan_fn(self, use_specaugment: Optional[bool] = None, noise_std: float = 0.0):
-        """`make_epoch_scan_step` over the trainer's model, cached per
-        (use_specaugment, noise_std)."""
-        sa = self.train_cfg.use_specaugment if use_specaugment is None else use_specaugment
-        key = (bool(sa), float(noise_std))
-        if key not in self._epoch_scans:
-            cfg = self.train_cfg
-            self._epoch_scans[key] = make_epoch_scan_step(
-                self.model, self.feat_cfg, cfg.specaugment, self.vocab.blank_id, use_specaugment=key[0],
-                noise_std=key[1], ctc_impl=cfg.ctc_impl, batch_sharding=self.shard, emit_ids=cfg.train_wer,
-                pad_id=self.vocab.pad_id, mesh=self.mesh)
-        return self._epoch_scans[key]
 
     def _upload_order(self, order: np.ndarray) -> torch.Tensor:
         """An epoch's order matrix on the device: on the card one copy from
@@ -935,100 +953,15 @@ class Trainer:
         noise_std: Optional[float] = None,
         start_step: int = 0,
     ) -> Dict[str, List[float]]:
-        """Epoch loop over a `DeviceResidentDataset`, one call of
-        `make_epoch_scan_step` an epoch: the host uploads the epoch's order
+        """`train` over a `DeviceResidentDataset`, under the JAX package's name
+        for its whole-epoch route: the host uploads each epoch's order
         matrix and pulls the per-step losses once the epoch is queued;
-        nothing else crosses.  Bit-equal to `train` over the same dataset,
-        with the same per-epoch validation and checkpoints.  With
-        ``TrainConfig.checkpoint_every_steps`` and a checkpoint manager the
-        epoch runs in chunks of that many steps, so that the mid-epoch
-        cursors can be written."""
-        return self._train_resident(
+        nothing else crosses.  Any other dataset raises a TypeError."""
+        if not hasattr(dataset, "device_arrays"):
+            raise TypeError(f"train_device_epochs needs a device-resident dataset, got {type(dataset).__name__}")
+        return self.train(
             dataset, epochs, val_dataset=val_dataset, use_specaugment=use_specaugment, epoch_offset=epoch_offset,
-            checkpoint_manager=self._auto_ckpt_manager(checkpoint_manager), fused=True,
-            noise_std=self._resolve_noise(add_noise, noise_std), start_step=start_step)
-
-    def _train_resident(
-        self,
-        dataset,
-        epochs: int,
-        val_dataset: Optional[BucketedDataset] = None,
-        use_specaugment: Optional[bool] = None,
-        epoch_offset: int = 0,
-        checkpoint_manager=None,
-        fused: bool = True,
-        noise_std: float = 0.0,
-        start_step: int = 0,
-    ) -> Dict[str, List[float]]:
-        """The epoch loop over device-resident tensors.  ``fused=True``
-        calls the epoch step once an epoch (or once a chunk of
-        ``checkpoint_every_steps`` where mid-epoch cursors are written);
-        ``fused=False`` once an order row.  ``start_step`` drops the first
-        epoch's consumed rows (the resume cursor; the order is a function
-        of the seed), and ``TrainConfig.train_wer`` scores the ids the
-        epoch step emits."""
-        self._require_state()
-        epoch_fn = self._epoch_scan_fn(use_specaugment, noise_std)
-        arrays = dataset.device_arrays()
-        want_wer = self.train_cfg.train_wer
-        ckpt_every = self.train_cfg.checkpoint_every_steps
-        alen_host = None  # one host copy, for the audio-seconds of every epoch
-        sample_rate = self.feat_cfg.sample_rate
-        for epoch in range(epochs):
-            with annotate("train.order"):
-                t0 = time.time()
-                if alen_host is None:
-                    alen_host = arrays[1].cpu().numpy()
-                order = dataset.order_matrix(seed=self.train_cfg.seed + epoch_offset + epoch)
-                skip = start_step if epoch == 0 else 0
-                order = order[skip:]
-                audio_seconds = float(alen_host[order[order >= 0]].sum()) / sample_rate
-                if not fused:
-                    chunk = 1
-                elif ckpt_every and checkpoint_manager is not None:
-                    chunk = ckpt_every
-                else:
-                    chunk = max(order.shape[0], 1)
-                order_dev = self._upload_order(order)
-            step_out = []
-            step_i = skip
-            for s0 in range(0, order.shape[0], chunk):
-                self.state, out = epoch_fn(self.state, *arrays, order_dev[s0 : s0 + chunk])
-                step_out.append(out)
-                step_i += min(chunk, order.shape[0] - s0)
-                if ckpt_every and checkpoint_manager is not None and step_i % ckpt_every == 0:
-                    checkpoint_manager.save(self.state, iterator={"epoch": epoch_offset + epoch, "step": step_i})
-            with annotate("train.pull"):
-                outs = [torch.cat([o[i] for o in step_out]).cpu() for i in range(len(step_out[0]))] if step_out else []
-            with annotate("train.epilogue"):
-                losses, sizes = (outs[0].numpy(), outs[1].numpy()) if outs else (np.zeros((0,), np.float32),) * 2
-                dt = time.time() - t0
-                # the mean over the steps whose loss is not NaN, weighted by their valid rows (`train`'s M.Mean)
-                ok = ~np.isnan(losses)
-                wsum = float((sizes * ok).sum())
-                mean_loss = float((losses[ok] * sizes[ok]).sum() / wsum) if wsum else float("nan")
-                nan_steps = int((~ok).sum())
-                self.history["train_loss"].append(mean_loss)
-                msg = (f"epoch {epoch_offset + epoch}: loss={mean_loss:.4f} "
-                       f"({audio_seconds / max(dt, 1e-9):.1f} audio-s/s{', fused epoch' if fused else ''})")
-                if want_wer:
-                    rows = order if self.shard is None else order[:, self.shard.rows(order.shape[1])]
-                    twer = self._train_wer_from_steps(dataset, list(zip(outs[2], rows)) if outs else [])
-                    self.history["train_wer"].append(twer)
-                    msg += f" train_wer={100 * twer:.2f}"
-                if nan_steps:
-                    msg += f" [{nan_steps} NaN steps]"
-                if val_dataset is not None:
-                    vloss, vwer = self.evaluate(val_dataset)
-                    self.history["val_loss"].append(vloss)
-                    self.history["val_wer"].append(vwer)
-                    msg += f" val_loss={vloss:.4f} val_wer={100 * vwer:.2f}"
-                self.log(msg)
-                if checkpoint_manager is not None:
-                    metric = self.history["val_loss"][-1] if val_dataset is not None else None
-                    checkpoint_manager.save(
-                        self.state, metric=metric, iterator={"epoch": epoch_offset + epoch + 1, "step": 0})
-        return self.history
+            checkpoint_manager=checkpoint_manager, add_noise=add_noise, noise_std=noise_std, start_step=start_step)
 
     # ------------------------------------------------------------------ eval
 

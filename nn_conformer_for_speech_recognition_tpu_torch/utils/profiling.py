@@ -34,9 +34,10 @@ an exception leaves counts nothing.  Spans are opened on one thread, the
 one that drives the steps.
 
 The spans, each path's contiguous over the host's work of a call: training
-(`train.loop.Trainer.train`, `Trainer.train_device_epochs`) ``train.order``,
-then a step's ``train.gather`` (or ``train.data_wait`` and ``train.put``
-over a stream), ``train.augment``, ``train.forward``, ``train.backward``,
+(`train.loop.Trainer.train`, the one epoch loop, also reached as
+`Trainer.train_device_epochs`) ``train.order`` an epoch and a step's
+``train.gather`` over resident data (``train.data_wait`` and ``train.put``
+over a host dataset), then ``train.augment``, ``train.forward``, ``train.backward``,
 ``train.grad_norm``, ``train.optimizer`` (and ``train.greedy`` where the
 step emits its ids), then ``train.pull``, ``train.epilogue``; labelling
 (`Trainer.generate_labels`) a batch's ``label.input``, ``label.forward``,

@@ -217,7 +217,7 @@ def scenario_norm_and_loss(args):
 
 def scenario_trainer(args):
     """Two epochs of `Trainer.train` with validation, `evaluate` (with the
-    texts), `generate_labels`, one `run_nst` generation, and a fused
+    texts), `generate_labels`, one `run_nst` generation, and a
     resident epoch with SpecAugment and waveform noise from the same start."""
     from nn_conformer_for_speech_recognition_tpu_torch import config as TC
     from nn_conformer_for_speech_recognition_tpu_torch.data.device_cache import DeviceResidentDataset
@@ -478,7 +478,7 @@ def scenario_tensor_parallel(args):
                 restored = tp_trainer(vocab, args["tp_state_dict"], impl, mesh_cfg)
                 restore_state(other, restored.state)
                 tensors.update({f"restored.{k}": v for k, v in whole_state(restored).items()})
-    resident = tp_trainer(vocab, args["tp_state_dict"], "xla", mesh_cfg)  # a fused resident epoch, split
+    resident = tp_trainer(vocab, args["tp_state_dict"], "xla", mesh_cfg)  # a resident epoch, split
     history = resident.train_device_epochs(DeviceResidentDataset(data["train"], device="cpu", sharding=resident.shard), 1)
     result["resident"] = {k: list(v) for k, v in history.items()}
     tensors.update({f"resident.{k}": v for k, v in whole_state(resident).items() if k.startswith("model.")})

@@ -8,7 +8,7 @@ One launch of two workers and one in-process run of the same scenario
 the masked BatchNorm on a ragged batch split over the ranks, `_batch_loss`
 with one rank holding only batch padding, two epochs of `Trainer.train`
 with validation, `evaluate` with its texts, `generate_labels`, one
-`run_nst` generation (SpecAugment on), a fused resident epoch with
+`run_nst` generation (SpecAugment on), a resident epoch with
 SpecAugment and waveform noise, and one step's gradient.  One ``torchrun``
 launch of ``cli train``.
 

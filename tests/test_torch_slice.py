@@ -185,7 +185,7 @@ def test_port_never_imports_jax():
     imports (``train.loop``, ``train.checkpoint``, ``nst.driver`` and
     ``data.*`` among them), and on the CPU a predict step, one train step, a
     two-step `Trainer.train` with a checkpoint, one `run_nst` generation, a
-    beam-search `evaluate`, a fused epoch over a device-resident dataset
+    beam-search `evaluate`, an epoch over a device-resident dataset
     (the native decoder loaded), the bias-input attention op and the
     command line (``train`` then ``eval --decode beam``) run."""
     code = """

@@ -152,8 +152,7 @@ def test_a_stop_iteration_inside_a_step_is_raised(corpus, monkeypatch, route, pr
     trainer = _trainer(corpus[0])
     if route == "labels":
         monkeypatch.setattr(trainer, "_predict_step", _raise_stop)
-    else:  # the stream's step is built on the trainer's core, the resident route's epoch step anew
-        monkeypatch.setattr(trainer, "_train_core", _raise_stop)
+    else:  # both sources' step is built at the first train() call, on `make_feature_train_step`
         monkeypatch.setattr(L, "make_feature_train_step", lambda *a, **k: _raise_stop)
     P.reset_phases()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) if profiled else P.OFF:
@@ -185,33 +184,33 @@ def _card_trainer(vocab):
 @pytest.mark.cuda
 def test_step_leaves_cover_the_step_on_the_card(corpus, monkeypatch):
     """On the card the device times of a step's spans add up to at least
-    95% of the step's own event span, around the resident route's epoch
-    step of one order row."""
+    95% of the step's own event span, around the train step the resident
+    source's rows go to."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     vocab, data = corpus
     trainer = _card_trainer(vocab)
     resident = DeviceResidentDataset(data["train"], device="cuda")
     trainer.train(resident, epochs=1)  # builds and warms the kernels
-    real, pairs = trainer._epoch_scan_fn, []
+    real, pairs = trainer._composed_step, []
 
-    def timed_scan_fn(*args, **kwargs):
-        epoch_step = real(*args, **kwargs)
+    def timed_composed_step(*args, **kwargs):
+        step = real(*args, **kwargs)
 
         def timed(*step_args):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = epoch_step(*step_args)
+            out = step(*step_args)
             end.record()
             pairs.append((start, end))
             return out
 
         return timed
 
-    monkeypatch.setattr(trainer, "_epoch_scan_fn", timed_scan_fn)
+    monkeypatch.setattr(trainer, "_composed_step", timed_composed_step)
     _, _, table = _profiled(lambda: trainer.train(resident, epochs=1))
     steps = sum(start.elapsed_time(end) for start, end in pairs) / 1e3
-    spans = sum(table[k][2] for k in ("train.gather", *STEP_SPANS))
+    spans = sum(table[k][2] for k in STEP_SPANS)
     assert len(pairs) == table["train.optimizer"][0] == 2 and spans >= 0.95 * steps, (steps, table)
     assert np.isfinite(trainer.history["train_loss"][-1])
 

@@ -258,7 +258,7 @@ def test_split_step_matches_the_jax_trainer(two, jax_step):
 
 def test_evaluate_labels_and_the_resident_epoch_split(one, two):
     """`evaluate` with its texts and `generate_labels` after the split
-    step, and a fused resident epoch of the split model, against one
+    step, and a resident epoch of the split model, against one
     process: losses rtol 1e-5, WER, texts and labels equal."""
     for rank in two:
         np.testing.assert_allclose(rank["eval"][0], one["eval"][0], rtol=1e-5)
